@@ -1,0 +1,138 @@
+"""Algorithm registry, the decode entry point, timing and memory reporting.
+
+Counterpart of ``flash_viterbi_tpu/algorithms/base.py``.  PyTorch runs
+eagerly, so a decoder is a plain function on tensors; ``decode()`` uploads
+the tables to an explicit device, builds the kernels, warms up, and times
+one synchronized decode.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..models.hmm import HMM, LogHMM
+from ..ops import cuda as cuda_ops
+from ..runtime import build as kernel_build
+
+_REGISTRY: dict[str, Callable[..., "Decoder"]] = {}
+
+
+def register(name: str):
+    def deco(factory):
+        _REGISTRY[name] = factory
+        return factory
+
+    return deco
+
+
+def available_algorithms() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+@dataclasses.dataclass
+class DecodeResult:
+    path: np.ndarray  # (T,) int32 hidden state path
+    time_s: float  # one synchronized decode, excluding upload, build and warmup
+    memory_bytes: int  # analytic peak working set (reference-style accounting)
+    algorithm: str
+    extra: dict = dataclasses.field(default_factory=dict)
+
+    def reference_stdout(self) -> str:
+        """The reference output protocol (``FLASH_Viterbi_multithread.c:117-124,378``)."""
+        body = " ".join(str(int(s)) for s in self.path)
+        return f"time: {self.time_s:.6f} \npath: [{body} ]\nmemory: {self.memory_bytes}\n"
+
+
+class Decoder:
+    """A configured decoder: ``fn(logA, logB, logPi, y)`` on tensors of
+    one device returns the (T,) int32 path on that device."""
+
+    def __init__(self, name: str, fn: Callable, static: dict, memory_fn: Callable):
+        self.name = name
+        self._fn = fn
+        self.static = static
+        self._memory_fn = memory_fn
+
+    def __call__(self, logA, logB, logPi, y) -> torch.Tensor:
+        return self._fn(logA, logB, logPi, y)
+
+    def analytic_memory(self, K: int, T: int) -> int:
+        """Reference-style analytic working set at logical shape (K, T)."""
+        return int(self._memory_fn(K=K, T=T, **self.static))
+
+
+def build(algorithm: str, **static) -> Decoder:
+    if algorithm not in _REGISTRY:
+        raise KeyError(f"unknown algorithm {algorithm!r}; have {available_algorithms()}")
+    return _REGISTRY[algorithm](**static)
+
+
+def resolve_device(device) -> torch.device:
+    """The device to decode on; raises if CUDA is asked for and absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device!r}: use 'cpu' or 'cuda'")
+    return dev
+
+
+def decode(
+    hmm: HMM | LogHMM,
+    y: np.ndarray,
+    algorithm: str = "flash",
+    pad_to: int = 128,
+    warmup: bool = True,
+    device="cuda",
+    **static: Any,
+) -> DecodeResult:
+    """End-to-end decode of one observation sequence on ``device``.
+
+    Computes the log tables once, uploads them, pads K with dead states to
+    a multiple of ``pad_to``, builds the CUDA kernels (on ``cuda``), and
+    times one synchronized decode after an optional warmup: with CUDA
+    events on the card, with ``perf_counter`` on the CPU.  ``extra`` holds
+    the kernel launches each wrapper made during the timed decode.
+    """
+    dev = resolve_device(device)
+    dec = build(algorithm, **static)
+    lh = hmm if isinstance(hmm, LogHMM) else hmm.log()
+    K = lh.K
+    lh = LogHMM(lh.logA.to(dev), lh.logB.to(dev), lh.logPi.to(dev), K).padded(pad_to)
+    T = int(len(y))
+    yd = torch.as_tensor(np.asarray(y, dtype=np.int64), device=dev)
+    args = (lh.logA, lh.logB, lh.logPi, yd)
+
+    if dev.type == "cuda":
+        kernel_build.kernels()
+    if warmup:
+        dec(*args)
+    before = cuda_ops.launch_counts()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        path = dec(*args)
+        end.record()
+        end.synchronize()
+        time_s = start.elapsed_time(end) / 1e3
+    else:
+        t0 = time.perf_counter()
+        path = dec(*args)
+        time_s = time.perf_counter() - t0
+    after = cuda_ops.launch_counts()
+    return DecodeResult(
+        path=path.cpu().numpy()[:T],
+        time_s=time_s,
+        memory_bytes=dec.analytic_memory(K=K, T=T),
+        algorithm=algorithm,
+        extra={"K": K, "K_padded": lh.Kp, "T": T, "device": str(dev),
+               "launches": {k: after[k] - before[k] for k in after},
+               **dec.static},
+    )

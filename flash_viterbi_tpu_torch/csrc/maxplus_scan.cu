@@ -1,0 +1,190 @@
+// Max-plus trellis scan for Hopper (sm_90a): the N-lane forward recursion
+//
+//     d_t[n, i] = max_k (d_{t-1}[n, k] + logA[k, i]) + emit_t[n, i]
+//     ptr_t[n, i] = lowest k attaining that max          (WITH_PTR)
+//     deltas[t][n, :] = d_{t-1}[n, :], the carry before step t   (!WITH_PTR)
+//
+// Replaces flash_viterbi_tpu/ops/pallas/maxplus.py: maxplus_scan
+// (_scan_kernel, and _scan_res_kernel for K <= 1024) and
+// maxplus_scan_deltas (_scan_deltas_kernel, _scan_res_deltas_kernel).
+// One kernel serves every K; the ragged column edge is masked, so K need
+// not be a multiple of anything.
+//
+// What bounds it: every step reads all of logA (K*K*4 bytes; 64 MiB at
+// K=4096, more than the 50 MB L2), so a step streams logA from HBM.  The
+// design reads that stream once per step for all lanes of a launch: a
+// block owns 32 destination columns for up to 16 lanes, each thread keeps
+// its lanes' running (max, argmax) in registers, and the block's 16 warps
+// split the source rows so 128 blocks x 512 threads keep enough loads in
+// flight.  A warp reads 32 neighbouring columns of one logA row
+// (coalesced); the carry slice of each source chunk is staged in shared
+// memory and read as a warp-wide broadcast.  The host launches one kernel
+// per step, ping-ponging the carry between two buffers.
+//
+// Numerics: fp32 add and max only, emission added after the max, and the
+// lowest-index tie rule of argmax.cuh; bit-identical to the plain version.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "argmax.cuh"
+
+namespace {
+
+constexpr int TI = 32;        // destination columns per block: one per thread of a warp
+constexpr int WK = 16;        // warps per block, splitting the source dimension
+constexpr int KC = 256;       // source rows staged per chunk
+constexpr int RPW = KC / WK;  // rows of a chunk each warp takes
+constexpr int LMAX = 16;      // lanes per launch; more lanes go in groups of 16
+static_assert(KC % WK == 0, "chunk must split evenly across warps");
+
+template <int L, bool WITH_PTR>
+__global__ void __launch_bounds__(TI * WK)
+scan_step(const float* __restrict__ logA, const float* __restrict__ dcur,
+          const float* __restrict__ emit, float* __restrict__ dnext,
+          int* __restrict__ ptr, float* __restrict__ dhist, int K, int nl) {
+    __shared__ float s_d[L][KC];
+    __shared__ float s_v[WK][TI];
+    __shared__ int s_a[WK][TI];
+
+    const int tx = threadIdx.x;
+    const int w = threadIdx.y;
+    const int tid = w * TI + tx;
+    const int i = blockIdx.x * TI + tx;
+    const int ic = i < K ? i : K - 1;  // ragged edge: clamp the read, mask the write
+
+    float best[L];
+    int arg[L];
+#pragma unroll
+    for (int n = 0; n < L; ++n) {
+        best[n] = -INFINITY;
+        arg[n] = K;
+    }
+
+    for (int k0 = 0; k0 < K; k0 += KC) {
+        __syncthreads();  // every warp is done with the previous chunk
+        for (int j = tid; j < L * KC; j += TI * WK) {
+            const int n = j / KC;
+            const int kk = j - n * KC;
+            const int k = k0 + kk;
+            s_d[n][kk] = (n < nl && k < K) ? dcur[(size_t)n * K + k] : -INFINITY;
+        }
+        __syncthreads();
+
+        // rows past K read as -inf: their candidates never beat a real one
+        // (a lower value, or an equal -inf with a higher index)
+        const int kb = k0 + w * RPW;
+        float a[RPW];
+#pragma unroll
+        for (int r = 0; r < RPW; ++r) {
+            const int k = kb + r;
+            a[r] = k < K ? __ldg(logA + (size_t)k * K + ic) : -INFINITY;
+        }
+#pragma unroll
+        for (int r = 0; r < RPW; ++r) {
+#pragma unroll
+            for (int n = 0; n < L; ++n) {
+                const float v = s_d[n][w * RPW + r] + a[r];
+                if (WITH_PTR) {
+                    if (fvt_better(v, kb + r, best[n], arg[n])) {
+                        best[n] = v;
+                        arg[n] = kb + r;
+                    }
+                } else {
+                    best[n] = fmaxf(best[n], v);
+                }
+            }
+        }
+    }
+
+    // combine the WK partial results of each lane, one lane at a time
+#pragma unroll
+    for (int n = 0; n < L; ++n) {
+        __syncthreads();
+        s_v[w][tx] = best[n];
+        if (WITH_PTR) s_a[w][tx] = arg[n];
+        __syncthreads();
+        if (w == 0 && n < nl && i < K) {
+            float bv = s_v[0][tx];
+            int ba = WITH_PTR ? s_a[0][tx] : 0;
+            for (int ww = 1; ww < WK; ++ww) {
+                const float v = s_v[ww][tx];
+                if (WITH_PTR) {
+                    const int a = s_a[ww][tx];
+                    if (fvt_better(v, a, bv, ba)) {
+                        bv = v;
+                        ba = a;
+                    }
+                } else {
+                    bv = fmaxf(bv, v);
+                }
+            }
+            const size_t o = (size_t)n * K + i;
+            dnext[o] = bv + emit[o];
+            if (WITH_PTR) {
+                ptr[o] = ba;
+            } else {
+                dhist[o] = dcur[o];
+            }
+        }
+    }
+}
+
+template <bool WITH_PTR>
+void launch_step(int nl, dim3 grid, dim3 block, cudaStream_t stream,
+                 const float* logA, const float* dcur, const float* emit,
+                 float* dnext, int* ptr, float* dhist, int K) {
+    if (nl <= 1) {
+        scan_step<1, WITH_PTR><<<grid, block, 0, stream>>>(logA, dcur, emit, dnext, ptr, dhist, K, nl);
+    } else if (nl <= 2) {
+        scan_step<2, WITH_PTR><<<grid, block, 0, stream>>>(logA, dcur, emit, dnext, ptr, dhist, K, nl);
+    } else if (nl <= 4) {
+        scan_step<4, WITH_PTR><<<grid, block, 0, stream>>>(logA, dcur, emit, dnext, ptr, dhist, K, nl);
+    } else if (nl <= 8) {
+        scan_step<8, WITH_PTR><<<grid, block, 0, stream>>>(logA, dcur, emit, dnext, ptr, dhist, K, nl);
+    } else {
+        scan_step<16, WITH_PTR><<<grid, block, 0, stream>>>(logA, dcur, emit, dnext, ptr, dhist, K, nl);
+    }
+}
+
+}  // namespace
+
+// The whole scan: Tm launches per group of up to 16 lanes.  Layouts are
+// those of the JAX functions: logA (K, K), emits (Tm, N, K), delta0 (N, K),
+// dfin (N, K), ptrs (Tm, N, K) int32 or deltas (Tm, N, K) float32 -- pass
+// exactly one of the two; the other is null.  work holds 2*N*K floats for
+// the carry ping-pong.  Tm >= 1.  Returns the first launch error.
+extern "C" int fvt_maxplus_scan(const float* logA, const float* emits,
+                                const float* delta0, float* dfin, int* ptrs,
+                                float* deltas, float* work, int Tm, int N,
+                                int K, void* stream, long long* launches) {
+    const bool with_ptr = ptrs != nullptr;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const dim3 block(TI, WK);
+    const dim3 grid((K + TI - 1) / TI);
+    const size_t NK = (size_t)N * K;
+    for (int g0 = 0; g0 < N; g0 += LMAX) {
+        const int nl = N - g0 < LMAX ? N - g0 : LMAX;
+        const size_t off = (size_t)g0 * K;
+        for (int t = 0; t < Tm; ++t) {
+            const float* src = t == 0 ? delta0 + off : work + ((t - 1) & 1) * NK + off;
+            float* dst = t == Tm - 1 ? dfin + off : work + (t & 1) * NK + off;
+            const size_t st = (size_t)t * NK + off;
+            if (with_ptr) {
+                launch_step<true>(nl, grid, block, s, logA, src, emits + st, dst,
+                                  ptrs + st, nullptr, K);
+            } else {
+                launch_step<false>(nl, grid, block, s, logA, src, emits + st, dst,
+                                   nullptr, deltas + st, K);
+            }
+            const cudaError_t e = cudaGetLastError();
+            if (e != cudaSuccess) return static_cast<int>(e);
+            ++*launches;
+        }
+    }
+    return 0;
+}
+
+extern "C" const char* fvt_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,20 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version.
+
+Importing this package never imports ``triton`` and never runs ``nvcc``;
+the kernel library is built at the first launch on a CUDA tensor.
+"""
+
+from .backtrack import argmax_walk, backtrack_batched
+from .maxplus import maxplus_scan, maxplus_scan_deltas
+
+WRAPPERS = (maxplus_scan, maxplus_scan_deltas, backtrack_batched, argmax_walk)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches made by each wrapper since the last reset."""
+    return {w.__name__: w.launches for w in WRAPPERS}
+
+
+def reset_launches() -> None:
+    for w in WRAPPERS:
+        w.launches = 0

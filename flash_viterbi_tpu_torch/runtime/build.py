@@ -1,0 +1,131 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use, load with ctypes.
+
+All ``csrc/*.cu`` sources compile into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds, not minutes).
+It lands in the package's ``build/`` directory, which git ignores, and is
+rebuilt when any source is newer than it.  Importing this module never
+runs ``nvcc``: only :func:`kernels` does, and only the CUDA branch of a
+kernel wrapper calls it.
+
+No ``--use_fast_math``: the kernels' results are bit-exact only because
+every operation (fp32 add, max, compare) is correctly rounded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "build")
+KERNELS_SO = os.path.join(BUILD_DIR, "libfvt_kernels.so")
+BUILD_LOG = os.path.join(BUILD_DIR, "nvcc.log")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.POINTER(ctypes.c_longlong)
+
+# C entry points: every pointer and the stream as c_void_p (a c_int would cut
+# a 64-bit address); each returns the cudaError_t of its launches
+_SIGNATURES = {
+    # logA, emits, delta0, dfin, ptrs, deltas, work, Tm, N, K, stream, launches
+    "fvt_maxplus_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
+    # ptrs, last, out, Tm, N, K, stream, launches
+    "fvt_backtrack": [_P, _P, _P, _I, _I, _I, _P, _LL],
+    # deltas, logAT, last, valid, out, Tm, N, K, stream, launches
+    "fvt_argmax_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
+}
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def nvcc_command(out: str) -> list[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", out, *sources()]
+
+
+def _stale() -> bool:
+    if not os.path.exists(KERNELS_SO):
+        return True
+    built = os.path.getmtime(KERNELS_SO)
+    return any(os.path.getmtime(s) > built for s in sources())
+
+
+def compile_to(out: str, command) -> str:
+    """Run ``command(tmp)``, a compiler writing to the path ``tmp``, and
+    rename ``tmp`` to ``out``, so a concurrent loader never sees a
+    half-written library.  Returns the compiler's output; raises on failure."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(command(tmp), capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{command(tmp)[0]} failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return proc.stdout + proc.stderr
+
+
+def build() -> float:
+    """Compile the kernel library; returns the seconds ``nvcc`` took.  The
+    compiler's output (with ``ptxas`` register and spill counts) is kept in
+    ``build/nvcc.log``."""
+    t0 = time.perf_counter()
+    log = compile_to(KERNELS_SO, nvcc_command)
+    with open(BUILD_LOG, "w") as f:
+        f.write(log)
+    return time.perf_counter() - t0
+
+
+def kernels() -> ctypes.CDLL:
+    """The loaded kernel library, built first if missing or stale."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if _stale():
+                build()
+            lib = ctypes.CDLL(KERNELS_SO)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.fvt_error_string.argtypes = [ctypes.c_int]
+            lib.fvt_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if rc != 0:
+        msg = kernels().fvt_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -1,0 +1,115 @@
+"""The slice: the port's decode() against the JAX package's, exactly —
+paths, analytic memory and the reference stdout lines — for FLASH pointer
+mode (JAX with its Pallas kernels in interpret mode, and without them) and
+for vanilla; plus the port's oracles, device handling and import rule."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import flash_viterbi_tpu as jfv
+import flash_viterbi_tpu_torch as tfv
+from flash_viterbi_tpu.oracle import framework as jfw
+from flash_viterbi_tpu_torch.oracle import framework as tfw
+from flash_viterbi_tpu_torch.oracle import native as tnative
+from flash_viterbi_tpu_torch.oracle import validate as tval
+
+torch.set_num_threads(2)
+
+
+def _lines(stdout: str) -> list[str]:
+    return [ln for ln in stdout.splitlines() if ln.startswith(("path:", "memory:"))]
+
+
+def _assert_same(j, t):
+    np.testing.assert_array_equal(t.path, j.path)
+    assert t.path.dtype == np.int32
+    assert t.memory_bytes == j.memory_bytes
+    assert _lines(t.reference_stdout()) == _lines(j.reference_stdout())
+
+
+@pytest.mark.parametrize("K,T,N", [
+    (96, 40, 1),
+    (96, 40, 2),
+    (96, 40, 6),
+    (96, 40, 16),   # T < 2N: the segment count clamps to T // 2
+    (200, 37, 6),
+    (200, 64, 16),
+    (200, 1, 16),   # T = 1
+])
+def test_flash_matches_jax(K, T, N):
+    hmm, y = tfv.make_sparse_hmm(K=K, M=11, T=T, prob=0.2, seed=K + T + N)
+    got = tfv.decode(hmm, y, "flash", num_segments=N, device="cpu", warmup=False)
+    for use_pallas in (True, False):
+        want = jfv.decode(hmm, y, "flash", num_segments=N, use_pallas=use_pallas,
+                          warmup=False)
+        _assert_same(want, got)
+    assert got.extra["K_padded"] == ((K + 127) // 128) * 128
+    assert all(n == 0 for n in got.extra["launches"].values())
+
+
+def test_vanilla_matches_jax_and_oracles():
+    hmm, y = tfv.make_sparse_hmm(K=150, M=13, T=48, prob=0.15, seed=4)
+    got = tfv.decode(hmm, y, "vanilla", device="cpu", warmup=False)
+    _assert_same(jfv.decode(hmm, y, "vanilla", warmup=False), got)
+    mirror = jfw.vanilla(hmm.A, hmm.B, hmm.Pi, y)
+    np.testing.assert_array_equal(got.path, mirror)
+    np.testing.assert_array_equal(tfw.vanilla(hmm.A, hmm.B, hmm.Pi, y), mirror)
+    np.testing.assert_array_equal(tnative.vanilla(hmm.A, hmm.B, hmm.Pi, y), mirror)
+    flash = tfv.decode(hmm, y, "flash", num_segments=5, device="cpu", warmup=False)
+    np.testing.assert_array_equal(flash.path, got.path)
+
+
+def test_path_score_f64_and_tolerance():
+    from flash_viterbi_tpu.oracle import validate as jval
+
+    hmm, y = tfv.make_sparse_hmm(K=40, M=6, T=20, prob=0.3, seed=8)
+    path = tfw.vanilla(hmm.A, hmm.B, hmm.Pi, y)
+    got = tval.path_score_f64(hmm.A, hmm.B, hmm.Pi, y, path)
+    assert got == jval.path_score_f64(hmm.A, hmm.B, hmm.Pi, y, path)
+    assert np.isfinite(got)
+    for s in (got, -1e9, 0.0):
+        assert tval.score_tolerance_f64(20, s) == jval.score_tolerance_f64(20, s)
+
+
+def test_padding_invariance_and_logHMM_input():
+    hmm, y = tfv.make_sparse_hmm(K=70, M=9, T=33, prob=0.25, seed=5)
+    a = tfv.decode(hmm, y, "flash", num_segments=4, device="cpu", pad_to=1)
+    b = tfv.decode(hmm.log(), y, "flash", num_segments=4, device="cpu", pad_to=128)
+    np.testing.assert_array_equal(a.path, b.path)
+    assert a.extra["K_padded"] == 70 and b.extra["K_padded"] == 128
+
+
+def test_unported_options_and_unknown_names_raise():
+    hmm, y = tfv.make_sparse_hmm(K=16, M=3, T=8, prob=0.5, seed=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfv.decode(hmm, y, "flash", mode="lean", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfv.decode(hmm, y, "flash", precision="bf16", device="cpu")
+    with pytest.raises(KeyError):
+        tfv.decode(hmm, y, "checkpoint", device="cpu")
+    with pytest.raises(ValueError):
+        tfv.decode(hmm, y, "flash", device="meta")
+    assert tfv.available_algorithms() == ["flash", "vanilla"]
+
+
+def test_cuda_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hmm, y = tfv.make_sparse_hmm(K=16, M=3, T=8, prob=0.5, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfv.decode(hmm, y, "flash")  # device defaults to "cuda"
+
+
+def test_import_pulls_in_neither_jax_nor_the_jax_package():
+    code = ("import sys, flash_viterbi_tpu_torch, flash_viterbi_tpu_torch.ops.cuda, "
+            "flash_viterbi_tpu_torch.oracle.native, "
+            "flash_viterbi_tpu_torch.oracle.validate; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flash_viterbi_tpu', 'triton')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
