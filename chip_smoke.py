@@ -7,22 +7,35 @@ NVIDIA GPU.
 Phases, each fatal on failure:
 
 1. Device: the ``nvidia-smi`` name and power limit, and the torch device.
-2. Build: compile the port's CUDA sources with ``nvcc``.
-3. Kernels: each of the four kernels of the FLASH pointer-mode path against
-   its plain PyTorch version on the card, bit-exact (tolerance 0: the
-   kernels use only correctly rounded fp32 adds, maxes and compares), at
-   the headline shapes, on a fixture full of exact ties, and at an
-   unpadded K.  Times are the median of CUDA-event timings.
-4. Slice: the headline problem (K=3965 padded to 3968, M=50, T=256,
+2. Build: compile the port's CUDA sources with ``nvcc``, one process per
+   source, all at once.
+3. Kernels: each of the five kernels against its plain PyTorch version on
+   the card, bit-exact (tolerance 0: the kernels use only correctly
+   rounded fp32 adds, maxes and compares), at the headline shapes, at an
+   unpadded K, on a fixture full of exact ties, and (all but the gather
+   scan) at the batch phase's 64 lanes.  Times are the median
+   of CUDA-event timings; the emission-gather scan is also timed in turns
+   with the pointer scan at the same shape.
+4. FLASH slice: the headline problem (K=3965 padded to 3968, M=50, T=256,
    prob=0.112, seed=1) decoded for four requests through the public
    ``decode(..., "flash", num_segments=16, device="cuda")``.  Each path
    must equal the port's CPU decode bit for bit, and the native C vanilla
    oracle exactly or, for FLASH's legitimate fp32 tie flips, within the f64
-   score tolerance (the seed-1 request exactly).  Every kernel must have
-   launched during these decodes.
+   score tolerance (the seed-1 request exactly).
+5. Checkpoint slice: the same four requests through ``decode(...,
+   "checkpoint")`` and ``decode(..., "fused")`` on the card; checkpoint
+   must equal fused bit for bit and the C oracle under the rule above, and
+   each ``memory:`` figure its analytic value.
+6. Long T: T=16384 through the registered checkpoint and fused decoders on
+   tables already on the card; equal paths, and the checkpoint decode's
+   peak allocation under 32 MiB above what was allocated before it.
+7. Batch: ``decode_batch(..., "fused")`` over 16 and 64 sequences in both
+   pointer modes; every row must equal that sequence's single decode.
 
-Prints a ``{"kernels": [...]}`` JSON line, then, last, the
-``{"ok": true, "device": {...}}`` line.  Imports no JAX.
+Launch counters are set to 0 before each decode phase and read after it;
+every kernel of that phase's path must have launched.  Prints a
+``{"kernels": [...]}`` JSON line (launches summed over the decode phases),
+then, last, the ``{"ok": true, "device": {...}}`` line.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -39,6 +52,9 @@ import torch
 HEADLINE = dict(K=3965, M=50, T=256, prob=0.112, seed=1)
 SEGMENTS = 16
 EXTRA_SEEDS = (2, 3, 4)
+LONG_T = 16384
+LONG_T_PEAK_BYTES = 32 * 2**20
+BATCHES = (16, 64)
 
 # kernel name -> (CUDA source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
@@ -46,6 +62,8 @@ KERNELS = {
                      "flash_viterbi_tpu/ops/pallas/maxplus.py:467"),
     "maxplus_scan_deltas": ("flash_viterbi_tpu_torch/csrc/maxplus_scan.cu",
                             "flash_viterbi_tpu/ops/pallas/maxplus.py:240"),
+    "maxplus_scan_emitgather": ("flash_viterbi_tpu_torch/csrc/maxplus_scan.cu",
+                                "flash_viterbi_tpu/ops/pallas/maxplus.py:597"),
     "backtrack_batched": ("flash_viterbi_tpu_torch/csrc/backtrack.cu",
                           "flash_viterbi_tpu/ops/pallas/backtrack.py:123"),
     "argmax_walk": ("flash_viterbi_tpu_torch/csrc/argmax_walk.cu",
@@ -206,62 +224,143 @@ def hbm_read_gbps(device) -> float:
     return x.numel() * 4 / (ms * 1e-3) / 1e9
 
 
+def eg_inputs(lh, y, device):
+    """The emission-gather scan's inputs for one chunk over steps 1..T-1
+    of ``y`` (N=1): logA, logBT, the (T-1, 1) int32 symbols, and the
+    step-0 carry."""
+    logBT = lh.logB.t().contiguous()
+    yd = torch.as_tensor(y, dtype=torch.int32, device=device)
+    delta0 = (lh.logPi + logBT[yd[0].long()])[None, :].contiguous()
+    return lh.logA, logBT, yd[1:, None].contiguous(), delta0
+
+
+def tie_eg_inputs(ties, device, M: int = 7, seed: int = 6):
+    """The tie fixture's logA and carries with an integer-valued (M, K)
+    logBT and (T', N) symbols drawn from ``seed``."""
+    logA, emits, delta0 = ties
+    Tm, N, K = emits.shape
+    rng = np.random.default_rng(seed)
+    logBT = torch.as_tensor(np.round(rng.standard_normal((M, K))).astype(np.float32),
+                            device=device)
+    ys = torch.as_tensor(rng.integers(0, M, (Tm, N)).astype(np.int32), device=device)
+    return logA, logBT, ys, delta0
+
+
+def batch_seqs() -> np.ndarray:
+    """The batch phase's (max(BATCHES), T) sequences,
+    ``observations(T, M, seed=s)`` for s = 1, 2, ..."""
+    from flash_viterbi_tpu_torch.models.generate import observations
+
+    return np.stack([observations(HEADLINE["T"], HEADLINE["M"], seed=s)
+                     for s in range(1, max(BATCHES) + 1)])
+
+
+def batch_inputs(lh, seqs, device):
+    """The four kernels' inputs at the shapes ``fused_decode_batch`` gives
+    them for ``seqs``: one lane per sequence over T-1 steps, every row of
+    the walk valid."""
+    ys = torch.as_tensor(seqs.astype(np.int64), device=device)
+    emits = lh.logB.t()[ys.t()].contiguous()
+    scan_in = (lh.logA, emits[1:], (lh.logPi[None, :] + emits[0]).contiguous())
+    return scan_in, scan_in, None
+
+
 def kernel_phase(hmm, y, device) -> dict[str, dict]:
     """Kernels against plain versions; returns per-kernel records timed at
     the headline shapes, with the worst error over every fixture."""
-    timed = check_all(*phase_inputs(tables(hmm, 128, device), y, device, seed=0),
-                      device, reps=9)
+    from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
+
+    def check_eg(args, reps: int = 0) -> dict:
+        return compare("maxplus_scan_emitgather", k.maxplus_scan_emitgather,
+                       km.maxplus_scan_emitgather_plain, args, device, reps)
+
+    head, unpadded = tables(hmm, 128, device), tables(hmm, 1, device)
+    scan_in, deltas_in, valid = phase_inputs(head, y, device, seed=0)
+    eg_in = eg_inputs(head, y, device)
+    timed = check_all(scan_in, deltas_in, valid, device, reps=9) + [check_eg(eg_in, 9)]
     ties, valid = tie_fixture(device)
-    others = (check_all(*phase_inputs(tables(hmm, 1, device), y, device, seed=1),
-                        device)
-              + check_all(ties, ties, valid, device))
-    recs = {r["name"]: r for r in timed}
+    others = (check_all(*phase_inputs(unpadded, y, device, seed=1), device)
+              + check_all(ties, ties, valid, device)
+              + check_all(*batch_inputs(head, batch_seqs(), device), device)
+              + [check_eg(eg_inputs(unpadded, y, device)),
+                 check_eg(tie_eg_inputs(ties, device))])
+    recs = {r["name"]: dict(r, fixtures=1) for r in timed}
     for r in others:
-        recs[r["name"]]["max_abs_err"] = max(recs[r["name"]]["max_abs_err"],
-                                             r["max_abs_err"])
+        rec = recs[r["name"]]
+        rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+        rec["fixtures"] += 1
     for name, r in recs.items():
-        print(f"kernel {name}: bit-exact on 3 fixtures; {r['ms']:.3f} ms "
+        print(f"kernel {name}: bit-exact on {r['fixtures']} fixtures; {r['ms']:.3f} ms "
               f"(plain {r['plain_ms']:.3f} ms) at the headline shape", flush=True)
+
+    # the two pointer scans at one shape, timed in turns
+    turns = {"maxplus_scan": [], "maxplus_scan_emitgather": []}
+    for name, fn, args in (("maxplus_scan", k.maxplus_scan, scan_in),
+                           ("maxplus_scan_emitgather", k.maxplus_scan_emitgather, eg_in),
+                           ("maxplus_scan_emitgather", k.maxplus_scan_emitgather, eg_in),
+                           ("maxplus_scan", k.maxplus_scan, scan_in)):
+        turns[name].append(elapsed_ms(lambda: fn(*args), device, 9))
+    scan_ms, eg_ms = (statistics.mean(turns[n]) for n in turns)
+    print(f"in turns at N=1, T'={len(y) - 1}, Kp={head.Kp}: maxplus_scan_emitgather "
+          f"{eg_ms:.3f} ms vs maxplus_scan {scan_ms:.3f} ms "
+          f"({(eg_ms / scan_ms - 1) * 100:+.2f}%); runs {turns}", flush=True)
     return recs
 
 
-def slice_phase(hmm, requests, device, cpu_device) -> dict[str, int]:
-    """Decode every request on ``device``; check against the CPU decode,
-    the C oracle and the analytic memory; return the kernel launches."""
-    from flash_viterbi_tpu_torch import decode
-    from flash_viterbi_tpu_torch.algorithms.flash import _memory
+def drive(label: str, needed, run):
+    """Run one decode phase between a reset and a read of the launch
+    counters; require every kernel in ``needed`` to have launched.
+    Returns (``run()``'s result, the counts)."""
     from flash_viterbi_tpu_torch.ops import cuda as k
-    from flash_viterbi_tpu_torch.oracle import native
+
+    k.reset_launches()
+    out = run()
+    launches = k.launch_counts()
+    print(f"{label}: kernel launches (warmups included): "
+          f"{ {n: c for n, c in launches.items() if c} }", flush=True)
+    missing = [n for n in needed if launches[n] == 0]
+    require(not missing, f"{label}: a kernel of the path never launched: {missing}")
+    return out, launches
+
+
+def oracle_verdict(hmm, y, path, oracle, exact: bool) -> str:
+    """Hold ``path`` to the C oracle's: equal, or (unless ``exact``) an
+    fp32 tie flip within the f64 score tolerance."""
     from flash_viterbi_tpu_torch.oracle.validate import (path_score_f64,
                                                          score_tolerance_f64)
 
+    if np.array_equal(path, oracle):
+        return "exact"
+    require(not exact, "the seed-1 request must equal the C oracle exactly")
+    s_got = path_score_f64(hmm.A, hmm.B, hmm.Pi, y, path)
+    s_ref = path_score_f64(hmm.A, hmm.B, hmm.Pi, y, oracle)
+    tol = score_tolerance_f64(len(y), s_ref)
+    require(bool(np.isfinite(s_got)) and abs(s_got - s_ref) <= tol,
+            f"f64 score {s_got} vs oracle {s_ref} (tol {tol})")
+    return (f"tie-equivalent ({int((path != oracle).sum())} positions, "
+            f"f64 score gap {abs(s_got - s_ref):.3g})")
+
+
+def slice_phase(hmm, requests, oracles, device, cpu_device) -> dict[str, int]:
+    """Decode every request with FLASH on ``device``; check against the CPU
+    decode, the C oracle and the analytic memory; return the launches."""
+    from flash_viterbi_tpu_torch import decode
+    from flash_viterbi_tpu_torch.algorithms.flash import _memory
+
     K, T = hmm.K, len(requests[0])
-    k.reset_launches()
-    results = [decode(hmm, y, "flash", num_segments=SEGMENTS, device=device)
-               for y in requests]
-    launches = k.launch_counts()
-    print(f"slice: kernel launches over {len(requests)} decodes (warmups "
-          f"included): {launches}", flush=True)
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel of the path never launched: {launches}")
+    results, launches = drive(
+        f"flash, {len(requests)} decodes",
+        ("maxplus_scan", "maxplus_scan_deltas", "backtrack_batched", "argmax_walk"),
+        lambda: [decode(hmm, y, "flash", num_segments=SEGMENTS, device=device)
+                 for y in requests])
     want_mem = _memory(K=K, T=T, num_segments=SEGMENTS)
-    for i, (y, r) in enumerate(zip(requests, results)):
+    for i, (y, r, oracle) in enumerate(zip(requests, results, oracles)):
         cpu = decode(hmm, y, "flash", num_segments=SEGMENTS, device=cpu_device,
                      warmup=False)
         require(np.array_equal(r.path, cpu.path),
                 f"request {i}: {device} path differs from the CPU decode")
-        oracle = native.vanilla(hmm.A, hmm.B, hmm.Pi, y)
-        if np.array_equal(r.path, oracle):
-            verdict = "exact"
-        else:
-            require(i > 0, "the seed-1 request must equal the C oracle exactly")
-            s_got = path_score_f64(hmm.A, hmm.B, hmm.Pi, y, r.path)
-            s_ref = path_score_f64(hmm.A, hmm.B, hmm.Pi, y, oracle)
-            tol = score_tolerance_f64(T, s_ref)
-            require(bool(np.isfinite(s_got)) and abs(s_got - s_ref) <= tol,
-                    f"request {i}: f64 score {s_got} vs oracle {s_ref} (tol {tol})")
-            verdict = (f"tie-equivalent ({int((r.path != oracle).sum())} positions, "
-                       f"f64 score gap {abs(s_got - s_ref):.3g})")
+        verdict = oracle_verdict(hmm, y, r.path, oracle, exact=i == 0)
         require(r.memory_bytes == want_mem,
                 f"request {i}: memory {r.memory_bytes} != {want_mem}")
         require(r.path.shape == (T,) and bool(((r.path >= 0) & (r.path < K)).all()),
@@ -272,12 +371,128 @@ def slice_phase(hmm, requests, device, cpu_device) -> dict[str, int]:
     return launches
 
 
+def checkpoint_phase(hmm, requests, oracles, device) -> list[dict[str, int]]:
+    """Decode every request with checkpoint and with fused on ``device``;
+    checkpoint must equal fused bit for bit and the C oracle; returns the
+    launches of both."""
+    from flash_viterbi_tpu_torch import decode
+    from flash_viterbi_tpu_torch.algorithms import checkpoint, fused
+
+    K, T = hmm.K, len(requests[0])
+    ck, ck_launches = drive(
+        f"checkpoint, {len(requests)} decodes",
+        ("maxplus_scan_emitgather", "backtrack_batched"),
+        lambda: [decode(hmm, y, "checkpoint", device=device) for y in requests])
+    fu, fu_launches = drive(
+        f"fused, {len(requests)} decodes", ("maxplus_scan", "backtrack_batched"),
+        lambda: [decode(hmm, y, "fused", device=device) for y in requests])
+    for i, (y, c, f, oracle) in enumerate(zip(requests, ck, fu, oracles)):
+        require(np.array_equal(c.path, f.path),
+                f"request {i}: checkpoint path differs from fused")
+        verdict = oracle_verdict(hmm, y, c.path, oracle, exact=i == 0)
+        require(c.memory_bytes == checkpoint._memory(K=K, T=T),
+                f"request {i}: checkpoint memory {c.memory_bytes}")
+        require(f.memory_bytes == fused._memory(K=K, T=T),
+                f"request {i}: fused memory {f.memory_bytes}")
+        print(f"request {i}: checkpoint {c.time_s * 1e3:.3f} ms "
+              f"(memory {c.memory_bytes}), fused {f.time_s * 1e3:.3f} ms "
+              f"(memory {f.memory_bytes}); equal paths, oracle {verdict}", flush=True)
+    return [ck_launches, fu_launches]
+
+
+def long_t_phase(hmm, device) -> dict[str, int]:
+    """T=16384 through the registered checkpoint and fused decoders on
+    tables already on the card: equal paths, and the checkpoint decode's
+    peak allocation above what was allocated before it under 32 MiB."""
+    from flash_viterbi_tpu_torch import build
+    from flash_viterbi_tpu_torch.models.generate import observations
+    from flash_viterbi_tpu_torch.ops import maxplus as mp
+
+    lh = tables(hmm, 128, device)
+    y = observations(LONG_T, HEADLINE["M"], seed=1)
+    args = (lh.logA, lh.logB, lh.logPi,
+            torch.as_tensor(y.astype(np.int64), device=device))
+    rows = {}
+
+    def run():
+        for name in ("checkpoint", "fused"):
+            dec = build(name)
+            dec(*args)  # warmup
+            torch.cuda.synchronize(device)
+            before = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            path = dec(*args)
+            end.record()
+            end.synchronize()
+            rows[name] = (path, start.elapsed_time(end),
+                          torch.cuda.max_memory_allocated(device) - before)
+
+    _, launches = drive(f"long T={LONG_T}",
+                        ("maxplus_scan_emitgather", "backtrack_batched", "maxplus_scan"),
+                        run)
+    (ck, ck_ms, ck_peak), (fu, fu_ms, fu_peak) = rows["checkpoint"], rows["fused"]
+    require(torch.equal(ck, fu), f"T={LONG_T}: checkpoint path differs from fused")
+    require(ck.shape == (LONG_T,) and bool(((ck >= 0) & (ck < hmm.K)).all()),
+            f"T={LONG_T}: path out of range")
+    score = float(mp.path_score(*args, ck))
+    require(np.isfinite(score), f"T={LONG_T}: path score {score}")
+    require(ck_peak < LONG_T_PEAK_BYTES,
+            f"T={LONG_T}: checkpoint peak {ck_peak} bytes above the tables")
+    K2T = hmm.K * hmm.K * LONG_T
+    print(f"long T={LONG_T}, Kp={lh.Kp}: checkpoint {ck_ms:.3f} ms "
+          f"({K2T / ck_ms / 1e6:.2f} G updates/s), peak +{ck_peak} bytes "
+          f"({ck_peak / 2**20:.2f} MiB); fused {fu_ms:.3f} ms "
+          f"({K2T / fu_ms / 1e6:.2f} G updates/s), peak +{fu_peak} bytes "
+          f"({fu_peak / 2**20:.2f} MiB); equal paths, fp32 score {score}", flush=True)
+    return launches
+
+
+def batch_phase(hmm, device) -> list[dict[str, int]]:
+    """``decode_batch(..., "fused")`` over 16 and 64 headline sequences in
+    both pointer modes; every row must equal the sequence's single fused
+    decode on the card.  Returns the launches of each batch."""
+    from flash_viterbi_tpu_torch import build, decode_batch
+    from flash_viterbi_tpu_torch.algorithms import fused
+
+    K, T = hmm.K, HEADLINE["T"]
+    log_tables = hmm.log()
+    lh = tables(hmm, 128, device)
+    seqs = batch_seqs()
+    single = build("fused")
+    singles = np.stack([
+        single(lh.logA, lh.logB, lh.logPi,
+               torch.as_tensor(s.astype(np.int64), device=device)).cpu().numpy()
+        for s in seqs])
+    all_launches = []
+    for pointers, needed in (("recompute", ("maxplus_scan_deltas", "argmax_walk")),
+                             ("store", ("maxplus_scan", "backtrack_batched"))):
+        for Bs in BATCHES:
+            r, launches = drive(
+                f"batch Bs={Bs} pointers={pointers}", needed,
+                lambda: decode_batch(log_tables, seqs[:Bs], "fused", device=device,
+                                     pointers=pointers))
+            all_launches.append(launches)
+            require(np.array_equal(r.path, singles[:Bs]),
+                    f"batch Bs={Bs} {pointers}: a row differs from its single decode")
+            require(r.memory_bytes == Bs * fused._memory(K=K, T=T),
+                    f"batch Bs={Bs} {pointers}: memory {r.memory_bytes}")
+            print(f"batch Bs={Bs} pointers={pointers}: {r.time_s * 1e3:.3f} ms, "
+                  f"{r.time_s * 1e3 / Bs:.3f} ms per sequence, "
+                  f"{K * K * T * Bs / r.time_s / 1e9:.2f} G updates/s; "
+                  f"rows equal the single decodes", flush=True)
+    return all_launches
+
+
 def main() -> None:
     device = device_phase()
     build_phase()
 
     from flash_viterbi_tpu_torch.models.generate import (make_sparse_hmm,
                                                          observations)
+    from flash_viterbi_tpu_torch.oracle import native
 
     hmm, y1 = make_sparse_hmm(**HEADLINE)
     requests = [y1] + [observations(HEADLINE["T"], HEADLINE["M"], seed=s)
@@ -289,11 +504,19 @@ def main() -> None:
     print(f"HBM read {gbps:.1f} GB/s measured; phase-1 floor at K={Kp}: "
           f"{steps} steps x {Kp * Kp * 4 / 2**20:.0f} MiB = {floor_ms:.3f} ms",
           flush=True)
-    launches = slice_phase(hmm, requests, device, torch.device("cpu"))
+    t0 = time.perf_counter()
+    oracles = [native.vanilla(hmm.A, hmm.B, hmm.Pi, y) for y in requests]
+    print(f"C oracle: {len(requests)} decodes in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches = ([slice_phase(hmm, requests, oracles, device, torch.device("cpu"))]
+                + checkpoint_phase(hmm, requests, oracles, device)
+                + [long_t_phase(hmm, device)]
+                + batch_phase(hmm, device))
+    total = {name: sum(run[name] for run in launches) for name in KERNELS}
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": launches[name],
+         "replaces": KERNELS[name][1], "launches": total[name],
          "max_abs_err": recs[name]["max_abs_err"], "ms": recs[name]["ms"],
          "plain_ms": recs[name]["plain_ms"]} for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

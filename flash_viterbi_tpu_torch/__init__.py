@@ -1,23 +1,27 @@
 """flash_viterbi_tpu_torch — the FLASH Viterbi decoder on PyTorch and CUDA.
 
-A port of ``flash_viterbi_tpu`` (JAX/Pallas) that runs its main path, the
-FLASH pointer-mode decode, on an NVIDIA H100 through hand-written CUDA
-kernels, and on the CPU through their plain PyTorch versions.  It never
-imports JAX or the JAX package.
+A port of ``flash_viterbi_tpu`` (JAX/Pallas) that runs the FLASH
+pointer-mode, checkpoint and fused decoders and batched decoding on an
+NVIDIA H100 through hand-written CUDA kernels, and on the CPU through their
+plain PyTorch versions.  It never imports JAX or the JAX package.
 
 Quick start::
 
-    from flash_viterbi_tpu_torch import decode, make_sparse_hmm
+    from flash_viterbi_tpu_torch import decode, decode_batch, make_sparse_hmm
     hmm, y = make_sparse_hmm(K=512, M=50, T=256, prob=0.25, seed=1)
     result = decode(hmm, y, algorithm="flash", num_segments=8, device="cuda")
     print(result.path, result.time_s, result.memory_bytes)
+    batch = decode_batch(hmm, [y, y], algorithm="fused", device="cuda")
 """
 
+from .algorithms import checkpoint as _checkpoint  # noqa: F401
 from .algorithms import flash as _flash  # noqa: F401
+from .algorithms import fused as _fused  # noqa: F401
 from .algorithms import vanilla as _vanilla  # noqa: F401
 from .algorithms.base import DecodeResult, available_algorithms, build, decode
 from .models.generate import make_sparse_hmm
 from .models.hmm import HMM, LogHMM
+from .parallel.batch import decode_batch
 
 __version__ = "0.1.0"
 
@@ -28,5 +32,6 @@ __all__ = [
     "available_algorithms",
     "build",
     "decode",
+    "decode_batch",
     "make_sparse_hmm",
 ]

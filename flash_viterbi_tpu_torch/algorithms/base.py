@@ -82,6 +82,50 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def check_observations(y, M: int) -> np.ndarray:
+    """``y`` as int64 numpy; raises on a symbol outside [0, M).  Runs on
+    the host before anything is uploaded: the emission-gather kernel reads
+    logB rows by symbol with no bound check on the card."""
+    yv = np.asarray(y, dtype=np.int64)
+    if yv.size and (yv.min() < 0 or yv.max() >= M):
+        bad = yv[(yv < 0) | (yv >= M)]
+        raise ValueError(f"observations outside [0, {M}): {bad[:8].tolist()}")
+    return yv
+
+
+def upload(hmm: HMM | LogHMM, dev: torch.device, pad_to: int) -> tuple[int, LogHMM]:
+    """(logical K, the log tables on ``dev`` padded to ``pad_to``)."""
+    lh = hmm if isinstance(hmm, LogHMM) else hmm.log()
+    padded = LogHMM(lh.logA.to(dev), lh.logB.to(dev), lh.logPi.to(dev), lh.K)
+    return lh.K, padded.padded(pad_to)
+
+
+def timed(run: Callable[[], torch.Tensor], dev: torch.device, warmup: bool):
+    """Build the kernels (on ``cuda``), warm up, and time one synchronized
+    ``run()``: with CUDA events on the card, with ``perf_counter`` on the
+    CPU.  Returns (output, seconds, kernel launches of the timed run)."""
+    if dev.type == "cuda":
+        kernel_build.kernels()
+    if warmup:
+        run()
+    before = cuda_ops.launch_counts()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run()
+        end.record()
+        end.synchronize()
+        time_s = start.elapsed_time(end) / 1e3
+    else:
+        t0 = time.perf_counter()
+        out = run()
+        time_s = time.perf_counter() - t0
+    after = cuda_ops.launch_counts()
+    return out, time_s, {k: after[k] - before[k] for k in after}
+
+
 def decode(
     hmm: HMM | LogHMM,
     y: np.ndarray,
@@ -93,46 +137,26 @@ def decode(
 ) -> DecodeResult:
     """End-to-end decode of one observation sequence on ``device``.
 
-    Computes the log tables once, uploads them, pads K with dead states to
-    a multiple of ``pad_to``, builds the CUDA kernels (on ``cuda``), and
-    times one synchronized decode after an optional warmup: with CUDA
-    events on the card, with ``perf_counter`` on the CPU.  ``extra`` holds
-    the kernel launches each wrapper made during the timed decode.
+    Checks the observations, computes the log tables once, uploads them,
+    pads K with dead states to a multiple of ``pad_to``, builds the CUDA
+    kernels (on ``cuda``), and times one synchronized decode after an
+    optional warmup: with CUDA events on the card, with ``perf_counter``
+    on the CPU.  ``extra`` holds the kernel launches each wrapper made
+    during the timed decode.
     """
     dev = resolve_device(device)
     dec = build(algorithm, **static)
-    lh = hmm if isinstance(hmm, LogHMM) else hmm.log()
-    K = lh.K
-    lh = LogHMM(lh.logA.to(dev), lh.logB.to(dev), lh.logPi.to(dev), K).padded(pad_to)
-    T = int(len(y))
-    yd = torch.as_tensor(np.asarray(y, dtype=np.int64), device=dev)
-    args = (lh.logA, lh.logB, lh.logPi, yd)
-
-    if dev.type == "cuda":
-        kernel_build.kernels()
-    if warmup:
-        dec(*args)
-    before = cuda_ops.launch_counts()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        path = dec(*args)
-        end.record()
-        end.synchronize()
-        time_s = start.elapsed_time(end) / 1e3
-    else:
-        t0 = time.perf_counter()
-        path = dec(*args)
-        time_s = time.perf_counter() - t0
-    after = cuda_ops.launch_counts()
+    yv = check_observations(y, hmm.M)
+    K, lh = upload(hmm, dev, pad_to)
+    T = int(len(yv))
+    yd = torch.as_tensor(yv, device=dev)
+    path, time_s, launches = timed(lambda: dec(lh.logA, lh.logB, lh.logPi, yd),
+                                   dev, warmup)
     return DecodeResult(
         path=path.cpu().numpy()[:T],
         time_s=time_s,
         memory_bytes=dec.analytic_memory(K=K, T=T),
         algorithm=algorithm,
         extra={"K": K, "K_padded": lh.Kp, "T": T, "device": str(dev),
-               "launches": {k: after[k] - before[k] for k in after},
-               **dec.static},
+               "launches": launches, **dec.static},
     )

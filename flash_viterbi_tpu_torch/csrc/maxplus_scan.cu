@@ -3,10 +3,16 @@
 //     d_t[n, i] = max_k (d_{t-1}[n, k] + logA[k, i]) + emit_t[n, i]
 //     ptr_t[n, i] = lowest k attaining that max          (WITH_PTR)
 //     deltas[t][n, :] = d_{t-1}[n, :], the carry before step t   (!WITH_PTR)
+//     emit_t[n, i] = logBT[ys[t, n], i]                  (EG: emission gather)
 //
 // Replaces flash_viterbi_tpu/ops/pallas/maxplus.py: maxplus_scan
-// (_scan_kernel, and _scan_res_kernel for K <= 1024) and
-// maxplus_scan_deltas (_scan_deltas_kernel, _scan_res_deltas_kernel).
+// (_scan_kernel, and _scan_res_kernel for K <= 1024), maxplus_scan_deltas
+// (_scan_deltas_kernel, _scan_res_deltas_kernel) and
+// maxplus_scan_emitgather (_scan_eg_kernel).  With EG the emission row of
+// each lane is read from the (M, K) table logBT by the lane's symbol, so
+// no (T', N, K) emission buffer exists; the table (794 KB at M=50,
+// K=3968) stays in L2, and a step reads one of its rows per lane where
+// the plain scan reads one row of emits.
 // One kernel serves every K; the ragged column edge is masked, so K need
 // not be a multiple of anything.
 //
@@ -38,11 +44,14 @@ constexpr int RPW = KC / WK;  // rows of a chunk each warp takes
 constexpr int LMAX = 16;      // lanes per launch; more lanes go in groups of 16
 static_assert(KC % WK == 0, "chunk must split evenly across warps");
 
-template <int L, bool WITH_PTR>
+// emit: this step's (nl, K) emission rows, or with EG the whole (M, K)
+// logBT, indexed by ys, this step's nl symbols
+template <int L, bool WITH_PTR, bool EG>
 __global__ void __launch_bounds__(TI * WK)
 scan_step(const float* __restrict__ logA, const float* __restrict__ dcur,
-          const float* __restrict__ emit, float* __restrict__ dnext,
-          int* __restrict__ ptr, float* __restrict__ dhist, int K, int nl) {
+          const float* __restrict__ emit, const int* __restrict__ ys,
+          float* __restrict__ dnext, int* __restrict__ ptr,
+          float* __restrict__ dhist, int K, int nl) {
     __shared__ float s_d[L][KC];
     __shared__ float s_v[WK][TI];
     __shared__ int s_a[WK][TI];
@@ -120,7 +129,7 @@ scan_step(const float* __restrict__ logA, const float* __restrict__ dcur,
                 }
             }
             const size_t o = (size_t)n * K + i;
-            dnext[o] = bv + emit[o];
+            dnext[o] = bv + (EG ? emit[(size_t)ys[n] * K + i] : emit[o]);
             if (WITH_PTR) {
                 ptr[o] = ba;
             } else {
@@ -130,36 +139,31 @@ scan_step(const float* __restrict__ logA, const float* __restrict__ dcur,
     }
 }
 
-template <bool WITH_PTR>
+template <bool WITH_PTR, bool EG>
 void launch_step(int nl, dim3 grid, dim3 block, cudaStream_t stream,
                  const float* logA, const float* dcur, const float* emit,
-                 float* dnext, int* ptr, float* dhist, int K) {
+                 const int* ys, float* dnext, int* ptr, float* dhist, int K) {
     if (nl <= 1) {
-        scan_step<1, WITH_PTR><<<grid, block, 0, stream>>>(logA, dcur, emit, dnext, ptr, dhist, K, nl);
+        scan_step<1, WITH_PTR, EG><<<grid, block, 0, stream>>>(logA, dcur, emit, ys, dnext, ptr, dhist, K, nl);
     } else if (nl <= 2) {
-        scan_step<2, WITH_PTR><<<grid, block, 0, stream>>>(logA, dcur, emit, dnext, ptr, dhist, K, nl);
+        scan_step<2, WITH_PTR, EG><<<grid, block, 0, stream>>>(logA, dcur, emit, ys, dnext, ptr, dhist, K, nl);
     } else if (nl <= 4) {
-        scan_step<4, WITH_PTR><<<grid, block, 0, stream>>>(logA, dcur, emit, dnext, ptr, dhist, K, nl);
+        scan_step<4, WITH_PTR, EG><<<grid, block, 0, stream>>>(logA, dcur, emit, ys, dnext, ptr, dhist, K, nl);
     } else if (nl <= 8) {
-        scan_step<8, WITH_PTR><<<grid, block, 0, stream>>>(logA, dcur, emit, dnext, ptr, dhist, K, nl);
+        scan_step<8, WITH_PTR, EG><<<grid, block, 0, stream>>>(logA, dcur, emit, ys, dnext, ptr, dhist, K, nl);
     } else {
-        scan_step<16, WITH_PTR><<<grid, block, 0, stream>>>(logA, dcur, emit, dnext, ptr, dhist, K, nl);
+        scan_step<16, WITH_PTR, EG><<<grid, block, 0, stream>>>(logA, dcur, emit, ys, dnext, ptr, dhist, K, nl);
     }
 }
 
-}  // namespace
-
-// The whole scan: Tm launches per group of up to 16 lanes.  Layouts are
-// those of the JAX functions: logA (K, K), emits (Tm, N, K), delta0 (N, K),
-// dfin (N, K), ptrs (Tm, N, K) int32 or deltas (Tm, N, K) float32 -- pass
-// exactly one of the two; the other is null.  work holds 2*N*K floats for
-// the carry ping-pong.  Tm >= 1.  Returns the first launch error.
-extern "C" int fvt_maxplus_scan(const float* logA, const float* emits,
-                                const float* delta0, float* dfin, int* ptrs,
-                                float* deltas, float* work, int Tm, int N,
-                                int K, void* stream, long long* launches) {
-    const bool with_ptr = ptrs != nullptr;
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+// Tm launches per group of up to 16 lanes, ping-ponging the carry through
+// work.  Without EG, emit is emits (Tm, N, K) and ys is null; with EG,
+// emit is logBT (M, K) and ys the (Tm, N) symbols.
+template <bool EG>
+int run_scan(const float* logA, const float* emit, const int* ys,
+             const float* delta0, float* dfin, int* ptrs, float* deltas,
+             float* work, int Tm, int N, int K, cudaStream_t s,
+             long long* launches) {
     const dim3 block(TI, WK);
     const dim3 grid((K + TI - 1) / TI);
     const size_t NK = (size_t)N * K;
@@ -170,19 +174,49 @@ extern "C" int fvt_maxplus_scan(const float* logA, const float* emits,
             const float* src = t == 0 ? delta0 + off : work + ((t - 1) & 1) * NK + off;
             float* dst = t == Tm - 1 ? dfin + off : work + (t & 1) * NK + off;
             const size_t st = (size_t)t * NK + off;
-            if (with_ptr) {
-                launch_step<true>(nl, grid, block, s, logA, src, emits + st, dst,
-                                  ptrs + st, nullptr, K);
+            const float* e = EG ? emit : emit + st;
+            const int* y = EG ? ys + (size_t)t * N + g0 : nullptr;
+            if (ptrs != nullptr) {
+                launch_step<true, EG>(nl, grid, block, s, logA, src, e, y, dst,
+                                      ptrs + st, nullptr, K);
             } else {
-                launch_step<false>(nl, grid, block, s, logA, src, emits + st, dst,
-                                   nullptr, deltas + st, K);
+                launch_step<false, EG>(nl, grid, block, s, logA, src, e, y, dst,
+                                       nullptr, deltas + st, K);
             }
-            const cudaError_t e = cudaGetLastError();
-            if (e != cudaSuccess) return static_cast<int>(e);
+            const cudaError_t err = cudaGetLastError();
+            if (err != cudaSuccess) return static_cast<int>(err);
             ++*launches;
         }
     }
     return 0;
+}
+
+}  // namespace
+
+// The whole scan.  Layouts are those of the JAX functions: logA (K, K),
+// emits (Tm, N, K), delta0 (N, K), dfin (N, K), ptrs (Tm, N, K) int32 or
+// deltas (Tm, N, K) float32 -- pass exactly one of the two; the other is
+// null.  work holds 2*N*K floats for the carry ping-pong.  Tm >= 1.
+// Returns the first launch error.
+extern "C" int fvt_maxplus_scan(const float* logA, const float* emits,
+                                const float* delta0, float* dfin, int* ptrs,
+                                float* deltas, float* work, int Tm, int N,
+                                int K, void* stream, long long* launches) {
+    return run_scan<false>(logA, emits, nullptr, delta0, dfin, ptrs, deltas,
+                           work, Tm, N, K, static_cast<cudaStream_t>(stream),
+                           launches);
+}
+
+// fvt_maxplus_scan with in-kernel emission gather: logBT (M, K) and the
+// (Tm, N) int32 symbols ys in place of emits.  Every symbol must lie in
+// [0, M): the kernel reads logBT without a bound check.
+extern "C" int fvt_maxplus_scan_eg(const float* logA, const float* logBT,
+                                   const int* ys, const float* delta0,
+                                   float* dfin, int* ptrs, float* deltas,
+                                   float* work, int Tm, int N, int K,
+                                   void* stream, long long* launches) {
+    return run_scan<true>(logA, logBT, ys, delta0, dfin, ptrs, deltas, work,
+                          Tm, N, K, static_cast<cudaStream_t>(stream), launches);
 }
 
 extern "C" const char* fvt_error_string(int code) {

@@ -5,9 +5,10 @@ the kernel library is built at the first launch on a CUDA tensor.
 """
 
 from .backtrack import argmax_walk, backtrack_batched
-from .maxplus import maxplus_scan, maxplus_scan_deltas
+from .maxplus import maxplus_scan, maxplus_scan_deltas, maxplus_scan_emitgather
 
-WRAPPERS = (maxplus_scan, maxplus_scan_deltas, backtrack_batched, argmax_walk)
+WRAPPERS = (maxplus_scan, maxplus_scan_deltas, maxplus_scan_emitgather,
+            backtrack_batched, argmax_walk)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,8 +1,9 @@
 """The fused max-plus scans: CUDA kernels and their plain versions.
 
 Counterparts of ``flash_viterbi_tpu/ops/pallas/maxplus.py``'s
-``maxplus_scan`` and ``maxplus_scan_deltas``, with the same signatures and
-layouts.  The kernel is ``csrc/maxplus_scan.cu``.
+``maxplus_scan``, ``maxplus_scan_deltas`` and ``maxplus_scan_emitgather``,
+with the same signatures and layouts.  The kernel is
+``csrc/maxplus_scan.cu``.
 """
 
 from __future__ import annotations
@@ -50,18 +51,51 @@ def maxplus_scan_deltas_plain(logA, emits, delta0):
     return dfin, deltas
 
 
-def _scan_cuda(logA, emits, delta0, with_ptr: bool, counter):
-    Tm, N, K = emits.shape
-    expect_contiguous(logA=logA, emits=emits, delta0=delta0)
-    dev = emits.device
+def _check_eg(logA, logBT, ys, delta0) -> tuple[int, int, int]:
+    if ys.dim() != 2 or logBT.dim() != 2:
+        raise ValueError(f"ys must be (T', N) and logBT (M, K), got "
+                         f"{tuple(ys.shape)} and {tuple(logBT.shape)}")
+    Tm, N = ys.shape
+    M, K = logBT.shape
+    if K < 1 or N < 1 or M < 1:
+        raise ValueError(f"empty state, lane or symbol dimension: M={M}, N={N}, K={K}")
+    expect("logA", logA, torch.float32, (K, K))
+    expect("logBT", logBT, torch.float32, (M, K))
+    expect("ys", ys, torch.int32, (Tm, N))
+    expect("delta0", delta0, torch.float32, (N, K))
+    if ys.device.type == "cpu" and bool(((ys < 0) | (ys >= M)).any()):
+        raise ValueError(f"symbols outside [0, {M}) in ys")
+    return Tm, N, K
+
+
+def maxplus_scan_emitgather_plain(logA, logBT, ys, delta0):
+    """Plain version of :func:`maxplus_scan_emitgather`: gathers each
+    lane's emission rows, then runs the forward scan one lane at a time."""
+    Tm, N, K = _check_eg(logA, logBT, ys, delta0)
+    dfin = torch.empty_like(delta0)
+    ptrs = torch.empty((Tm, N, K), dtype=torch.int32, device=ys.device)
+    for n in range(N):
+        dfin[n], ptrs[:, n] = mp.forward_scan(delta0[n], logA,
+                                              logBT[ys[:, n].to(torch.int64)])
+    return dfin, ptrs
+
+
+def _scan_cuda(fn_name: str, counter, inputs: dict, delta0, Tm: int,
+               with_ptr: bool):
+    """Launch C entry point ``fn_name`` on ``inputs`` (logA and the
+    emission operands, in its argument order); returns (dfin, ptrs) or
+    (dfin, deltas)."""
+    N, K = delta0.shape
+    expect_contiguous(delta0=delta0, **inputs)
+    dev = delta0.device
     hist = torch.empty((Tm, N, K), device=dev,
                        dtype=torch.int32 if with_ptr else torch.float32)
     if Tm == 0:
         return delta0, hist
     dfin = torch.empty((N, K), dtype=torch.float32, device=dev)
     work = torch.empty((2, N, K), dtype=torch.float32, device=dev)
-    launch("fvt_maxplus_scan", counter, dev,
-           logA.data_ptr(), emits.data_ptr(), delta0.data_ptr(), dfin.data_ptr(),
+    launch(fn_name, counter, dev, *(t.data_ptr() for t in inputs.values()),
+           delta0.data_ptr(), dfin.data_ptr(),
            hist.data_ptr() if with_ptr else None,
            None if with_ptr else hist.data_ptr(),
            work.data_ptr(), Tm, N, K)
@@ -82,7 +116,8 @@ def maxplus_scan(logA: torch.Tensor, emits: torch.Tensor, delta0: torch.Tensor):
     _check(logA, emits, delta0)
     if not on_cuda(logA, emits, delta0):
         return maxplus_scan_plain(logA, emits, delta0)
-    return _scan_cuda(logA, emits, delta0, True, maxplus_scan)
+    return _scan_cuda("fvt_maxplus_scan", maxplus_scan,
+                      {"logA": logA, "emits": emits}, delta0, emits.shape[0], True)
 
 
 def maxplus_scan_deltas(logA: torch.Tensor, emits: torch.Tensor,
@@ -96,8 +131,33 @@ def maxplus_scan_deltas(logA: torch.Tensor, emits: torch.Tensor,
     _check(logA, emits, delta0)
     if not on_cuda(logA, emits, delta0):
         return maxplus_scan_deltas_plain(logA, emits, delta0)
-    return _scan_cuda(logA, emits, delta0, False, maxplus_scan_deltas)
+    return _scan_cuda("fvt_maxplus_scan", maxplus_scan_deltas,
+                      {"logA": logA, "emits": emits}, delta0, emits.shape[0], False)
+
+
+def maxplus_scan_emitgather(logA: torch.Tensor, logBT: torch.Tensor,
+                            ys: torch.Tensor, delta0: torch.Tensor):
+    """The pointer scan with each step's emission row gathered in the
+    kernel, so no (T', N, K) emission buffer is built.
+
+    Args:
+      logA:   (K, K) fp32.
+      logBT:  (M, K) fp32, the transposed emission table ``logB.T``.
+      ys:     (T', N) int32 symbols for steps 1..T', each in [0, M).  CPU
+        tensors are checked; on CUDA the check would cost a device sync,
+        so the caller validates the symbols before upload.
+      delta0: (N, K) fp32.
+
+    Returns (delta_final (N, K) fp32, ptrs (T', N, K) int32), bit-identical
+    to :func:`maxplus_scan` on the gathered emissions.
+    """
+    Tm, _, _ = _check_eg(logA, logBT, ys, delta0)
+    if not on_cuda(logA, logBT, ys, delta0):
+        return maxplus_scan_emitgather_plain(logA, logBT, ys, delta0)
+    return _scan_cuda("fvt_maxplus_scan_eg", maxplus_scan_emitgather,
+                      {"logA": logA, "logBT": logBT, "ys": ys}, delta0, Tm, True)
 
 
 maxplus_scan.launches = 0
 maxplus_scan_deltas.launches = 0
+maxplus_scan_emitgather.launches = 0

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use, load with ctypes.
 
-All ``csrc/*.cu`` sources compile into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds, not minutes).
-It lands in the package's ``build/`` directory, which git ignores, and is
-rebuilt when any source is newer than it.  Importing this module never
-runs ``nvcc``: only :func:`kernels` does, and only the CUDA branch of a
-kernel wrapper calls it.
+Each ``csrc/*.cu`` source compiles to an object in its own ``nvcc``
+process, all started together; the objects link into one shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds,
+not minutes).  It lands in the package's ``build/`` directory, which git
+ignores, and is rebuilt when any source is newer than it.  Importing this
+module never runs ``nvcc``: only :func:`kernels` does, and only the CUDA
+branch of a kernel wrapper calls it.
 
 No ``--use_fast_math``: the kernels' results are bit-exact only because
 every operation (fp32 add, max, compare) is correctly rounded.
@@ -29,7 +30,7 @@ KERNELS_SO = os.path.join(BUILD_DIR, "libfvt_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "nvcc.log")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -43,6 +44,8 @@ _LL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     # logA, emits, delta0, dfin, ptrs, deltas, work, Tm, N, K, stream, launches
     "fvt_maxplus_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
+    # logA, logBT, ys, delta0, dfin, ptrs, deltas, work, Tm, N, K, stream, launches
+    "fvt_maxplus_scan_eg": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
     # ptrs, last, out, Tm, N, K, stream, launches
     "fvt_backtrack": [_P, _P, _P, _I, _I, _I, _P, _LL],
     # deltas, logAT, last, valid, out, Tm, N, K, stream, launches
@@ -63,10 +66,6 @@ def nvcc_path() -> str:
     if os.path.exists(cand):
         return cand
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
-
-
-def nvcc_command(out: str) -> list[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", out, *sources()]
 
 
 def _stale() -> bool:
@@ -95,12 +94,38 @@ def compile_to(out: str, command) -> str:
     return proc.stdout + proc.stderr
 
 
+def _compile_objects(objdir: str) -> tuple[list[str], str]:
+    """Compile every source to an object in ``objdir``, one ``nvcc`` process
+    per source, all running at once.  Returns (objects, compiler output);
+    raises naming each source that failed."""
+    nvcc = nvcc_path()
+    jobs = []
+    for src in sources():
+        obj = os.path.join(objdir, os.path.basename(src) + ".o")
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs.append((src, obj, proc))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed on " + "\n".join(failed))
+    return [obj for _, obj, _ in jobs], "".join(logs)
+
+
 def build() -> float:
     """Compile the kernel library; returns the seconds ``nvcc`` took.  The
     compiler's output (with ``ptxas`` register and spill counts) is kept in
     ``build/nvcc.log``."""
     t0 = time.perf_counter()
-    log = compile_to(KERNELS_SO, nvcc_command)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs, log = _compile_objects(objdir)
+        log += compile_to(KERNELS_SO, lambda out: [nvcc_path(), "-shared", "-o", out, *objs])
     with open(BUILD_LOG, "w") as f:
         f.write(log)
     return time.perf_counter() - t0

@@ -90,10 +90,10 @@ def test_unported_options_and_unknown_names_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfv.decode(hmm, y, "flash", precision="bf16", device="cpu")
     with pytest.raises(KeyError):
-        tfv.decode(hmm, y, "checkpoint", device="cpu")
+        tfv.decode(hmm, y, "sieve_mp", device="cpu")
     with pytest.raises(ValueError):
         tfv.decode(hmm, y, "flash", device="meta")
-    assert tfv.available_algorithms() == ["flash", "vanilla"]
+    assert tfv.available_algorithms() == ["checkpoint", "flash", "fused", "vanilla"]
 
 
 def test_cuda_device_raises_without_cuda(monkeypatch):
@@ -105,6 +105,7 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = ("import sys, flash_viterbi_tpu_torch, flash_viterbi_tpu_torch.ops.cuda, "
+            "flash_viterbi_tpu_torch.parallel.batch, "
             "flash_viterbi_tpu_torch.oracle.native, "
             "flash_viterbi_tpu_torch.oracle.validate; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
