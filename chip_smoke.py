@@ -9,13 +9,22 @@ Phases, each fatal on failure:
 1. Device: the ``nvidia-smi`` name and power limit, and the torch device.
 2. Build: compile the port's CUDA sources with ``nvcc``, one process per
    source, all at once.
-3. Kernels: each of the five kernels against its plain PyTorch version on
+3. Kernels: each of the six kernels against its plain PyTorch version on
    the card, bit-exact (tolerance 0: the kernels use only correctly
    rounded fp32 adds, maxes and compares), at the headline shapes, at an
-   unpadded K, on a fixture full of exact ties, and (all but the gather
-   scan) at the batch phase's 64 lanes.  Times are the median
-   of CUDA-event timings; the emission-gather scan is also timed in turns
-   with the pointer scan at the same shape.
+   unpadded K, on a fixture full of exact ties, and (the four PR 1
+   kernels) at the batch phase's 64 lanes.  The beam scan is held on five
+   fixtures: flash_bs's phase-1 shape (N=1, T'=255, Kp=3968, B=64, 7
+   anchor planes), its segment shape (8 ragged lanes), the unpadded
+   K=3965, sparse integer-valued ties (K=1000, B=128, fewer than B finite
+   scores) and B=1; ``beam_topk``, the stable sort that makes a decode's
+   first beam, is held to the kernel's select on a row of ties, -inf and
+   -0.0; a select too large for one block must raise.  Times are the
+   median of CUDA-event timings, each beside its bound (the bytes the
+   function must move at 3.35 TB/s or its operations at 67 TFLOP/s fp32,
+   whichever is larger, counted from this run's inputs); the
+   emission-gather scan is also timed in turns with the pointer scan at
+   the same shape.
 4. FLASH slice: the headline problem (K=3965 padded to 3968, M=50, T=256,
    prob=0.112, seed=1) decoded for four requests through the public
    ``decode(..., "flash", num_segments=16, device="cuda")``.  Each path
@@ -26,10 +35,16 @@ Phases, each fatal on failure:
    "checkpoint")`` and ``decode(..., "fused")`` on the card; checkpoint
    must equal fused bit for bit and the C oracle under the rule above, and
    each ``memory:`` figure its analytic value.
-6. Long T: T=16384 through the registered checkpoint and fused decoders on
+6. Beam: the four requests through ``decode(..., "flash_bs",
+   beam_width=64, num_segments=8)`` and ``decode(..., "beam",
+   beam_width=64)``; each path must equal the port's CPU decode and its
+   numpy mirror exactly (-1 segments included), and ``memory:`` its
+   analytic value (12656 and 133120).  The f64 score gap to the C vanilla
+   oracle's path is printed, as information on beam quality.
+7. Long T: T=16384 through the registered checkpoint and fused decoders on
    tables already on the card; equal paths, and the checkpoint decode's
    peak allocation under 32 MiB above what was allocated before it.
-7. Batch: ``decode_batch(..., "fused")`` over 16 and 64 sequences in both
+8. Batch: ``decode_batch(..., "fused")`` over 16 and 64 sequences in both
    pointer modes; every row must equal that sequence's single decode.
 
 Launch counters are set to 0 before each decode phase and read after it;
@@ -55,6 +70,13 @@ EXTRA_SEEDS = (2, 3, 4)
 LONG_T = 16384
 LONG_T_PEAK_BYTES = 32 * 2**20
 BATCHES = (16, 64)
+BEAM_WIDTH = 64
+BEAM_SEGMENTS = 8
+BEAM_MEMORY = {"flash_bs": 12656, "beam": 133120}
+
+# published peaks of one H100 SXM at its 700 W limit
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
 
 # kernel name -> (CUDA source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
@@ -68,6 +90,8 @@ KERNELS = {
                           "flash_viterbi_tpu/ops/pallas/backtrack.py:123"),
     "argmax_walk": ("flash_viterbi_tpu_torch/csrc/argmax_walk.cu",
                     "flash_viterbi_tpu/ops/pallas/backtrack.py:594"),
+    "beam_scan": ("flash_viterbi_tpu_torch/csrc/beam_scan.cu",
+                  "flash_viterbi_tpu/ops/pallas/beam.py:205"),
 }
 
 
@@ -129,11 +153,7 @@ def build_phase() -> None:
 
 
 def tables(hmm, pad_to: int, device):
-    from flash_viterbi_tpu_torch import LogHMM
-
-    lh = hmm.log()
-    return LogHMM(lh.logA.to(device), lh.logB.to(device), lh.logPi.to(device),
-                  lh.K).padded(pad_to)
+    return hmm.log(device=device).padded(pad_to)
 
 
 def phase_inputs(lh, y, device, seed: int):
@@ -161,9 +181,70 @@ def phase_inputs(lh, y, device, seed: int):
     return scan_in, deltas_in, valid
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def work_scan(args, outs):
+    """maxplus_scan / maxplus_scan_deltas: every input and output once;
+    an add and a max per (step, lane, source, destination)."""
+    Tm, N, K = args[1].shape
+    return nbytes(*args, *outs), 2 * Tm * N * K * K
+
+
+def work_emitgather(args, outs):
+    """The gather scan: as the scan, with only the logBT rows its symbols
+    name."""
+    logA, _, ys, delta0 = args
+    Tm, N = ys.shape
+    K = logA.shape[0]
+    rows = int(torch.unique(ys).numel())
+    return nbytes(logA, ys, delta0, *outs) + rows * K * 4, 2 * Tm * N * K * K
+
+
+def work_backtrack(args, outs):
+    """The pointer walk: one 4-byte pointer per (step, lane) it follows."""
+    ptrs, last = args
+    Tm, N, _ = ptrs.shape
+    return Tm * N * 4 + nbytes(last, *outs), 0
+
+
+def work_walk(args, outs):
+    """The argmax walk: per walked row one carry row, and the logAT rows of
+    the states it walks from (each distinct row once)."""
+    deltas, logAT, last, valid = args
+    Tm, N, K = deltas.shape
+    v = torch.ones((Tm, N), dtype=torch.bool, device=deltas.device) if valid is None else valid
+    walked = int(v.sum())
+    rows = int(torch.unique(outs[0][:, 1:].t()[v]).numel())
+    return (walked + rows) * K * 4 + nbytes(last, valid, *outs), 2 * walked * K
+
+
+def work_beam(args, outs):
+    """The beam scan: the distinct logA rows its beams fold (each once),
+    the emission row of each real step, the small inputs and the outputs;
+    an add and a compare per (step, slot, column) and a select of K."""
+    logA, emits, vals0, states0, valid, prop = args
+    Tm, N, K = emits.shape
+    B = vals0.shape[1]
+    v = torch.ones((Tm, N), dtype=torch.bool, device=emits.device) if valid is None else valid
+    beams = torch.cat([states0[None], outs[0][:-1]])  # the beam each step folds
+    rows = int(torch.unique(beams[v]).numel())
+    steps = int(v.sum())
+    return ((rows + steps) * K * 4 + nbytes(vals0, states0, valid, prop, *outs),
+            steps * (2 * B * K + K))
+
+
+WORK = {"maxplus_scan": work_scan, "maxplus_scan_deltas": work_scan,
+        "maxplus_scan_emitgather": work_emitgather, "backtrack_batched": work_backtrack,
+        "argmax_walk": work_walk, "beam_scan": work_beam}
+
+
 def compare(name: str, kernel, plain, args, device, reps: int = 0) -> dict:
     """Run a kernel and its plain version on the same inputs; require
-    bit-equal outputs; optionally time both."""
+    bit-equal outputs; optionally time both and bound the kernel: the
+    larger of its bytes over the published memory rate and its operations
+    over the published fp32 rate, counted from these inputs."""
     got, want = kernel(*args), plain(*args)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -174,6 +255,14 @@ def compare(name: str, kernel, plain, args, device, reps: int = 0) -> dict:
     if reps:
         rec["ms"] = elapsed_ms(lambda: kernel(*args), device, reps)
         rec["plain_ms"] = elapsed_ms(lambda: plain(*args), device, max(1, reps // 3))
+        moved, ops = WORK[name](args, got)
+        by_bytes, by_ops = moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
+        rec.update(bound_ms=max(by_bytes, by_ops),
+                   bound_by="bytes" if by_bytes >= by_ops else "operations",
+                   bytes=moved, operations=ops,
+                   # no single PyTorch call computes a max-plus scan, a
+                   # pointer walk or a beam scan
+                   library_ms=None)
     return rec
 
 
@@ -265,9 +354,102 @@ def batch_inputs(lh, seqs, device):
     return scan_in, scan_in, None
 
 
+def beam_inputs(lh, y, device, B: int = BEAM_WIDTH, P: int = BEAM_SEGMENTS - 1):
+    """The beam scan's inputs at flash_bs's phase-1 shape: N=1 over T-1
+    steps from the top B of the first scores, with P anchor planes."""
+    from flash_viterbi_tpu_torch.algorithms.flash import flash_midpoints, prop_schedule
+    from flash_viterbi_tpu_torch.ops.beam import beam_topk
+
+    T = len(y)
+    emits = lh.logB.t()[torch.as_tensor(y, dtype=torch.int64, device=device)].contiguous()
+    vals0, states0 = beam_topk((lh.logPi + emits[0])[None, :], B)
+    prop = torch.as_tensor(prop_schedule(flash_midpoints(0, T - 1, P + 1), T), device=device)
+    return lh.logA, emits[1:].unsqueeze(1), vals0, states0, None, prop
+
+
+def beam_segment_inputs(lh, y, device, seed: int, B: int = BEAM_WIDTH,
+                        segments: int = BEAM_SEGMENTS):
+    """The beam scan's inputs at flash_bs's segment shape: one lane per
+    segment over Lmax-1 steps with the ragged valid mask; start rows from
+    logA at states drawn from ``seed`` stand in for the anchors."""
+    from flash_viterbi_tpu_torch.algorithms.flash import flash_midpoints, segment_layout
+    from flash_viterbi_tpu_torch.ops.beam import beam_topk
+
+    T = len(y)
+    emits = lh.logB.t()[torch.as_tensor(y, dtype=torch.int64, device=device)].contiguous()
+    starts, lens, Lmax = segment_layout(flash_midpoints(0, T - 1, segments), T)
+    init = torch.as_tensor(np.random.default_rng(seed).integers(0, lh.K, segments),
+                           device=device)
+    idx = torch.clamp(torch.as_tensor(starts, device=device)[:, None]
+                      + torch.arange(Lmax, device=device)[None, :], max=T - 1)
+    seg = emits[idx]
+    vals0, states0 = beam_topk(lh.logA[init] + seg[:, 0], B)
+    valid = (torch.arange(1, Lmax, device=device)[:, None]
+             <= torch.as_tensor(lens, device=device)[None, :] - 1)
+    return lh.logA, seg[:, 1:].transpose(0, 1).contiguous(), vals0, states0, valid, None
+
+
+def beam_tie_inputs(ties, valid, device, B: int = 128, P: int = 3, seed: int = 7):
+    """The tie fixture's tables made sparse (0.4% of the edges) and its
+    start rows cut to ~0.5% finite scores, so the early beams hold fewer
+    than B finite scores; with its valid mask and P planes."""
+    from flash_viterbi_tpu_torch.algorithms.flash import flash_midpoints, prop_schedule
+    from flash_viterbi_tpu_torch.ops.beam import beam_topk
+
+    logA, emits, delta0 = ties
+    Tm, K = emits.shape[0], logA.shape[0]
+    rng = np.random.default_rng(seed)
+    neg = torch.tensor(float("-inf"), device=device)
+    sparse = torch.where(torch.as_tensor(rng.random((K, K)) < 0.004, device=device),
+                         logA, neg)
+    start = torch.where(torch.as_tensor(rng.random(tuple(delta0.shape)) < 0.005,
+                                        device=device), delta0, neg)
+    vals0, states0 = beam_topk(start, B)
+    prop = torch.as_tensor(prop_schedule(flash_midpoints(0, Tm, P + 1), Tm + 1),
+                           device=device)
+    return sparse, emits, vals0, states0, valid, prop
+
+
+def beam_select_checks(device) -> None:
+    """``beam_topk`` on the card against the kernel's own select: a one-step
+    scan over all-zero transitions from an all-zero beam selects the top B
+    of its emission row.  The row holds ties, -inf and -0.0.  Then a select
+    too large for one block must raise, naming the limit."""
+    from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.ops.beam import beam_topk
+    from flash_viterbi_tpu_torch.ops.cuda import beam as kb
+
+    K = 1000
+    row = np.random.default_rng(11).choice(
+        np.array([1.0, 0.5, 0.0, -0.0, -2.0, -np.inf], np.float32), K)
+    row_d = torch.as_tensor(row, device=device)
+    zerosA = torch.zeros((K, K), device=device)
+    for B in (1, 128, K):
+        hist, _, _ = k.beam_scan(zerosA, row_d[None, None, :],
+                                 torch.zeros((1, B), device=device),
+                                 torch.zeros((1, B), dtype=torch.int32, device=device))
+        card = beam_topk(row_d[None], B)[1]
+        cpu = beam_topk(torch.as_tensor(row)[None], B)[1]
+        require(torch.equal(hist[0], card) and torch.equal(card.cpu(), cpu),
+                f"beam_topk on the card differs from the kernel's select at B={B}")
+    big = 17000  # the next power of two's keys alone exceed a block's memory
+    try:
+        k.beam_scan(torch.empty((big, big), device=device),
+                    torch.zeros((1, 1, big), device=device),
+                    torch.zeros((1, 1), device=device),
+                    torch.zeros((1, 1), dtype=torch.int32, device=device))
+    except ValueError as e:
+        require(str(kb.SMEM_LIMIT) in str(e), f"the limit is not named: {e}")
+    else:
+        require(False, f"beam_scan at Kp={big} did not raise")
+    print("beam select: beam_topk on the card equals the kernel's select at "
+          "B = 1, 128, 1000; Kp=17000 raises", flush=True)
+
+
 def kernel_phase(hmm, y, device) -> dict[str, dict]:
     """Kernels against plain versions; returns per-kernel records timed at
     the headline shapes, with the worst error over every fixture."""
+    from flash_viterbi_tpu_torch.ops import beam as bp
     from flash_viterbi_tpu_torch.ops import cuda as k
     from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
 
@@ -275,16 +457,33 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
         return compare("maxplus_scan_emitgather", k.maxplus_scan_emitgather,
                        km.maxplus_scan_emitgather_plain, args, device, reps)
 
+    def check_beam(args, reps: int = 0) -> dict:
+        return compare("beam_scan", k.beam_scan, bp.beam_scan_plain, args, device, reps)
+
     head, unpadded = tables(hmm, 128, device), tables(hmm, 1, device)
     scan_in, deltas_in, valid = phase_inputs(head, y, device, seed=0)
     eg_in = eg_inputs(head, y, device)
-    timed = check_all(scan_in, deltas_in, valid, device, reps=9) + [check_eg(eg_in, 9)]
+    timed = (check_all(scan_in, deltas_in, valid, device, reps=9) + [check_eg(eg_in, 9)]
+             + [check_beam(beam_inputs(head, y, device), 9)])
     ties, valid = tie_fixture(device)
+    beam_seg, beam_b1 = beam_segment_inputs(head, y, device, seed=2), beam_inputs(
+        head, y, device, B=1)
     others = (check_all(*phase_inputs(unpadded, y, device, seed=1), device)
               + check_all(ties, ties, valid, device)
               + check_all(*batch_inputs(head, batch_seqs(), device), device)
               + [check_eg(eg_inputs(unpadded, y, device)),
-                 check_eg(tie_eg_inputs(ties, device))])
+                 check_eg(tie_eg_inputs(ties, device)),
+                 check_beam(beam_seg),
+                 check_beam(beam_inputs(unpadded, y, device)),
+                 check_beam(beam_tie_inputs(ties, valid, device)),
+                 check_beam(beam_b1)])
+    beam_select_checks(device)
+    # attribution: at B=1 the fold reads one row a step, so the time is the
+    # select and the step's fixed cost
+    print(f"beam_scan at the segment shape (8 lanes, T'={beam_seg[1].shape[0]}): "
+          f"{elapsed_ms(lambda: k.beam_scan(*beam_seg), device, 9):.3f} ms; at the "
+          f"phase-1 shape with B=1: {elapsed_ms(lambda: k.beam_scan(*beam_b1), device, 9):.3f}"
+          f" ms", flush=True)
     recs = {r["name"]: dict(r, fixtures=1) for r in timed}
     for r in others:
         rec = recs[r["name"]]
@@ -292,7 +491,9 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
         rec["fixtures"] += 1
     for name, r in recs.items():
         print(f"kernel {name}: bit-exact on {r['fixtures']} fixtures; {r['ms']:.3f} ms "
-              f"(plain {r['plain_ms']:.3f} ms) at the headline shape", flush=True)
+              f"(plain {r['plain_ms']:.3f} ms) at the headline shape; bound "
+              f"{r['bound_ms']:.6f} ms by {r['bound_by']} ({r['bytes']} bytes, "
+              f"{r['operations']} operations)", flush=True)
 
     # the two pointer scans at one shape, timed in turns
     turns = {"maxplus_scan": [], "maxplus_scan_emitgather": []}
@@ -308,6 +509,10 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
     return recs
 
 
+def nonzero(counts: dict[str, int]) -> dict[str, int]:
+    return {n: c for n, c in counts.items() if c}
+
+
 def drive(label: str, needed, run):
     """Run one decode phase between a reset and a read of the launch
     counters; require every kernel in ``needed`` to have launched.
@@ -317,8 +522,8 @@ def drive(label: str, needed, run):
     k.reset_launches()
     out = run()
     launches = k.launch_counts()
-    print(f"{label}: kernel launches (warmups included): "
-          f"{ {n: c for n, c in launches.items() if c} }", flush=True)
+    print(f"{label}: kernel launches (warmups included): {nonzero(launches)}",
+          flush=True)
     missing = [n for n in needed if launches[n] == 0]
     require(not missing, f"{label}: a kernel of the path never launched: {missing}")
     return out, launches
@@ -367,7 +572,8 @@ def slice_phase(hmm, requests, oracles, device, cpu_device) -> dict[str, int]:
                 f"request {i}: path out of range")
         print(f"request {i}: time_s {r.time_s:.6f}, "
               f"{K * K * T / r.time_s / 1e9:.2f} G updates/s, oracle {verdict}, "
-              f"cpu decode {cpu.time_s:.2f} s, memory {r.memory_bytes}", flush=True)
+              f"cpu decode {cpu.time_s:.2f} s, memory {r.memory_bytes}, "
+              f"launches {nonzero(r.extra['launches'])}", flush=True)
     return launches
 
 
@@ -395,9 +601,54 @@ def checkpoint_phase(hmm, requests, oracles, device) -> list[dict[str, int]]:
         require(f.memory_bytes == fused._memory(K=K, T=T),
                 f"request {i}: fused memory {f.memory_bytes}")
         print(f"request {i}: checkpoint {c.time_s * 1e3:.3f} ms "
-              f"(memory {c.memory_bytes}), fused {f.time_s * 1e3:.3f} ms "
-              f"(memory {f.memory_bytes}); equal paths, oracle {verdict}", flush=True)
+              f"(memory {c.memory_bytes}, launches {nonzero(c.extra['launches'])}), "
+              f"fused {f.time_s * 1e3:.3f} ms (memory {f.memory_bytes}, launches "
+              f"{nonzero(f.extra['launches'])}); equal paths, oracle {verdict}", flush=True)
     return [ck_launches, fu_launches]
+
+
+def beam_phase(hmm, requests, oracles, device, cpu_device) -> list[dict[str, int]]:
+    """Decode every request with flash_bs and with beam on ``device``; each
+    path must equal the CPU decode and the numpy mirror exactly, and each
+    ``memory:`` its analytic value.  Prints the f64 score gap to the C
+    oracle's path.  Returns the launches of both."""
+    from flash_viterbi_tpu_torch import decode
+    from flash_viterbi_tpu_torch.algorithms import beam, flash_bs
+    from flash_viterbi_tpu_torch.oracle import framework
+    from flash_viterbi_tpu_torch.oracle.validate import path_score_f64
+
+    K, T = hmm.K, len(requests[0])
+    all_launches = []
+    for name, static, mirror, memory in (
+            ("flash_bs", {"beam_width": BEAM_WIDTH, "num_segments": BEAM_SEGMENTS},
+             framework.flash_bs, flash_bs._memory),
+            ("beam", {"beam_width": BEAM_WIDTH}, framework.beam, beam._memory)):
+        results, launches = drive(
+            f"{name}, {len(requests)} decodes", ("beam_scan", "backtrack_batched"),
+            lambda: [decode(hmm, y, name, device=device, **static) for y in requests])
+        all_launches.append(launches)
+        want_mem = memory(K=K, T=T, **static)
+        require(want_mem == BEAM_MEMORY[name], f"{name}: analytic memory {want_mem}")
+        for i, (y, r, oracle) in enumerate(zip(requests, results, oracles)):
+            cpu = decode(hmm, y, name, device=cpu_device, warmup=False, **static)
+            require(np.array_equal(r.path, cpu.path),
+                    f"{name} request {i}: {device} path differs from the CPU decode")
+            require(np.array_equal(r.path, mirror(hmm.A, hmm.B, hmm.Pi, y, **static)),
+                    f"{name} request {i}: path differs from the numpy mirror")
+            require(r.memory_bytes == want_mem,
+                    f"{name} request {i}: memory {r.memory_bytes} != {want_mem}")
+            require(r.path.shape == (T,) and bool(((r.path >= -1) & (r.path < K)).all()),
+                    f"{name} request {i}: path out of range")
+            misses = int((r.path == -1).sum())
+            gap = "n/a (-1 positions)" if misses else repr(
+                path_score_f64(hmm.A, hmm.B, hmm.Pi, y, oracle)
+                - path_score_f64(hmm.A, hmm.B, hmm.Pi, y, r.path))
+            print(f"{name} request {i}: {r.time_s * 1e3:.3f} ms, -1 positions {misses}, "
+                  f"f64 score gap to the C oracle {gap}, memory {r.memory_bytes}, "
+                  f"launches {nonzero(r.extra['launches'])}, cpu decode "
+                  f"{cpu.time_s:.2f} s; equal to the CPU decode and the mirror",
+                  flush=True)
+    return all_launches
 
 
 def long_t_phase(hmm, device) -> dict[str, int]:
@@ -458,7 +709,7 @@ def batch_phase(hmm, device) -> list[dict[str, int]]:
     from flash_viterbi_tpu_torch.algorithms import fused
 
     K, T = hmm.K, HEADLINE["T"]
-    log_tables = hmm.log()
+    log_tables = hmm.log(device=device)
     lh = tables(hmm, 128, device)
     seqs = batch_seqs()
     single = build("fused")
@@ -501,15 +752,19 @@ def main() -> None:
     gbps = hbm_read_gbps(device)
     Kp, steps = tables(hmm, 128, "cpu").Kp, HEADLINE["T"] - 1
     floor_ms = steps * Kp * Kp * 4 / (gbps * 1e9) * 1e3
-    print(f"HBM read {gbps:.1f} GB/s measured; phase-1 floor at K={Kp}: "
-          f"{steps} steps x {Kp * Kp * 4 / 2**20:.0f} MiB = {floor_ms:.3f} ms",
-          flush=True)
+    print(f"HBM read {gbps:.1f} GB/s measured; the scan's per-step streaming "
+          f"floor at K={Kp}: {steps} steps x {Kp * Kp * 4 / 2**20:.0f} MiB = "
+          f"{floor_ms:.3f} ms at the measured rate, "
+          f"{steps * Kp * Kp * 4 / PEAK_BYTES_PER_S * 1e3:.3f} ms at the published "
+          f"3.35 TB/s", flush=True)
     t0 = time.perf_counter()
     oracles = [native.vanilla(hmm.A, hmm.B, hmm.Pi, y) for y in requests]
     print(f"C oracle: {len(requests)} decodes in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    launches = ([slice_phase(hmm, requests, oracles, device, torch.device("cpu"))]
+    cpu = torch.device("cpu")
+    launches = ([slice_phase(hmm, requests, oracles, device, cpu)]
                 + checkpoint_phase(hmm, requests, oracles, device)
+                + beam_phase(hmm, requests, oracles, device, cpu)
                 + [long_t_phase(hmm, device)]
                 + batch_phase(hmm, device))
     total = {name: sum(run[name] for run in launches) for name in KERNELS}
@@ -517,8 +772,9 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": total[name],
-         "max_abs_err": recs[name]["max_abs_err"], "ms": recs[name]["ms"],
-         "plain_ms": recs[name]["plain_ms"]} for name in KERNELS]}))
+         **{key: recs[name][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by", "library_ms")}}
+        for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

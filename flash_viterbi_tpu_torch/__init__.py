@@ -1,9 +1,10 @@
 """flash_viterbi_tpu_torch — the FLASH Viterbi decoder on PyTorch and CUDA.
 
 A port of ``flash_viterbi_tpu`` (JAX/Pallas) that runs the FLASH
-pointer-mode, checkpoint and fused decoders and batched decoding on an
-NVIDIA H100 through hand-written CUDA kernels, and on the CPU through their
-plain PyTorch versions.  It never imports JAX or the JAX package.
+pointer-mode, checkpoint and fused decoders, the beam family (``flash_bs``,
+``beam``) and batched decoding on an NVIDIA H100 through hand-written CUDA
+kernels, and on the CPU through their plain PyTorch versions.  It never
+imports JAX or the JAX package.
 
 Quick start::
 
@@ -11,11 +12,14 @@ Quick start::
     hmm, y = make_sparse_hmm(K=512, M=50, T=256, prob=0.25, seed=1)
     result = decode(hmm, y, algorithm="flash", num_segments=8, device="cuda")
     print(result.path, result.time_s, result.memory_bytes)
+    beamed = decode(hmm, y, algorithm="flash_bs", beam_width=64, device="cuda")
     batch = decode_batch(hmm, [y, y], algorithm="fused", device="cuda")
 """
 
+from .algorithms import beam as _beam  # noqa: F401
 from .algorithms import checkpoint as _checkpoint  # noqa: F401
 from .algorithms import flash as _flash  # noqa: F401
+from .algorithms import flash_bs as _flash_bs  # noqa: F401
 from .algorithms import fused as _fused  # noqa: F401
 from .algorithms import vanilla as _vanilla  # noqa: F401
 from .algorithms.base import DecodeResult, available_algorithms, build, decode

@@ -15,7 +15,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..models.hmm import HMM, LogHMM
+from ..models.hmm import HMM, LogHMM, resolve_device
 from ..ops import cuda as cuda_ops
 from ..runtime import build as kernel_build
 
@@ -72,16 +72,6 @@ def build(algorithm: str, **static) -> Decoder:
     return _REGISTRY[algorithm](**static)
 
 
-def resolve_device(device) -> torch.device:
-    """The device to decode on; raises if CUDA is asked for and absent."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device!r}: use 'cpu' or 'cuda'")
-    return dev
-
-
 def check_observations(y, M: int) -> np.ndarray:
     """``y`` as int64 numpy; raises on a symbol outside [0, M).  Runs on
     the host before anything is uploaded: the emission-gather kernel reads
@@ -95,7 +85,7 @@ def check_observations(y, M: int) -> np.ndarray:
 
 def upload(hmm: HMM | LogHMM, dev: torch.device, pad_to: int) -> tuple[int, LogHMM]:
     """(logical K, the log tables on ``dev`` padded to ``pad_to``)."""
-    lh = hmm if isinstance(hmm, LogHMM) else hmm.log()
+    lh = hmm if isinstance(hmm, LogHMM) else hmm.log(device=dev)
     padded = LogHMM(lh.logA.to(dev), lh.logB.to(dev), lh.logPi.to(dev), lh.K)
     return lh.K, padded.padded(pad_to)
 

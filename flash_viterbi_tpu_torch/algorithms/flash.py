@@ -20,6 +20,7 @@ the JAX decoder gives, bit for bit.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import maxplus as mp
@@ -54,6 +55,16 @@ def segment_layout(mids: list[int], T: int) -> tuple[list[int], list[int], int]:
     ends = list(mids) + [T - 1]
     lens = [e - s + 1 for s, e in zip(starts, ends)]
     return starts, lens, max(lens)
+
+
+def prop_schedule(mids: list[int], T: int, j0: int = 1,
+                  j1: int | None = None) -> np.ndarray:
+    """(j1-j0, P) bool: True where anchor plane p PROPAGATES (j > mid+1)
+    rather than records, for trellis steps j in [j0, j1) (reference
+    :163,176-179,242)."""
+    j1 = T if j1 is None else j1
+    mids_a = np.asarray(mids, dtype=np.int64).reshape(1, -1)
+    return np.arange(j0, j1, dtype=np.int64)[:, None] > mids_a + 1
 
 
 def phase1_anchors(logA, logPi, emits, mids: torch.Tensor):

@@ -5,6 +5,8 @@ are numpy and produce the same bytes as the JAX package; ``LogHMM`` is an
 ``nn.Module`` whose tables are registered buffers, so ``.to(device)`` moves
 them to the card in one call.
 
+Tables are built on the card unless the caller asks for the CPU.
+
 Padding contract: padded states are dead — their ``log Pi`` entries,
 ``log A`` rows and columns and ``log B`` rows are ``-inf``, so they never
 win an argmax.
@@ -29,6 +31,17 @@ def _log32(p: np.ndarray) -> np.ndarray:
         out = np.log(np.asarray(p, dtype=np.float64)).astype(np.float32)
     out[np.isnan(out)] = np.float32("-inf")
     return out
+
+
+def resolve_device(device) -> torch.device:
+    """The device to place tables or decode on; raises if CUDA is asked
+    for and absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device!r}: use 'cpu' or 'cuda'")
+    return dev
 
 
 def round_up(x: int, m: int) -> int:
@@ -59,9 +72,10 @@ class HMM:
         if not (self.Pi.ndim == 1 and self.Pi.shape[0] == self.A.shape[0]):
             raise ValueError(f"Pi must be (K,), got {self.Pi.shape}")
 
-    def log(self) -> "LogHMM":
+    def log(self, device="cuda") -> "LogHMM":
+        """The fp32 log tables on ``device``."""
         return LogHMM.from_numpy(_log32(self.A), _log32(self.B),
-                                 _log32(self.Pi), K=self.K)
+                                 _log32(self.Pi), K=self.K, device=device)
 
 
 class LogHMM(nn.Module):
@@ -89,14 +103,16 @@ class LogHMM(nn.Module):
         self.K = int(K)
 
     @classmethod
-    def from_numpy(cls, logA, logB, logPi, K: int, device="cpu") -> "LogHMM":
+    def from_numpy(cls, logA, logB, logPi, K: int, device="cuda") -> "LogHMM":
         """Tables from numpy float32 arrays (for example the JAX package's
         ``LogHMM`` fields), byte for byte, on ``device``."""
+        dev = resolve_device(device)
+
         def put(x):
             arr = np.ascontiguousarray(x)
             if arr.dtype != np.float32:
                 raise ValueError(f"expected float32 tables, got {arr.dtype}")
-            return torch.from_numpy(arr.copy()).to(device)
+            return torch.from_numpy(arr.copy()).to(dev)
 
         return cls(put(logA), put(logB), put(logPi), K)
 

@@ -5,10 +5,11 @@ the kernel library is built at the first launch on a CUDA tensor.
 """
 
 from .backtrack import argmax_walk, backtrack_batched
+from .beam import beam_scan
 from .maxplus import maxplus_scan, maxplus_scan_deltas, maxplus_scan_emitgather
 
 WRAPPERS = (maxplus_scan, maxplus_scan_deltas, maxplus_scan_emitgather,
-            backtrack_batched, argmax_walk)
+            backtrack_batched, argmax_walk, beam_scan)
 
 
 def launch_counts() -> dict[str, int]:

@@ -40,7 +40,8 @@ _I = ctypes.c_int
 _LL = ctypes.POINTER(ctypes.c_longlong)
 
 # C entry points: every pointer and the stream as c_void_p (a c_int would cut
-# a 64-bit address); each returns the cudaError_t of its launches
+# a 64-bit address); each returns the cudaError_t of its launches, but
+# fvt_beam_scan_smem, which returns a size
 _SIGNATURES = {
     # logA, emits, delta0, dfin, ptrs, deltas, work, Tm, N, K, stream, launches
     "fvt_maxplus_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
@@ -50,6 +51,11 @@ _SIGNATURES = {
     "fvt_backtrack": [_P, _P, _P, _I, _I, _I, _P, _LL],
     # deltas, logAT, last, valid, out, Tm, N, K, stream, launches
     "fvt_argmax_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
+    # logA, emits, vals0, states0, valid, prop, hist, slots, planes, Tm, N, K,
+    # B, P, stream, launches
+    "fvt_beam_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _LL],
+    # K, B, P -> bytes of shared memory a block of fvt_beam_scan needs
+    "fvt_beam_scan_smem": [_I, _I, _I],
 }
 
 

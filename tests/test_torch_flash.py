@@ -20,6 +20,12 @@ from flash_viterbi_tpu_torch.oracle import validate as tval
 torch.set_num_threads(2)
 
 
+def _jax(hmm):
+    """The same probability tables as the JAX package's ``HMM`` (the port's
+    ``HMM.log()`` builds its tables on the card by default)."""
+    return jfv.HMM(hmm.A, hmm.B, hmm.Pi)
+
+
 def _lines(stdout: str) -> list[str]:
     return [ln for ln in stdout.splitlines() if ln.startswith(("path:", "memory:"))]
 
@@ -44,7 +50,7 @@ def test_flash_matches_jax(K, T, N):
     hmm, y = tfv.make_sparse_hmm(K=K, M=11, T=T, prob=0.2, seed=K + T + N)
     got = tfv.decode(hmm, y, "flash", num_segments=N, device="cpu", warmup=False)
     for use_pallas in (True, False):
-        want = jfv.decode(hmm, y, "flash", num_segments=N, use_pallas=use_pallas,
+        want = jfv.decode(_jax(hmm), y, "flash", num_segments=N, use_pallas=use_pallas,
                           warmup=False)
         _assert_same(want, got)
     assert got.extra["K_padded"] == ((K + 127) // 128) * 128
@@ -54,7 +60,7 @@ def test_flash_matches_jax(K, T, N):
 def test_vanilla_matches_jax_and_oracles():
     hmm, y = tfv.make_sparse_hmm(K=150, M=13, T=48, prob=0.15, seed=4)
     got = tfv.decode(hmm, y, "vanilla", device="cpu", warmup=False)
-    _assert_same(jfv.decode(hmm, y, "vanilla", warmup=False), got)
+    _assert_same(jfv.decode(_jax(hmm), y, "vanilla", warmup=False), got)
     mirror = jfw.vanilla(hmm.A, hmm.B, hmm.Pi, y)
     np.testing.assert_array_equal(got.path, mirror)
     np.testing.assert_array_equal(tfw.vanilla(hmm.A, hmm.B, hmm.Pi, y), mirror)
@@ -78,7 +84,7 @@ def test_path_score_f64_and_tolerance():
 def test_padding_invariance_and_logHMM_input():
     hmm, y = tfv.make_sparse_hmm(K=70, M=9, T=33, prob=0.25, seed=5)
     a = tfv.decode(hmm, y, "flash", num_segments=4, device="cpu", pad_to=1)
-    b = tfv.decode(hmm.log(), y, "flash", num_segments=4, device="cpu", pad_to=128)
+    b = tfv.decode(hmm.log(device="cpu"), y, "flash", num_segments=4, device="cpu", pad_to=128)
     np.testing.assert_array_equal(a.path, b.path)
     assert a.extra["K_padded"] == 70 and b.extra["K_padded"] == 128
 
@@ -93,7 +99,8 @@ def test_unported_options_and_unknown_names_raise():
         tfv.decode(hmm, y, "sieve_mp", device="cpu")
     with pytest.raises(ValueError):
         tfv.decode(hmm, y, "flash", device="meta")
-    assert tfv.available_algorithms() == ["checkpoint", "flash", "fused", "vanilla"]
+    assert tfv.available_algorithms() == ["beam", "checkpoint", "flash", "flash_bs",
+                                          "fused", "vanilla"]
 
 
 def test_cuda_device_raises_without_cuda(monkeypatch):
@@ -107,7 +114,11 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = ("import sys, flash_viterbi_tpu_torch, flash_viterbi_tpu_torch.ops.cuda, "
             "flash_viterbi_tpu_torch.parallel.batch, "
             "flash_viterbi_tpu_torch.oracle.native, "
-            "flash_viterbi_tpu_torch.oracle.validate; "
+            "flash_viterbi_tpu_torch.oracle.validate, "
+            "flash_viterbi_tpu_torch.oracle.framework, "
+            "flash_viterbi_tpu_torch.algorithms.beam, "
+            "flash_viterbi_tpu_torch.algorithms.flash_bs, "
+            "flash_viterbi_tpu_torch.ops.beam, flash_viterbi_tpu_torch.ops.cuda.beam; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flash_viterbi_tpu', 'triton')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -18,6 +18,12 @@ from flash_viterbi_tpu_torch.models.generate import observations
 torch.set_num_threads(2)
 
 
+def _jax(hmm):
+    """The same probability tables as the JAX package's ``HMM`` (the port's
+    ``HMM.log()`` builds its tables on the card by default)."""
+    return jfv.HMM(hmm.A, hmm.B, hmm.Pi)
+
+
 def _lines(stdout: str) -> list[str]:
     return [ln for ln in stdout.splitlines() if ln.startswith(("path:", "memory:"))]
 
@@ -37,7 +43,7 @@ def test_fused_matches_jax(K, T, pallas):
     hmm, y = tfv.make_sparse_hmm(K=K, M=9, T=T, prob=0.2, seed=K + T)
     got = tfv.decode(hmm, y, "fused", device="cpu", warmup=False)
     for use_pallas in pallas:
-        want = jfv.decode(hmm, y, "fused", use_pallas=use_pallas, warmup=False)
+        want = jfv.decode(_jax(hmm), y, "fused", use_pallas=use_pallas, warmup=False)
         np.testing.assert_array_equal(got.path, want.path)
         assert got.path.dtype == np.int32
         assert got.memory_bytes == want.memory_bytes
@@ -81,7 +87,7 @@ def test_fused_routes_and_contiguous_kernel_inputs(K, Bs, pointers, route, monke
 @pytest.mark.parametrize("Bs", [2, 5])  # auto: store below 4 lanes, recompute above
 def test_fused_decode_batch_matches_jax(Bs, pointers):
     hmm, ys = _batch(K=120, M=7, T=11, Bs=Bs, seed=Bs)
-    lh = hmm.log().padded(128)
+    lh = hmm.log(device="cpu").padded(128)
     tables = (lh.logA, lh.logB, lh.logPi)
     got = tfused.fused_decode_batch(*tables, torch.as_tensor(ys, dtype=torch.int64),
                                     pointers=pointers)
@@ -105,7 +111,7 @@ def test_fused_decode_batch_matches_jax(Bs, pointers):
 def test_decode_batch_matches_jax(algorithm, static):
     hmm, ys = _batch(K=70, M=8, T=19, Bs=4, seed=11)
     got = tfv.decode_batch(hmm, ys, algorithm, device="cpu", warmup=False, **static)
-    want = jdecode_batch(hmm, ys, algorithm, warmup=False, **static)
+    want = jdecode_batch(_jax(hmm), ys, algorithm, warmup=False, **static)
     np.testing.assert_array_equal(got.path, want.path)
     assert got.path.dtype == np.int32 and got.path.shape == ys.shape
     assert got.memory_bytes == want.memory_bytes
@@ -120,7 +126,7 @@ def test_decode_batch_matches_jax(algorithm, static):
 def test_decode_batch_other_algorithms_and_padding():
     hmm, ys = _batch(K=50, M=6, T=14, Bs=3, seed=3)
     flash = tfv.decode_batch(hmm, ys, "flash", num_segments=3, device="cpu", pad_to=1)
-    want = jdecode_batch(hmm, ys, "flash", num_segments=3, pad_to=1, warmup=False)
+    want = jdecode_batch(_jax(hmm), ys, "flash", num_segments=3, pad_to=1, warmup=False)
     np.testing.assert_array_equal(flash.path, want.path)
     assert flash.memory_bytes == want.memory_bytes
     fused = tfv.decode_batch(hmm, ys, "fused", device="cpu", pad_to=1)

@@ -43,7 +43,7 @@ def test_log_tables_and_padding_match(K, multiple):
     jh, _ = jgen.make_sparse_hmm(K=K, M=9, T=8, prob=0.2, seed=K)
     th, _ = tgen.make_sparse_hmm(K=K, M=9, T=8, prob=0.2, seed=K)
     jl = jh.log().padded(multiple)
-    tl = th.log().padded(multiple)
+    tl = th.log(device="cpu").padded(multiple)
     assert (tl.K, tl.Kp, tl.M) == (jl.K, jl.Kp, jl.M)
     for name in ("logA", "logB", "logPi"):
         got = getattr(tl, name)
@@ -54,7 +54,7 @@ def test_log_tables_and_padding_match(K, multiple):
 def test_from_numpy_round_trips_jax_tables():
     jh, _ = jgen.make_sparse_hmm(K=72, M=6, T=8, prob=0.3, seed=2)
     jl = jh.log().padded(128)
-    tl = LogHMM.from_numpy(jl.logA, jl.logB, jl.logPi, K=jl.K)
+    tl = LogHMM.from_numpy(jl.logA, jl.logB, jl.logPi, K=jl.K, device="cpu")
     assert tl.K == 72 and tl.Kp == 128
     for name in ("logA", "logB", "logPi"):
         assert getattr(tl, name).numpy().tobytes() == getattr(jl, name).tobytes()
@@ -64,4 +64,18 @@ def test_from_numpy_round_trips_jax_tables():
 
 def test_from_numpy_rejects_float64():
     with pytest.raises(ValueError, match="float32"):
-        LogHMM.from_numpy(np.zeros((2, 2)), np.zeros((2, 3)), np.zeros(2), K=2)
+        LogHMM.from_numpy(np.zeros((2, 2)), np.zeros((2, 3)), np.zeros(2), K=2,
+                          device="cpu")
+
+
+def test_tables_default_to_the_card(monkeypatch):
+    """Tables land on the card unless the CPU is asked for: without CUDA the
+    default raises instead of silently building CPU tables."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    th, _ = tgen.make_sparse_hmm(K=16, M=3, T=8, prob=0.5, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        th.log()
+    lh = th.log(device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LogHMM.from_numpy(lh.logA.numpy(), lh.logB.numpy(), lh.logPi.numpy(), K=16)
+    assert lh.logA.device.type == "cpu"
