@@ -46,19 +46,43 @@ Phases, each fatal on failure:
    peak allocation under 32 MiB above what was allocated before it.
 8. Batch: ``decode_batch(..., "fused")`` over 16 and 64 sequences in both
    pointer modes; every row must equal that sequence's single decode.
+9. Sharded, one rank: ``decode_batch(hmm, requests, mesh=make_mesh(1, 1,
+   1), num_segments=16, device="cuda")`` on the four headline requests;
+   every row must equal the C oracle under the rule of phase 4, request 0
+   the port's CPU sharded decode bit for bit, ``memory:`` 4 x flash's.
+10. Sharded, several ranks on the one card: meshes (1, 1, 2) and (1, 2, 2)
+   over gloo (``launch_workers`` starts this script once a rank, with
+   arguments), every rank on ``cuda:0`` holding only its column shard of
+   ``logA`` and ``logB``; each rank's paths must equal phase 9's bit for
+   bit.  Per-rank times are of ranks time-sliced on one card, not of
+   several cards.
+11. Config-5's K: K=16384, M=50, prob=0.112, seed=1, 2 sequences in one
+   microbatch, 16 segments, T cut from 65536 to 4096 (8 chunks of 512) to
+   keep the run short; mesh (1, 1, 1) in this process, then (1, 1, 4) as 4 ranks on the
+   card, each memory-mapping the tables from ``.npy`` files and uploading
+   only its 256 MiB column shard.  Equal paths, in range, finite scores.
+
+The kernel phase also holds ``maxplus_step_block`` bit-exact on four
+fixtures: the (1, 1, 1) boundary step (N=1, Ks=Kd=3968), 16 phase-2 lanes
+on one of 4 state ranks (Kd=992), config-5's K on one of 4 state ranks
+(Ks=16384, Kd=4096) and an integer-valued tie fixture (N=20, Ks=1000,
+Kd=250, duplicated source rows, an all -inf source row and column).
 
 Launch counters are set to 0 before each decode phase and read after it;
 every kernel of that phase's path must have launched.  Prints a
-``{"kernels": [...]}`` JSON line (launches summed over the decode phases),
-then, last, the ``{"ok": true, "device": {...}}`` line.  Imports no JAX.
+``{"kernels": [...]}`` JSON line (launches summed over the decode phases of
+this process), then, last, the ``{"ok": true, "device": {...}}`` line.
+Imports no JAX.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -73,6 +97,17 @@ BATCHES = (16, 64)
 BEAM_WIDTH = 64
 BEAM_SEGMENTS = 8
 BEAM_MEMORY = {"flash_bs": 12656, "beam": 133120}
+RANK_MESHES = ((1, 1, 2), (1, 2, 2))
+# config-5 (K=16384, T=65536, 256 sequences) with T cut to 4096 and 2
+# sequences: its K, the size state sharding exists for, in a short run;
+# both sequences in one microbatch, so each trellis step serves both
+CONFIG5 = dict(K=16384, M=50, T=4096, prob=0.112, seed=1)
+CONFIG5_BATCH = 2
+CONFIG5_MICROBATCH = 2
+CONFIG5_MESH = (1, 1, 4)
+RANK_TIMEOUT_S = 300.0
+SHARDED_NEEDS = ("maxplus_step_block", "maxplus_scan", "backtrack_batched",
+                 "maxplus_scan_deltas", "argmax_walk")
 
 # published peaks of one H100 SXM at its 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -86,6 +121,8 @@ KERNELS = {
                             "flash_viterbi_tpu/ops/pallas/maxplus.py:240"),
     "maxplus_scan_emitgather": ("flash_viterbi_tpu_torch/csrc/maxplus_scan.cu",
                                 "flash_viterbi_tpu/ops/pallas/maxplus.py:597"),
+    "maxplus_step_block": ("flash_viterbi_tpu_torch/csrc/maxplus_scan.cu",
+                           "flash_viterbi_tpu/ops/pallas/maxplus.py:720"),
     "backtrack_batched": ("flash_viterbi_tpu_torch/csrc/backtrack.cu",
                           "flash_viterbi_tpu/ops/pallas/backtrack.py:123"),
     "argmax_walk": ("flash_viterbi_tpu_torch/csrc/argmax_walk.cu",
@@ -235,9 +272,16 @@ def work_beam(args, outs):
             steps * (2 * B * K + K))
 
 
+def work_step_block(args, outs):
+    """The step block: the carry, the column shard and both outputs once;
+    an add and a max per (lane, source, destination)."""
+    delta, logA_block = args
+    return nbytes(*args, *outs), 2 * delta.shape[0] * logA_block.numel()
+
+
 WORK = {"maxplus_scan": work_scan, "maxplus_scan_deltas": work_scan,
-        "maxplus_scan_emitgather": work_emitgather, "backtrack_batched": work_backtrack,
-        "argmax_walk": work_walk, "beam_scan": work_beam}
+        "maxplus_scan_emitgather": work_emitgather, "maxplus_step_block": work_step_block,
+        "backtrack_batched": work_backtrack, "argmax_walk": work_walk, "beam_scan": work_beam}
 
 
 def compare(name: str, kernel, plain, args, device, reps: int = 0) -> dict:
@@ -261,7 +305,7 @@ def compare(name: str, kernel, plain, args, device, reps: int = 0) -> dict:
                    bound_by="bytes" if by_bytes >= by_ops else "operations",
                    bytes=moved, operations=ops,
                    # no single PyTorch call computes a max-plus scan, a
-                   # pointer walk or a beam scan
+                   # pointer walk, a beam scan, or a max with its lowest index
                    library_ms=None)
     return rec
 
@@ -446,6 +490,41 @@ def beam_select_checks(device) -> None:
           "B = 1, 128, 1000; Kp=17000 raises", flush=True)
 
 
+def step_block_inputs(lh, y, device):
+    """maxplus_step_block's inputs on the headline tables at the sharded
+    decode's shapes: the (1, 1, 1) mesh's boundary step (the N=1 first
+    carry against the whole table) and 16 phase-2 lanes (phase_inputs'
+    carries) against the first of 4 state ranks' column shards."""
+    scan_in, deltas_in, _ = phase_inputs(lh, y, device, seed=3)
+    return ((scan_in[2], lh.logA),
+            (deltas_in[2], lh.logA[:, :lh.Kp // 4].contiguous()))
+
+
+def step_block_config5_inputs(device, seed: int = 5):
+    """One carry against config-5's K on one of 4 state ranks: a (16384,
+    4096) block, 11.2% of it finite (the generator's edge density), drawn
+    on the card from ``seed``."""
+    K, Kd = CONFIG5["K"], CONFIG5["K"] // CONFIG5_MESH[2]
+    g = torch.Generator(device=device).manual_seed(seed)
+    block = torch.randn((K, Kd), generator=g, device=device)
+    keep = torch.rand((K, Kd), generator=g, device=device) < CONFIG5["prob"]
+    block = torch.where(keep, block, torch.tensor(float("-inf"), device=device))
+    return torch.randn((1, K), generator=g, device=device), block
+
+
+def step_block_tie_inputs(device, N: int = 20, Ks: int = 1000, Kd: int = 250,
+                          seed: int = 8):
+    """Integer-valued carries and block (exact ties everywhere); source row
+    17 repeats row 3 in both; source row 9 and column 5 are all -inf; Kd is
+    not a multiple of the 32-column tile and N needs two lane groups."""
+    rng = np.random.default_rng(seed)
+    block = np.round(rng.standard_normal((Ks, Kd)) * 2) / 2
+    delta = np.round(rng.standard_normal((N, Ks)))
+    block[17], delta[:, 17] = block[3], delta[:, 3]
+    block[9], block[:, 5] = -np.inf, -np.inf
+    return tuple(torch.as_tensor(x.astype(np.float32), device=device) for x in (delta, block))
+
+
 def kernel_phase(hmm, y, device) -> dict[str, dict]:
     """Kernels against plain versions; returns per-kernel records timed at
     the headline shapes, with the worst error over every fixture."""
@@ -460,11 +539,18 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
     def check_beam(args, reps: int = 0) -> dict:
         return compare("beam_scan", k.beam_scan, bp.beam_scan_plain, args, device, reps)
 
+    def check_step(args, reps: int = 0) -> dict:
+        return compare("maxplus_step_block", k.maxplus_step_block,
+                       km.maxplus_step_block_plain, args, device, reps)
+
     head, unpadded = tables(hmm, 128, device), tables(hmm, 1, device)
     scan_in, deltas_in, valid = phase_inputs(head, y, device, seed=0)
     eg_in = eg_inputs(head, y, device)
+    boundary, lanes16 = step_block_inputs(head, y, device)
     timed = (check_all(scan_in, deltas_in, valid, device, reps=9) + [check_eg(eg_in, 9)]
-             + [check_beam(beam_inputs(head, y, device), 9)])
+             + [check_beam(beam_inputs(head, y, device), 9), check_step(boundary, 9)])
+    config5_block = step_block_config5_inputs(device)
+    steps = [check_step(lanes16, 9), check_step(config5_block, 9)]
     ties, valid = tie_fixture(device)
     beam_seg, beam_b1 = beam_segment_inputs(head, y, device, seed=2), beam_inputs(
         head, y, device, B=1)
@@ -476,7 +562,14 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
                  check_beam(beam_seg),
                  check_beam(beam_inputs(unpadded, y, device)),
                  check_beam(beam_tie_inputs(ties, valid, device)),
-                 check_beam(beam_b1)])
+                 check_beam(beam_b1),
+                 check_step(step_block_tie_inputs(device))] + steps)
+    for args, r in zip((boundary, lanes16, config5_block),
+                       [timed[-1]] + steps):
+        (N, Ks), Kd = args[0].shape, args[1].shape[1]
+        print(f"maxplus_step_block at (N, Ks, Kd) = ({N}, {Ks}, {Kd}): {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.3f} ms); bound {r['bound_ms'] * 1e3:.2f} us by "
+              f"{r['bound_by']} ({r['bytes']} bytes)", flush=True)
     beam_select_checks(device)
     # attribution: at B=1 the fold reads one row a step, so the time is the
     # select and the step's fixed cost
@@ -737,17 +830,221 @@ def batch_phase(hmm, device) -> list[dict[str, int]]:
     return all_launches
 
 
+def sharded_phase(hmm, requests, oracles, device, cpu_device):
+    """The four requests through ``decode_batch`` on a (1, 1, 1) mesh on
+    ``device``: every row against the C oracle, request 0 against the CPU
+    sharded decode bit for bit, ``memory:`` 4 x flash's.  Returns (the
+    (4, T) paths, the launches)."""
+    from flash_viterbi_tpu_torch import decode_batch, make_mesh
+    from flash_viterbi_tpu_torch.algorithms.flash import _memory
+
+    K, T = hmm.K, len(requests[0])
+    ys = np.stack(requests)
+    r, launches = drive(f"sharded (1, 1, 1), {len(ys)} sequences", SHARDED_NEEDS,
+                        lambda: decode_batch(hmm, ys, mesh=make_mesh(1, 1, 1),
+                                             num_segments=SEGMENTS, device=device))
+    cpu = decode_batch(hmm, ys[:1], mesh=make_mesh(1, 1, 1), num_segments=SEGMENTS,
+                       device=cpu_device, warmup=False)
+    require(np.array_equal(r.path[:1], cpu.path),
+            "sharded request 0: the card's path differs from the CPU sharded decode")
+    require(r.memory_bytes == len(ys) * _memory(K=K, T=T, num_segments=SEGMENTS),
+            f"sharded: memory {r.memory_bytes}")
+    require(r.algorithm == "batched:flash"
+            and r.extra["mesh"] == {"data": 1, "seq": 1, "state": 1},
+            f"sharded: {r.algorithm}, mesh {r.extra['mesh']}")
+    require(r.path.shape == ys.shape and bool(((r.path >= 0) & (r.path < K)).all()),
+            "sharded: paths out of range")
+    verdicts = [oracle_verdict(hmm, y, path, oracle, exact=i == 0)
+                for i, (y, path, oracle) in enumerate(zip(requests, r.path, oracles))]
+    print(f"sharded (1, 1, 1), {len(ys)} sequences: {r.time_s * 1e3:.3f} ms "
+          f"({K * K * T * len(ys) / r.time_s / 1e9:.2f} G updates/s), memory "
+          f"{r.memory_bytes}, launches {nonzero(r.extra['launches'])}; oracle "
+          f"{verdicts}; request 0 equals the CPU sharded decode ({cpu.time_s:.2f} s)",
+          flush=True)
+    return r.path, launches
+
+
+def run_ranks(job: dict) -> tuple[list[dict], float]:
+    """Start one process per rank of ``job["mesh"]``, all on this card,
+    joined over gloo (``launch_workers``: this script with rank arguments,
+    a file:// store).  Returns each rank's record (its paths, decode ms,
+    launches) and the seconds the ranks took, start-up included."""
+    from flash_viterbi_tpu_torch.parallel.multihost import launch_workers
+
+    n = int(np.prod(job["mesh"]))
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        launch_workers(os.path.abspath(__file__), n, out, timeout=RANK_TIMEOUT_S,
+                       env={"FVT_SMOKE_JOB": json.dumps(job)})
+        wall = time.perf_counter() - t0
+        recs = []
+        for r in range(n):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                rec = json.load(f)
+            rec["paths"] = np.load(os.path.join(out, f"rank{r}.npy"))
+            recs.append(rec)
+    return recs, wall
+
+
+def check_ranks(label: str, recs: list[dict], want: np.ndarray, wall: float) -> None:
+    """Every rank's paths must equal ``want`` bit for bit, and every rank
+    must have launched the step block."""
+    for rec in recs:
+        require(np.array_equal(rec["paths"], want),
+                f"{label} rank {rec['rank']}: paths differ from the one-rank run")
+        require(rec["launches"].get("maxplus_step_block", 0) > 0,
+                f"{label} rank {rec['rank']}: maxplus_step_block never launched")
+    times = ", ".join(f"rank {rec['rank']} {tuple(rec['coords'])}: {rec['ms']:.3f} ms"
+                      for rec in recs)
+    print(f"{label}, {len(recs)} ranks time-sliced on one card (not several cards): "
+          f"{times}; launches of rank 0 {recs[0]['launches']}; column shard of logA "
+          f"{recs[0]['shard_bytes']} bytes a rank; every rank's paths equal the "
+          f"one-rank run; {wall:.1f} s with start-up", flush=True)
+
+
+def multi_rank_phase(want: np.ndarray) -> None:
+    """The headline requests on each mesh of RANK_MESHES, every rank on this
+    card; each rank's paths must equal the one-rank phase's."""
+    for shape in RANK_MESHES:
+        recs, wall = run_ranks({"mesh": shape, "problem": "headline",
+                                "segments": SEGMENTS, "microbatch": 1, "warmup": True})
+        check_ranks(f"sharded {shape}", recs, want, wall)
+
+
+def config5_phase(device) -> dict[str, int]:
+    """Config-5's K (T cut to 4096, 2 sequences): the (1, 1, 1) mesh in this
+    process, then CONFIG5_MESH as ranks on the card, each uploading only its
+    column shard of the tables, memory-mapped from .npy files.  Equal paths,
+    in range, finite fp32 scores.  Returns the (1, 1, 1) run's launches."""
+    from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm, observations
+    from flash_viterbi_tpu_torch.ops import maxplus as mp
+    from flash_viterbi_tpu_torch.parallel.sharded import flash_decode_sharded, make_mesh
+
+    t0 = time.perf_counter()
+    hmm, y = make_sparse_hmm(**CONFIG5)
+    lh = hmm.log(device="cpu")  # K=16384: no padding
+    del hmm
+    ys = np.stack([y] + [observations(CONFIG5["T"], CONFIG5["M"], seed=s)
+                         for s in range(2, CONFIG5_BATCH + 1)])
+    gen_s = time.perf_counter() - t0
+    K, T = CONFIG5["K"], CONFIG5["T"]
+    with tempfile.TemporaryDirectory() as tables:
+        for name, t in (("logA", lh.logA), ("logB", lh.logB), ("logPi", lh.logPi)):
+            np.save(os.path.join(tables, f"{name}.npy"), t.numpy())
+        np.save(os.path.join(tables, "ys.npy"), ys)
+        logA, logB, logPi = (t.to(device) for t in (lh.logA, lh.logB, lh.logPi))
+        del lh
+
+        def run():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            paths = flash_decode_sharded(make_mesh(), logA, logB, logPi, ys,
+                                         num_segments=SEGMENTS,
+                                         microbatch=CONFIG5_MICROBATCH)
+            end.record()
+            end.synchronize()
+            return paths, start.elapsed_time(end)
+
+        (paths, ms), launches = drive(f"config-5 K={K}, T={T}, (1, 1, 1)", SHARDED_NEEDS, run)
+        yd = torch.as_tensor(ys.astype(np.int64), device=device)
+        scores = [float(mp.path_score(logA, logB, logPi, yd[b], paths[b]))
+                  for b in range(len(ys))]
+        require(tuple(paths.shape) == ys.shape and bool(((paths >= 0) & (paths < K)).all()),
+                "config-5: paths out of range")
+        require(all(np.isfinite(scores)), f"config-5: path scores {scores}")
+        print(f"config-5 K={K}, T={T} (cut from 65536), {len(ys)} sequences in "
+              f"microbatches of {CONFIG5_MICROBATCH}, {SEGMENTS} segments, (1, 1, 1): "
+              f"{ms:.3f} ms, no warmup "
+              f"({K * K * T * len(ys) / ms / 1e6:.2f} G updates/s), fp32 scores {scores}; "
+              f"tables made in {gen_s:.1f} s", flush=True)
+        want = paths.cpu().numpy()
+        del logA, logB, logPi, paths
+        torch.cuda.empty_cache()
+        recs, wall = run_ranks({"mesh": CONFIG5_MESH, "problem": tables,
+                                "segments": SEGMENTS, "microbatch": CONFIG5_MICROBATCH,
+                                "warmup": False})
+    check_ranks(f"config-5 {CONFIG5_MESH}, no warmup", recs, want, wall)
+    return launches
+
+
+def headline() -> tuple:
+    """(HMM, the four requests: the seed-1 sequence and
+    ``observations(T, M, seed=s)`` for s in EXTRA_SEEDS)."""
+    from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm, observations
+
+    hmm, y1 = make_sparse_hmm(**HEADLINE)
+    return hmm, [y1] + [observations(HEADLINE["T"], HEADLINE["M"], seed=s)
+                        for s in EXTRA_SEEDS]
+
+
+def rank_main(init_method: str, rank: str, world: str, outdir: str) -> None:
+    """One rank of a multi-rank phase, started by ``run_ranks`` with the job
+    in ``FVT_SMOKE_JOB``: join the gloo world, upload this rank's column
+    shard of the tables to ``cuda:0``, decode (after a warmup if the job
+    asks), and write the paths, the decode's CUDA-event time and the
+    launches of the timed decode into ``outdir``."""
+    from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.parallel import multihost
+    from flash_viterbi_tpu_torch.parallel.sharded import flash_decode_sharded, make_mesh
+
+    job = json.loads(os.environ["FVT_SMOKE_JOB"])
+    rank = int(rank)
+    torch.set_num_threads(1)  # the ranks share the host's cores
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    multihost.initialize(init_method, int(world), rank, backend="gloo")
+    mesh = make_mesh(*job["mesh"])
+    if job["problem"] == "headline":
+        hmm, requests = headline()
+        lh = hmm.log(device="cpu").padded(128)
+        logA, logB, logPi = (t.numpy() for t in (lh.logA, lh.logB, lh.logPi))
+        ys = np.stack(requests)
+    else:
+        logA, logB, logPi, ys = (np.load(os.path.join(job["problem"], f"{n}.npy"), mmap_mode="r")
+                                 for n in ("logA", "logB", "logPi", "ys"))
+    Kd = logA.shape[0] // mesh.shape["state"]
+    lo = mesh.coords[2] * Kd
+
+    def upload(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    logA_l, logB_l, logPi_d = upload(logA[:, lo:lo + Kd]), upload(logB[lo:lo + Kd]), upload(logPi)
+    ys = np.asarray(ys)
+
+    def run():
+        return flash_decode_sharded(mesh, logA_l, logB_l, logPi_d, ys,
+                                    num_segments=job["segments"],
+                                    microbatch=job["microbatch"])
+
+    if job["warmup"]:
+        run()
+    k.reset_launches()
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    paths = run()
+    end.record()
+    end.synchronize()
+    np.save(os.path.join(outdir, f"rank{rank}.npy"), paths.cpu().numpy())
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "coords": mesh.coords, "ms": start.elapsed_time(end),
+                   "launches": nonzero(k.launch_counts()),
+                   "shard_bytes": logA_l.numel() * logA_l.element_size()}, f)
+    multihost.shutdown()
+    with open(os.path.join(outdir, f"ok_{rank}"), "w") as f:
+        f.write("ok")
+
+
 def main() -> None:
     device = device_phase()
     build_phase()
 
-    from flash_viterbi_tpu_torch.models.generate import (make_sparse_hmm,
-                                                         observations)
     from flash_viterbi_tpu_torch.oracle import native
 
-    hmm, y1 = make_sparse_hmm(**HEADLINE)
-    requests = [y1] + [observations(HEADLINE["T"], HEADLINE["M"], seed=s)
-                       for s in EXTRA_SEEDS]
+    hmm, requests = headline()
+    y1 = requests[0]
     recs = kernel_phase(hmm, y1, device)
     gbps = hbm_read_gbps(device)
     Kp, steps = tables(hmm, 128, "cpu").Kp, HEADLINE["T"] - 1
@@ -767,6 +1064,9 @@ def main() -> None:
                 + beam_phase(hmm, requests, oracles, device, cpu)
                 + [long_t_phase(hmm, device)]
                 + batch_phase(hmm, device))
+    sharded_paths, sharded_launches = sharded_phase(hmm, requests, oracles, device, cpu)
+    multi_rank_phase(sharded_paths)
+    launches += [sharded_launches, config5_phase(device)]
     total = {name: sum(run[name] for run in launches) for name in KERNELS}
 
     print(json.dumps({"kernels": [
@@ -781,4 +1081,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 5:  # one rank of a multi-rank phase (run_ranks)
+        rank_main(*sys.argv[1:])
+    else:
+        main()

@@ -14,6 +14,11 @@ Quick start::
     print(result.path, result.time_s, result.memory_bytes)
     beamed = decode(hmm, y, algorithm="flash_bs", beam_width=64, device="cuda")
     batch = decode_batch(hmm, [y, y], algorithm="fused", device="cuda")
+    sharded = decode_batch(hmm, [y, y], mesh=make_mesh(1, 1, 1), device="cuda")
+
+``make_mesh`` and ``flash_decode_sharded`` (``parallel.sharded``) are
+imported on first use, so importing the package loads no
+``torch.distributed`` machinery and starts no process group.
 """
 
 from .algorithms import beam as _beam  # noqa: F401
@@ -29,6 +34,17 @@ from .parallel.batch import decode_batch
 
 __version__ = "0.1.0"
 
+_LAZY = {"make_mesh", "flash_decode_sharded"}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        from .parallel import sharded
+
+        return getattr(sharded, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "DecodeResult",
     "HMM",
@@ -37,5 +53,7 @@ __all__ = [
     "build",
     "decode",
     "decode_batch",
+    "flash_decode_sharded",
+    "make_mesh",
     "make_sparse_hmm",
 ]

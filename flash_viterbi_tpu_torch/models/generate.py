@@ -22,13 +22,13 @@ def sparse_graph_A(K: int, seed: int = 1, prob: float = 0.2) -> np.ndarray:
     rng = np.random  # the reference uses the global numpy RNG, seeded here
     rng.seed(seed)
     A = np.zeros((K, K), dtype=float)
-    allstates = [x for x in range(K)]
     for state in range(K):
         edges = rng.binomial(K, p=prob, size=None)
-        targets = rng.choice(allstates, size=edges, replace=False)
+        # choice over range(K) by its length: the same draws and values as
+        # the reference's list of all states, without converting the list
+        targets = rng.choice(K, size=edges, replace=False)
         ps = rng.uniform(0.01, 1, size=edges)
-        for i in range(edges):
-            A[state][targets[i]] = ps[i]
+        A[state, targets] = ps  # distinct targets: the reference's per-edge loop
     for i in range(K):
         A[i,] = A[i,] / np.sum(A[i,])
     return A

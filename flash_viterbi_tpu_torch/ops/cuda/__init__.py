@@ -6,10 +6,11 @@ the kernel library is built at the first launch on a CUDA tensor.
 
 from .backtrack import argmax_walk, backtrack_batched
 from .beam import beam_scan
-from .maxplus import maxplus_scan, maxplus_scan_deltas, maxplus_scan_emitgather
+from .maxplus import (maxplus_scan, maxplus_scan_deltas, maxplus_scan_emitgather,
+                      maxplus_step_block)
 
 WRAPPERS = (maxplus_scan, maxplus_scan_deltas, maxplus_scan_emitgather,
-            backtrack_batched, argmax_walk, beam_scan)
+            maxplus_step_block, backtrack_batched, argmax_walk, beam_scan)
 
 
 def launch_counts() -> dict[str, int]:

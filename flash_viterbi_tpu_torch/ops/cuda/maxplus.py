@@ -1,9 +1,10 @@
-"""The fused max-plus scans: CUDA kernels and their plain versions.
+"""The fused max-plus scans and the state-sharded step: CUDA kernels and
+their plain versions.
 
 Counterparts of ``flash_viterbi_tpu/ops/pallas/maxplus.py``'s
-``maxplus_scan``, ``maxplus_scan_deltas`` and ``maxplus_scan_emitgather``,
-with the same signatures and layouts.  The kernel is
-``csrc/maxplus_scan.cu``.
+``maxplus_scan``, ``maxplus_scan_deltas``, ``maxplus_scan_emitgather`` and
+``maxplus_step_block``, with the same signatures and layouts.  The kernel
+is ``csrc/maxplus_scan.cu``.
 """
 
 from __future__ import annotations
@@ -158,6 +159,61 @@ def maxplus_scan_emitgather(logA: torch.Tensor, logBT: torch.Tensor,
                       {"logA": logA, "logBT": logBT, "ys": ys}, delta0, Tm, True)
 
 
+def _check_step(delta, logA_block) -> tuple[int, int, int]:
+    if delta.dim() != 2 or logA_block.dim() != 2:
+        raise ValueError(f"delta must be (N, Ks) and logA_block (Ks, Kd), got "
+                         f"{tuple(delta.shape)} and {tuple(logA_block.shape)}")
+    N, Ks = delta.shape
+    Kd = logA_block.shape[1]
+    if N < 1 or Ks < 1 or Kd < 1:
+        raise ValueError(f"empty lane, source or destination dimension: "
+                         f"N={N}, Ks={Ks}, Kd={Kd}")
+    expect("delta", delta, torch.float32, (N, Ks))
+    expect("logA_block", logA_block, torch.float32, (Ks, Kd))
+    return N, Ks, Kd
+
+
+def step_block_supported(Ks: int, Kd: int) -> bool:
+    """The kernel takes every positive shape (kept for parity with the JAX
+    package, whose Pallas tiling refuses some)."""
+    return Ks >= 1 and Kd >= 1
+
+
+def maxplus_step_block_plain(delta, logA_block):
+    """Plain version of :func:`maxplus_step_block`, one lane at a time
+    (scratch stays at one (Ks, Kd) tensor)."""
+    N, _, Kd = _check_step(delta, logA_block)
+    val = torch.empty((N, Kd), dtype=torch.float32, device=delta.device)
+    ptr = torch.empty((N, Kd), dtype=torch.int32, device=delta.device)
+    for n in range(N):
+        val[n], ptr[n] = mp.first_argmax(delta[n][:, None] + logA_block, 0)
+    return val, ptr
+
+
+def maxplus_step_block(delta: torch.Tensor, logA_block: torch.Tensor):
+    """One trellis step against a column shard of logA.
+
+    Args:
+      delta:      (N, Ks) fp32 full-source carry.
+      logA_block: (Ks, Kd) fp32, a column slice ``logA[:, lo:lo+Kd]``.
+
+    Returns:
+      (val (N, Kd) fp32 pre-emission scores,
+       ptr (N, Kd) int32 global source indices, the lowest attaining each max).
+    """
+    N, Ks, Kd = _check_step(delta, logA_block)
+    if not on_cuda(delta, logA_block):
+        return maxplus_step_block_plain(delta, logA_block)
+    expect_contiguous(delta=delta, logA_block=logA_block)
+    dev = delta.device
+    val = torch.empty((N, Kd), dtype=torch.float32, device=dev)
+    ptr = torch.empty((N, Kd), dtype=torch.int32, device=dev)
+    launch("fvt_maxplus_step_block", maxplus_step_block, dev, delta.data_ptr(),
+           logA_block.data_ptr(), val.data_ptr(), ptr.data_ptr(), N, Ks, Kd)
+    return val, ptr
+
+
 maxplus_scan.launches = 0
 maxplus_scan_deltas.launches = 0
 maxplus_scan_emitgather.launches = 0
+maxplus_step_block.launches = 0

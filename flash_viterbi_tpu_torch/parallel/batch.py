@@ -3,8 +3,9 @@
 Counterpart of ``flash_viterbi_tpu/parallel/batch.py``.  ``"fused"`` stacks
 the batch as lanes of the scan kernels (``fused_decode_batch``), so one
 read of ``logA`` per step serves up to 16 sequences; any other registered
-algorithm decodes the sequences one by one.  The multi-chip mesh path is
-not ported yet.
+algorithm decodes the sequences one by one.  A ``mesh`` from
+``parallel.sharded.make_mesh`` routes to the multi-device FLASH decode
+(``flash_decode_sharded``), which every rank of the mesh calls.
 """
 
 from __future__ import annotations
@@ -34,13 +35,24 @@ def decode_batch(
 
     Timing and launch counts are taken as ``decode`` takes them;
     ``memory_bytes`` is Bs times the decoder's analytic working set at the
-    logical K, and the result's ``path`` is (Bs, T).
+    logical K, and the result's ``path`` is (Bs, T).  With ``mesh`` the
+    batch goes through ``flash_decode_sharded`` with ``num_segments`` (a
+    static option, None for the mesh's default) whatever ``algorithm``
+    says, and ``memory_bytes`` counts ``flash`` at ``num_segments or 8``
+    segments; ``extra["launches"]`` holds this rank's launches.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "decode_batch(mesh=...) is not ported yet (ROADMAP.md, queue 1 item 15)")
+        from .sharded import Mesh, flash_decode_sharded
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must come from parallel.sharded.make_mesh, "
+                            f"got {type(mesh).__name__}")
+        num_segments = static.pop("num_segments", None)
+        algorithm = "flash"
+        dec = build("flash", num_segments=num_segments or 8, **static)
+    else:
+        dec = build(algorithm, **static)
     dev = resolve_device(device)
-    dec = build(algorithm, **static)
     yv = check_observations(ys, hmm.M)
     if yv.ndim != 2:
         raise ValueError(f"ys must be (Bs, T), got shape {yv.shape}")
@@ -49,7 +61,10 @@ def decode_batch(
     yd = torch.as_tensor(yv, device=dev)
     tables = (lh.logA, lh.logB, lh.logPi)
 
-    if algorithm == "fused":
+    if mesh is not None:
+        def run():
+            return flash_decode_sharded(mesh, *tables, yd, num_segments=num_segments)
+    elif algorithm == "fused":
         def run():
             return fused_decode_batch(*tables, yd, pointers=dec.static["pointers"])
     else:
@@ -63,5 +78,6 @@ def decode_batch(
         memory_bytes=Bs * dec.analytic_memory(K=K, T=T),
         algorithm=f"batched:{algorithm}",
         extra={"batch": Bs, "K": K, "K_padded": lh.Kp, "T": T, "device": str(dev),
+               "mesh": None if mesh is None else dict(mesh.shape),
                "launches": launches, **dec.static},
     )

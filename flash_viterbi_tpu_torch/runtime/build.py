@@ -47,6 +47,8 @@ _SIGNATURES = {
     "fvt_maxplus_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
     # logA, logBT, ys, delta0, dfin, ptrs, deltas, work, Tm, N, K, stream, launches
     "fvt_maxplus_scan_eg": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
+    # delta, logA_block, val, ptr, N, Ks, Kd, stream, launches
+    "fvt_maxplus_step_block": [_P, _P, _P, _P, _I, _I, _I, _P, _LL],
     # ptrs, last, out, Tm, N, K, stream, launches
     "fvt_backtrack": [_P, _P, _P, _I, _I, _I, _P, _LL],
     # deltas, logAT, last, valid, out, Tm, N, K, stream, launches

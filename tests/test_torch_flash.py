@@ -118,7 +118,10 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "flash_viterbi_tpu_torch.oracle.framework, "
             "flash_viterbi_tpu_torch.algorithms.beam, "
             "flash_viterbi_tpu_torch.algorithms.flash_bs, "
-            "flash_viterbi_tpu_torch.ops.beam, flash_viterbi_tpu_torch.ops.cuda.beam; "
+            "flash_viterbi_tpu_torch.ops.beam, flash_viterbi_tpu_torch.ops.cuda.beam, "
+            "flash_viterbi_tpu_torch.parallel.sharded, "
+            "flash_viterbi_tpu_torch.parallel.multihost, "
+            "flash_viterbi_tpu_torch.parallel.commtrace; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flash_viterbi_tpu', 'triton')); "
             "print(bad); sys.exit(1 if bad else 0)")

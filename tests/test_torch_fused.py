@@ -137,7 +137,7 @@ def test_decode_batch_other_algorithms_and_padding():
 
 def test_unported_options_raise():
     hmm, ys = _batch(K=16, M=3, T=8, Bs=2, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 15"):
+    with pytest.raises(TypeError, match="make_mesh"):
         tfv.decode_batch(hmm, ys, "fused", mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfv.decode(hmm, ys[0], "fused", precision="bf16", device="cpu")
