@@ -68,11 +68,27 @@ on one of 4 state ranks (Kd=992), config-5's K on one of 4 state ranks
 (Ks=16384, Kd=4096) and an integer-valued tie fixture (N=20, Ks=1000,
 Kd=250, duplicated source rows, an all -inf source row and column).
 
-Launch counters are set to 0 before each decode phase and read after it;
-every kernel of that phase's path must have launched.  Prints a
-``{"kernels": [...]}`` JSON line (launches summed over the decode phases of
-this process), then, last, the ``{"ok": true, "device": {...}}`` line.
-Imports no JAX.
+Probes (after the kernel phase): the counterparts of the JAX package's
+``scripts/`` probes (``flash_viterbi_tpu_torch.probes``).  Every probe
+kernel that computes a defined function is held bit-exact against its
+plain version on the card: the add+max chains at R=64 and R=4096; the
+scan ablation on its three shapes, with and without the history, at every
+staged chunk (K=16384 compared at T'=4: the plain version's (K, K)
+temporary is 1 GiB a lane-step); the beam probes ``full``, ``sort``,
+``pick``, ``nosmem`` and ``blockm`` against the plain beam scan and the
+production ``beam_scan`` on the probes' fixture and on a tie fixture; p1
+and p3 on the TPU probe's fixture and on a beam scan's rows, p4, p5 on its
+forced tie.  Then the probe path, ``probes.run()``, is driven between a
+reset and a read of the launch counters: every probe kernel must launch.
+Each variant's time is printed beside its bound, counted as in
+``compare``; the measured add+max rate gives the scans' operation bound
+beside the one at the published fp32 rate.
+
+Launch counters are set to 0 before each phase and read after it; every
+kernel of that phase's path must have launched.  Prints a ``{"kernels":
+[...]}`` JSON line (launches summed over the decode phases of this
+process, and the probe kernels' over the probe path), then, last, the
+``{"ok": true, "device": {...}}`` line.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -130,6 +146,32 @@ KERNELS = {
     "beam_scan": ("flash_viterbi_tpu_torch/csrc/beam_scan.cu",
                   "flash_viterbi_tpu/ops/pallas/beam.py:205"),
 }
+# the probes' kernels (flash_viterbi_tpu_torch/probes/), the same way
+PROBE_KERNELS = {
+    "probe_alu": ("flash_viterbi_tpu_torch/csrc/probe_alu.cu", "scripts/vpu_probe.py:67"),
+    "probe_scan_ablation": ("flash_viterbi_tpu_torch/csrc/maxplus_scan.cu",
+                            "scripts/vpu_probe.py:142"),
+    "probe_beam_parts": ("flash_viterbi_tpu_torch/csrc/probe_beam.cu",
+                         "scripts/beam_profile.py:120"),
+    "probe_beam_select": ("flash_viterbi_tpu_torch/csrc/probe_beam.cu",
+                          "scripts/beam_profile2.py:161"),
+    "probe_copy_p1": ("flash_viterbi_tpu_torch/csrc/probe_copy.cu",
+                      "scripts/beam_dma_probe.py:52"),
+    "probe_copy_p3": ("flash_viterbi_tpu_torch/csrc/probe_copy.cu",
+                      "scripts/beam_dma_probe.py:98"),
+    "probe_copy_p4": ("flash_viterbi_tpu_torch/csrc/probe_copy.cu",
+                      "scripts/beam_dma_probe.py:126"),
+    "probe_copy_p5": ("flash_viterbi_tpu_torch/csrc/probe_copy.cu",
+                      "scripts/beam_dma_probe.py:154"),
+}
+# the record of probes.run() whose time stands for each probe kernel: the
+# production configuration where there is one, else the beam scan's rows
+PROBE_TIMED = {"probe_alu": "vpu_peak", "probe_scan_ablation": "phaseA_hist_KC256",
+               "probe_beam_parts": "full", "probe_beam_select": "pick",
+               "probe_copy_p1": "p1_beam_rows", "probe_copy_p3": "p3_beam_rows",
+               "probe_copy_p4": "p4", "probe_copy_p5": "p5"}
+# the scan ablation's plain version is compared at this many steps at K=16384
+PROBE_SCAN_COMPARE_TM = 4
 
 
 def require(cond: bool, msg: str) -> None:
@@ -284,6 +326,13 @@ WORK = {"maxplus_scan": work_scan, "maxplus_scan_deltas": work_scan,
         "backtrack_batched": work_backtrack, "argmax_walk": work_walk, "beam_scan": work_beam}
 
 
+def bound(moved: int, ops: int) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of the bytes over the published
+    memory rate and the operations over the published fp32 rate."""
+    by_bytes, by_ops = moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
 def compare(name: str, kernel, plain, args, device, reps: int = 0) -> dict:
     """Run a kernel and its plain version on the same inputs; require
     bit-equal outputs; optionally time both and bound the kernel: the
@@ -300,10 +349,8 @@ def compare(name: str, kernel, plain, args, device, reps: int = 0) -> dict:
         rec["ms"] = elapsed_ms(lambda: kernel(*args), device, reps)
         rec["plain_ms"] = elapsed_ms(lambda: plain(*args), device, max(1, reps // 3))
         moved, ops = WORK[name](args, got)
-        by_bytes, by_ops = moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
-        rec.update(bound_ms=max(by_bytes, by_ops),
-                   bound_by="bytes" if by_bytes >= by_ops else "operations",
-                   bytes=moved, operations=ops,
+        bound_ms, bound_by = bound(moved, ops)
+        rec.update(bound_ms=bound_ms, bound_by=bound_by, bytes=moved, operations=ops,
                    # no single PyTorch call computes a max-plus scan, a
                    # pointer walk, a beam scan, or a max with its lowest index
                    library_ms=None)
@@ -602,19 +649,176 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
     return recs
 
 
+def probe_check_phase(device) -> dict[str, dict]:
+    """Every probe kernel that computes a defined function against its
+    plain version on the card, bit for bit, on every fixture; the beam
+    probes also against the production beam_scan.  Returns per-kernel
+    records: the worst error, the fixtures and the plain version's time
+    at the probe's timed shape."""
+    from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.probes import alu, beam, copy, scan
+
+    recs = {name: {"max_abs_err": 0.0, "fixtures": 0} for name in PROBE_KERNELS}
+
+    def hold(name: str, got, want) -> None:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            require((g is None) == (w is None), f"{name}: outputs differ in kind")
+            if g is None:
+                continue
+            err = max_abs_err(g, w)
+            require(g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w),
+                    f"{name}: kernel differs from its plain version (max abs err {err})")
+            recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], err)
+        recs[name]["fixtures"] += 1
+
+    x = alu.inputs(device=device)
+    for r in (alu.R, alu.RATE_R):
+        hold("probe_alu", alu.probe_alu(x, r), alu.probe_alu_plain(x, r))
+    recs["probe_alu"]["plain_ms"] = elapsed_ms(lambda: alu.probe_alu_plain(x, alu.R), device, 3)
+
+    cache = {}
+    for shape, (K, N, Tm) in scan.SHAPES.items():
+        Tc = min(Tm, PROBE_SCAN_COMPARE_TM) if K > 4096 else Tm
+        args = scan.inputs(K, N, Tc, device, cache=cache)
+        dfin, deltas = scan.probe_scan_ablation_plain(*args)
+        for write_hist in (True, False):
+            for kc in scan.KCS:
+                hold("probe_scan_ablation", scan.probe_scan_ablation(*args, write_hist, kc),
+                     (dfin, deltas if write_hist else None))
+        print(f"probe scan ablation {shape} (K={K}, N={N}, T'={Tc}): dfin and the history "
+              f"bit-exact, with and without it, at KC = {scan.KCS}", flush=True)
+    K, N, Tm = scan.SHAPES["phaseA"]
+    full = scan.inputs(K, N, Tm, device, cache=cache)
+    recs["probe_scan_ablation"]["plain_ms"] = elapsed_ms(
+        lambda: scan.probe_scan_ablation_plain(*full), device, 1)
+    del cache, full, args, dfin, deltas
+
+    ties = [a if a.dtype != torch.float32 else torch.round(a * 2) / 2 + 0.0
+            for a in beam.inputs(beam.B, 3968, beam.TM, device, seed=1)]
+    for args in (beam.inputs(device=device), tuple(ties)):
+        want = beam.probe_beam_plain(*args)
+        hist, slots, _ = k.beam_scan(*args)
+        require(torch.equal(hist * 256 + slots, want),
+                "beam_scan differs from the plain beam scan on a probe fixture")
+        hold("probe_beam_parts", beam.probe_beam_parts(*args, "full"), want)
+        for variant in ("sort", "pick", "nosmem", "blockm"):
+            hold("probe_beam_select", beam.probe_beam_select(*args, variant), want)
+    args = beam.inputs(device=device)
+    plain_ms = elapsed_ms(lambda: beam.probe_beam_plain(*args), device, 3)
+    recs["probe_beam_parts"]["plain_ms"] = recs["probe_beam_select"]["plain_ms"] = plain_ms
+    print("probe beam: full, sort, pick, nosmem and blockm equal the plain beam scan and "
+          "beam_scan (hist * 256 + slots) on the probes' fixture (B=64, K=4096, T'=255) and "
+          "a tie fixture (K=3968, values in halves)", flush=True)
+
+    rows = copy.beam_rows(device=device)
+    for x in (copy.fixture(device=device), rows):
+        hold("probe_copy_p1", copy.probe_copy_p1(x), x.clone())
+        hold("probe_copy_p3", copy.probe_copy_p3(x), x.clone())
+    for name in ("probe_copy_p1", "probe_copy_p3"):
+        recs[name]["plain_ms"] = elapsed_ms(lambda: rows.clone(), device, 9)
+        out = torch.empty_like(rows)
+        recs[name]["library_ms"] = elapsed_ms(lambda: out.copy_(rows), device, 9)
+    hold("probe_copy_p4", copy.probe_copy_p4(device=device),
+         copy.probe_copy_p4_plain(device=device))
+    hold("probe_copy_p4", copy.probe_copy_p4(255, 32, device=device),
+         copy.probe_copy_p4_plain(255, 32, device=device))
+    recs["probe_copy_p4"]["plain_ms"] = elapsed_ms(
+        lambda: copy.probe_copy_p4_plain(device=device), device, 9)
+    v, c = copy.p5_fixture(device=device)
+    hold("probe_copy_p5", copy.probe_copy_p5(v, c), copy.probe_copy_p5_plain(v, c))
+    best = min(zip(-v.cpu().numpy().ravel(), c.cpu().numpy().ravel()))
+    require(int(copy.probe_copy_p5(v, c)[1][0, 0]) == best[1], "p5: not the numpy winner")
+    recs["probe_copy_p5"]["plain_ms"] = elapsed_ms(
+        lambda: copy.probe_copy_p5_plain(v, c), device, 9)
+    print("probe copies: p1 and p3 on the TPU probe's fixture and on 255 rows of 3968 floats, "
+          "p4 at (4, 8) and (255, 32), p5 on its forced tie: bit-exact, no mbarrier wait "
+          "timed out", flush=True)
+    return recs
+
+
+def probe_phase(device, probe_recs: dict[str, dict], kernel_recs: dict[str, dict]) -> dict:
+    """The probe path, ``probes.run()``, between a reset and a read of the
+    launch counters: every probe kernel must launch.  Prints each
+    variant's time beside its bound, the measured add+max rate and the
+    scans' operation bound at it; fills ``probe_recs`` with each probe
+    kernel's time and bound.  Returns the launches."""
+    from flash_viterbi_tpu_torch import probes
+    from flash_viterbi_tpu_torch.probes import alu
+
+    t0 = time.perf_counter()
+    records, launches = drive("probes", PROBE_KERNELS, lambda: probes.run(device=device))
+    timed = {}
+    for rec in records:
+        if "skipped" in rec:
+            print(f"probe {rec['probe']} {rec['variant']}: no run ({rec['skipped']})")
+            continue
+        ms = rec["per_call_s"] * 1e3
+        bound_ms, bound_by = bound(rec["bytes"], rec["operations"])
+        timed.setdefault(rec["kernel"], {})[rec["variant"]] = (ms, bound_ms, bound_by)
+        print(f"probe {rec['probe']} {rec['variant']} {rec.get('jax', '')}: {ms:.4f} ms a call; "
+              f"bound {bound_ms:.6f} ms by {bound_by} ({rec['bytes']} bytes, "
+              f"{rec['operations']} operations); {json.dumps(rec)}", flush=True)
+    print(f"probes: {time.perf_counter() - t0:.1f} s", flush=True)
+    steps = next(r["Tm"] for r in records if r.get("kernel") == "probe_beam_parts")
+    us = {v: t[0] / steps * 1e3 for k in ("probe_beam_parts", "probe_beam_select")
+          for v, t in timed[k].items()}
+    print(f"beam step split, us a step (B=64, K=4096, T'={steps}): whole step {us['full']:.2f}; "
+          f"row reads ~ full - no-dma = {us['full'] - us['no-dma']:.2f}; fold ~ full - no-fold "
+          f"= {us['full'] - us['no-fold']:.2f}; select (sort) ~ full - no-pick = "
+          f"{us['full'] - us['no-pick']:.2f}; selects in place of the sort: "
+          + ", ".join(f"{v} {us[v] - us['sort']:+.2f}" for v in
+                      ("pick", "nosmem", "blockm", "onereduce")), flush=True)
+    for name, variant in PROBE_TIMED.items():
+        ms, bound_ms, bound_by = timed[name][variant]
+        probe_recs[name].update(ms=ms, bound_ms=bound_ms, bound_by=bound_by, timed=variant)
+        probe_recs[name].setdefault("library_ms", None)
+
+    rate = next(r for r in records if r["variant"] == "vpu_peak_rate")
+    print(f"add+max rate (probe_alu, R={rate['R']}, {rate['shape']}): "
+          f"{rate['cells_per_s']:.6g} cells/s, {rate['ops_per_s']:.6g} operations/s "
+          f"({rate['ops_per_s'] / PEAK_FP32_PER_S * 100:.1f}% of the published "
+          f"{PEAK_FP32_PER_S:.3g} fp32 FLOP/s)", flush=True)
+    for name in ("maxplus_scan", "maxplus_scan_deltas", "maxplus_scan_emitgather"):
+        ops = kernel_recs[name]["operations"]
+        print(f"{name}: operation bound {ops / PEAK_FP32_PER_S * 1e3:.5f} ms at the published "
+              f"fp32 rate, {ops / rate['ops_per_s'] * 1e3:.5f} ms at the measured add+max "
+              f"rate ({ops} operations; {kernel_recs[name]['ms']:.3f} ms measured)", flush=True)
+    try:
+        print(f"probe_alu SASS: {alu.sass_counts()}", flush=True)
+    except (OSError, subprocess.CalledProcessError) as e:
+        print(f"probe_alu SASS: not read ({e})", flush=True)
+    return launches
+
+
 def nonzero(counts: dict[str, int]) -> dict[str, int]:
     return {n: c for n, c in counts.items() if c}
 
 
-def drive(label: str, needed, run):
-    """Run one decode phase between a reset and a read of the launch
-    counters; require every kernel in ``needed`` to have launched.
-    Returns (``run()``'s result, the counts)."""
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launches, the probes' included."""
+    from flash_viterbi_tpu_torch import probes
+    from flash_viterbi_tpu_torch.ops import cuda as k
+
+    return {**k.launch_counts(), **probes.launch_counts()}
+
+
+def reset_launches() -> None:
+    from flash_viterbi_tpu_torch import probes
     from flash_viterbi_tpu_torch.ops import cuda as k
 
     k.reset_launches()
+    probes.reset_launches()
+
+
+def drive(label: str, needed, run):
+    """Run one phase between a reset and a read of the launch counters;
+    require every kernel in ``needed`` to have launched.  Returns
+    (``run()``'s result, the counts)."""
+    reset_launches()
     out = run()
-    launches = k.launch_counts()
+    launches = launch_counts()
     print(f"{label}: kernel launches (warmups included): {nonzero(launches)}",
           flush=True)
     missing = [n for n in needed if launches[n] == 0]
@@ -1038,6 +1242,7 @@ def rank_main(init_method: str, rank: str, world: str, outdir: str) -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     device = device_phase()
     build_phase()
 
@@ -1046,6 +1251,11 @@ def main() -> None:
     hmm, requests = headline()
     y1 = requests[0]
     recs = kernel_phase(hmm, y1, device)
+    t0 = time.perf_counter()
+    probe_recs = probe_check_phase(device)
+    print(f"probe kernels against their plain versions: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    probe_launches = probe_phase(device, probe_recs, recs)
     gbps = hbm_read_gbps(device)
     Kp, steps = tables(hmm, 128, "cpu").Kp, HEADLINE["T"] - 1
     floor_ms = steps * Kp * Kp * 4 / (gbps * 1e9) * 1e3
@@ -1066,15 +1276,18 @@ def main() -> None:
                 + batch_phase(hmm, device))
     sharded_paths, sharded_launches = sharded_phase(hmm, requests, oracles, device, cpu)
     multi_rank_phase(sharded_paths)
-    launches += [sharded_launches, config5_phase(device)]
-    total = {name: sum(run[name] for run in launches) for name in KERNELS}
+    launches += [sharded_launches, config5_phase(device), probe_launches]
+    recs.update(probe_recs)
+    table = {**KERNELS, **PROBE_KERNELS}
+    total = {name: sum(run[name] for run in launches) for name in table}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": total[name],
+        {"name": name, "route": "cuda", "source": table[name][0],
+         "replaces": table[name][1], "launches": total[name],
          **{key: recs[name][key] for key in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by", "library_ms")}}
-        for name in KERNELS]}))
+        for name in table]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

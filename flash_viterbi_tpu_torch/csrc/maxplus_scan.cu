@@ -9,7 +9,10 @@
 // (_scan_kernel, and _scan_res_kernel for K <= 1024), maxplus_scan_deltas
 // (_scan_deltas_kernel, _scan_res_deltas_kernel),
 // maxplus_scan_emitgather (_scan_eg_kernel) and maxplus_step_block
-// (_step_tiles_kernel).  With EMIT_GATHER the emission row of each lane is
+// (_step_tiles_kernel), and the scan-ablation probe of
+// scripts/vpu_probe.py (ablation, _abl_kernel), which runs the deltas
+// scan's own step with the history write on or off and the staged chunk at
+// 128, 256 or 512 source rows.  With EMIT_GATHER the emission row of each lane is
 // read from the (M, K) table logBT by the lane's symbol, so no (T', N, K)
 // emission buffer exists; the table (794 KB at M=50, K=3968) stays in L2,
 // and a step reads one of its rows per lane where the plain scan reads one
@@ -49,10 +52,8 @@ namespace {
 
 constexpr int TI = 32;        // destination columns per block: one per thread of a warp
 constexpr int WK = 16;        // warps per block, splitting the source dimension
-constexpr int KC = 256;       // source rows staged per chunk
-constexpr int RPW = KC / WK;  // rows of a chunk each warp takes
+constexpr int KC = 256;       // source rows staged per chunk (the scans' choice)
 constexpr int LMAX = 16;      // lanes per launch; more lanes go in groups of 16
-static_assert(KC % WK == 0, "chunk must split evenly across warps");
 
 // What a step adds after the max: nothing (maxplus_step_block), this
 // step's (nl, Kd) emission rows, or rows of the (M, Kd) logBT gathered by
@@ -61,15 +62,20 @@ enum Emit { EMIT_NONE, EMIT_ROWS, EMIT_GATHER };
 
 // dcur (nl, Ks), logA (Ks, Kd), dnext / ptr / dhist (nl, Kd).  Only the
 // step block (EMIT_NONE) is rectangular: the scans take Kd = Ks, and the
-// compiler sees it, so their code is that of a square step.
-template <int L, bool WITH_PTR, Emit EMIT>
+// compiler sees it, so their code is that of a square step.  WRITE_HIST
+// and KCH (the source rows staged a chunk) exist for the scan-ablation
+// probe (fvt_maxplus_scan_deltas_ablation); their defaults are the kernels
+// every decode runs.
+template <int L, bool WITH_PTR, Emit EMIT, bool WRITE_HIST = true, int KCH = KC>
 __global__ void __launch_bounds__(TI * WK)
 scan_step(const float* __restrict__ logA, const float* __restrict__ dcur,
           const float* __restrict__ emit, const int* __restrict__ ys,
           float* __restrict__ dnext, int* __restrict__ ptr,
           float* __restrict__ dhist, int Ks, int Kd_block, int nl) {
+    constexpr int RPW = KCH / WK;  // rows of a chunk each warp takes
+    static_assert(KCH % WK == 0, "chunk must split evenly across warps");
     const int Kd = EMIT == EMIT_NONE ? Kd_block : Ks;
-    __shared__ float s_d[L][KC];
+    __shared__ float s_d[L][KCH];
     __shared__ float s_v[WK][TI];
     __shared__ int s_a[WK][TI];
 
@@ -87,11 +93,11 @@ scan_step(const float* __restrict__ logA, const float* __restrict__ dcur,
         arg[n] = Ks;
     }
 
-    for (int k0 = 0; k0 < Ks; k0 += KC) {
+    for (int k0 = 0; k0 < Ks; k0 += KCH) {
         __syncthreads();  // every warp is done with the previous chunk
-        for (int j = tid; j < L * KC; j += TI * WK) {
-            const int n = j / KC;
-            const int kk = j - n * KC;
+        for (int j = tid; j < L * KCH; j += TI * WK) {
+            const int n = j / KCH;
+            const int kk = j - n * KCH;
             const int k = k0 + kk;
             s_d[n][kk] = (n < nl && k < Ks) ? dcur[(size_t)n * Ks + k] : -INFINITY;
         }
@@ -153,7 +159,7 @@ scan_step(const float* __restrict__ logA, const float* __restrict__ dcur,
             }
             if (WITH_PTR) {
                 ptr[o] = ba;
-            } else {
+            } else if (WRITE_HIST) {
                 dhist[o] = dcur[o];
             }
         }
@@ -179,7 +185,29 @@ void launch_step(int nl, dim3 grid, dim3 block, cudaStream_t stream,
 }
 
 // Tm launches per group of up to 16 lanes, ping-ponging the carry through
-// work.  With EMIT_ROWS, emit is emits (Tm, N, K) and ys is null; with
+// work (2*N*K floats): step(nl, src, dst, st, t, g0) launches step t of
+// the group of lanes g0.., reading the carry src and writing dst; st is
+// the step's offset into (Tm, N, K) outputs.
+template <class Step>
+int for_each_step(const float* delta0, float* dfin, float* work, int Tm, int N,
+                  int K, long long* launches, Step step) {
+    const size_t NK = (size_t)N * K;
+    for (int g0 = 0; g0 < N; g0 += LMAX) {
+        const int nl = N - g0 < LMAX ? N - g0 : LMAX;
+        const size_t off = (size_t)g0 * K;
+        for (int t = 0; t < Tm; ++t) {
+            const float* src = t == 0 ? delta0 + off : work + ((t - 1) & 1) * NK + off;
+            float* dst = t == Tm - 1 ? dfin + off : work + (t & 1) * NK + off;
+            step(nl, src, dst, (size_t)t * NK + off, t, g0);
+            const cudaError_t err = cudaGetLastError();
+            if (err != cudaSuccess) return static_cast<int>(err);
+            ++*launches;
+        }
+    }
+    return 0;
+}
+
+// The scan.  With EMIT_ROWS, emit is emits (Tm, N, K) and ys is null; with
 // EMIT_GATHER, emit is logBT (M, K) and ys the (Tm, N) symbols.
 template <Emit EMIT>
 int run_scan(const float* logA, const float* emit, const int* ys,
@@ -188,29 +216,36 @@ int run_scan(const float* logA, const float* emit, const int* ys,
              long long* launches) {
     const dim3 block(TI, WK);
     const dim3 grid((K + TI - 1) / TI);
-    const size_t NK = (size_t)N * K;
-    for (int g0 = 0; g0 < N; g0 += LMAX) {
-        const int nl = N - g0 < LMAX ? N - g0 : LMAX;
-        const size_t off = (size_t)g0 * K;
-        for (int t = 0; t < Tm; ++t) {
-            const float* src = t == 0 ? delta0 + off : work + ((t - 1) & 1) * NK + off;
-            float* dst = t == Tm - 1 ? dfin + off : work + (t & 1) * NK + off;
-            const size_t st = (size_t)t * NK + off;
-            const float* e = EMIT == EMIT_GATHER ? emit : emit + st;
-            const int* y = EMIT == EMIT_GATHER ? ys + (size_t)t * N + g0 : nullptr;
-            if (ptrs != nullptr) {
-                launch_step<true, EMIT>(nl, grid, block, s, logA, src, e, y, dst,
-                                        ptrs + st, nullptr, K);
-            } else {
-                launch_step<false, EMIT>(nl, grid, block, s, logA, src, e, y, dst,
-                                         nullptr, deltas + st, K);
-            }
-            const cudaError_t err = cudaGetLastError();
-            if (err != cudaSuccess) return static_cast<int>(err);
-            ++*launches;
+    return for_each_step(delta0, dfin, work, Tm, N, K, launches,
+                         [&](int nl, const float* src, float* dst, size_t st, int t, int g0) {
+        const float* e = EMIT == EMIT_GATHER ? emit : emit + st;
+        const int* y = EMIT == EMIT_GATHER ? ys + (size_t)t * N + g0 : nullptr;
+        if (ptrs != nullptr) {
+            launch_step<true, EMIT>(nl, grid, block, s, logA, src, e, y, dst,
+                                    ptrs + st, nullptr, K);
+        } else {
+            launch_step<false, EMIT>(nl, grid, block, s, logA, src, e, y, dst,
+                                     nullptr, deltas + st, K);
         }
-    }
-    return 0;
+    });
+}
+
+// The deltas scan as the ablation probe runs it: always the 16-lane
+// instantiation (every group of the probe's shapes has 16 lanes, so it is
+// the kernel production launches there), with or without the history
+// write, at KCH source rows a chunk.
+template <bool WRITE_HIST, int KCH>
+int run_ablation(const float* logA, const float* emits, const float* delta0,
+                 float* dfin, float* deltas, float* work, int Tm, int N, int K,
+                 cudaStream_t s, long long* launches) {
+    const dim3 block(TI, WK);
+    const dim3 grid((K + TI - 1) / TI);
+    return for_each_step(delta0, dfin, work, Tm, N, K, launches,
+                         [&](int nl, const float* src, float* dst, size_t st, int, int) {
+        scan_step<LMAX, false, EMIT_ROWS, WRITE_HIST, KCH><<<grid, block, 0, s>>>(
+            logA, src, emits + st, nullptr, dst, nullptr,
+            WRITE_HIST ? deltas + st : nullptr, K, 0, nl);
+    });
 }
 
 }  // namespace
@@ -263,6 +298,34 @@ extern "C" int fvt_maxplus_step_block(const float* delta, const float* logA_bloc
         ++*launches;
     }
     return 0;
+}
+
+// The scan-ablation probe (replaces scripts/vpu_probe.py: ablation,
+// _abl_kernel): fvt_maxplus_scan without pointers, with (write_hist != 0,
+// deltas (Tm, N, K)) or without (deltas null) the carry history, staging
+// kc source rows a chunk, kc in {128, 256, 512} (1024 would take 64 KB of
+// static shared memory at 16 lanes, above the 48 KB limit).  dfin is the
+// same in every mode.  Returns the first launch error, or
+// cudaErrorInvalidValue for another kc.
+extern "C" int fvt_maxplus_scan_deltas_ablation(const float* logA, const float* emits,
+                                                const float* delta0, float* dfin,
+                                                float* deltas, float* work, int Tm,
+                                                int N, int K, int write_hist, int kc,
+                                                void* stream, long long* launches) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FVT_ABLATION(WH, KCH) \
+    return run_ablation<WH, KCH>(logA, emits, delta0, dfin, deltas, work, Tm, N, K, s, launches)
+    if (write_hist) {
+        if (kc == 128) FVT_ABLATION(true, 128);
+        if (kc == 256) FVT_ABLATION(true, 256);
+        if (kc == 512) FVT_ABLATION(true, 512);
+    } else {
+        if (kc == 128) FVT_ABLATION(false, 128);
+        if (kc == 256) FVT_ABLATION(false, 256);
+        if (kc == 512) FVT_ABLATION(false, 512);
+    }
+#undef FVT_ABLATION
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* fvt_error_string(int code) {

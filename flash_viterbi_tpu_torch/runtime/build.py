@@ -40,8 +40,8 @@ _I = ctypes.c_int
 _LL = ctypes.POINTER(ctypes.c_longlong)
 
 # C entry points: every pointer and the stream as c_void_p (a c_int would cut
-# a 64-bit address); each returns the cudaError_t of its launches, but
-# fvt_beam_scan_smem, which returns a size
+# a 64-bit address); each returns the cudaError_t of its launches, but the
+# two *_smem functions, which return a size
 _SIGNATURES = {
     # logA, emits, delta0, dfin, ptrs, deltas, work, Tm, N, K, stream, launches
     "fvt_maxplus_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
@@ -58,6 +58,21 @@ _SIGNATURES = {
     "fvt_beam_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _LL],
     # K, B, P -> bytes of shared memory a block of fvt_beam_scan needs
     "fvt_beam_scan_smem": [_I, _I, _I],
+    # the probes (flash_viterbi_tpu_torch/probes/)
+    # logA, emits, delta0, dfin, deltas, work, Tm, N, K, write_hist, kc, stream, launches
+    "fvt_maxplus_scan_deltas_ablation": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _LL],
+    # x, out, n, R, stream, launches
+    "fvt_probe_alu": [_P, _P, _I, _I, _P, _LL],
+    # logA, emits, vals0, states0, codes, Tm, K, B, variant, stream, launches
+    "fvt_probe_beam": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _LL],
+    # K, B -> bytes of shared memory fvt_probe_beam needs
+    "fvt_probe_beam_smem": [_I, _I],
+    # src, dst, Tm, n, B, err, stream, launches
+    "fvt_probe_copy_rows": [_P, _P, _I, _I, _I, _P, _P, _LL],
+    # out, Tm, W, err, stream, launches
+    "fvt_probe_copy_p4": [_P, _I, _I, _P, _P, _LL],
+    # v, c, n, outv, outc, width, stream, launches
+    "fvt_probe_copy_p5": [_P, _P, _I, _P, _P, _I, _P, _LL],
 }
 
 

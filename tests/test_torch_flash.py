@@ -121,7 +121,11 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "flash_viterbi_tpu_torch.ops.beam, flash_viterbi_tpu_torch.ops.cuda.beam, "
             "flash_viterbi_tpu_torch.parallel.sharded, "
             "flash_viterbi_tpu_torch.parallel.multihost, "
-            "flash_viterbi_tpu_torch.parallel.commtrace; "
+            "flash_viterbi_tpu_torch.parallel.commtrace, "
+            "flash_viterbi_tpu_torch.bench.harness, flash_viterbi_tpu_torch.probes, "
+            "flash_viterbi_tpu_torch.probes.alu, flash_viterbi_tpu_torch.probes.scan, "
+            "flash_viterbi_tpu_torch.probes.beam, flash_viterbi_tpu_torch.probes.copy, "
+            "flash_viterbi_tpu_torch.probes.__main__; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flash_viterbi_tpu', 'triton')); "
             "print(bad); sys.exit(1 if bad else 0)")
