@@ -9,7 +9,7 @@ Phases, each fatal on failure:
 1. Device: the ``nvidia-smi`` name and power limit, and the torch device.
 2. Build: compile the port's CUDA sources with ``nvcc``, one process per
    source, all at once.
-3. Kernels: each of the six kernels against its plain PyTorch version on
+3. Kernels: each of the seven kernels against its plain PyTorch version on
    the card, bit-exact (tolerance 0: the kernels use only correctly
    rounded fp32 adds, maxes and compares), at the headline shapes, at an
    unpadded K, on a fixture full of exact ties, and (the four PR 1
@@ -19,12 +19,21 @@ Phases, each fatal on failure:
    K=3965, sparse integer-valued ties (K=1000, B=128, fewer than B finite
    scores) and B=1; ``beam_topk``, the stable sort that makes a decode's
    first beam, is held to the kernel's select on a row of ties, -inf and
-   -0.0; a select too large for one block must raise.  Times are the
-   median of CUDA-event timings, each beside its bound (the bytes the
-   function must move at 3.35 TB/s or its operations at 67 TFLOP/s fp32,
-   whichever is larger, counted from this run's inputs); the
-   emission-gather scan is also timed in turns with the pointer scan at
-   the same shape.
+   -0.0; a select too large for one block's shared memory (Kp=17000, B=64,
+   T'=4), which runs over a global scratch, against the plain beam scan.
+   The three scans are also held on a parity grid, K in (64, 1024, 3965,
+   4096, 16384) x N in (1, 16, 64), and under plans made for fewer SMs
+   than their column groups (each block walking several tiles, both
+   combines).  Times are the median of CUDA-event
+   timings, each beside its bound (the bytes the function must move at
+   3.35 TB/s or its operations at 67 TFLOP/s fp32, whichever is larger,
+   counted from this run's inputs); the emission-gather scan is also timed
+   in turns with the pointer scan at the same shape.  After the probes:
+   the card's L2 size and persisting limit, the persistent scan's fixed
+   cost a step (K=128, T'=255), the rate at which it streams a logA of the
+   headline scan's streamed part's size (all of it in L2, no row in shared
+   memory), each scan's design floor from those two, and both combines in
+   turns at 1 to 16 lanes, K=3968 and K=16384.
 4. FLASH slice: the headline problem (K=3965 padded to 3968, M=50, T=256,
    prob=0.112, seed=1) decoded for four requests through the public
    ``decode(..., "flash", num_segments=16, device="cuda")``.  Each path
@@ -40,7 +49,9 @@ Phases, each fatal on failure:
    beam_width=64)``; each path must equal the port's CPU decode and its
    numpy mirror exactly (-1 segments included), and ``memory:`` its
    analytic value (12656 and 133120).  The f64 score gap to the C vanilla
-   oracle's path is printed, as information on beam quality.
+   oracle's path is printed, as information on beam quality.  Then one
+   ``decode(..., "beam", beam_width=64)`` at K=17000, T=32, whose select
+   does not fit a block's shared memory, against the port's CPU decode.
 7. Long T: T=16384 through the registered checkpoint and fused decoders on
    tables already on the card; equal paths, and the checkpoint decode's
    peak allocation under 32 MiB above what was allocated before it.
@@ -113,6 +124,19 @@ BATCHES = (16, 64)
 BEAM_WIDTH = 64
 BEAM_SEGMENTS = 8
 BEAM_MEMORY = {"flash_bs": 12656, "beam": 133120}
+# a beam decode above the K whose select fits one block (Kp <= 16384 at
+# B=64): the headline's M, prob and seed, T cut to 32
+BEAM_LARGE = dict(K=17000, M=50, T=32, prob=0.112, seed=1)
+# the scans' parity grid: every K by every lane count, T' steps (4 at
+# K=16384, where the plain version's temporary is 1 GiB a lane-step)
+GRID_K = (64, 1024, 3965, 4096, 16384)
+GRID_N = (1, 16, 64)
+GRID_TM = 8
+GRID_TM_LARGE = 4
+# (K, N, SMs) whose plans walk several tiles a block; the combine turns' shapes
+LOOPED_PLANS = ((3000, 16, 4), (3000, 20, 4), (3001, 1, 1))
+COMBINE_SHAPES = ((3968, 1), (3968, 2), (3968, 4), (3968, 8), (3968, 16), (16384, 1),
+                  (16384, 2), (16384, 16))
 RANK_MESHES = ((1, 1, 2), (1, 2, 2))
 # config-5 (K=16384, T=65536, 256 sequences) with T cut to 4096 and 2
 # sequences: its K, the size state sharding exists for, in a short run;
@@ -501,14 +525,18 @@ def beam_tie_inputs(ties, valid, device, B: int = 128, P: int = 3, seed: int = 7
     return sparse, emits, vals0, states0, valid, prop
 
 
-def beam_select_checks(device) -> None:
+def beam_select_checks(device) -> list[dict]:
     """``beam_topk`` on the card against the kernel's own select: a one-step
     scan over all-zero transitions from an all-zero beam selects the top B
     of its emission row.  The row holds ties, -inf and -0.0.  Then a select
-    too large for one block must raise, naming the limit."""
+    too large for one block's shared memory (Kp=17000, B=64, T'=4, values
+    in halves: ties everywhere), which runs over a global scratch, against
+    the plain beam scan; returns that comparison's record."""
+    from flash_viterbi_tpu_torch.ops import beam as bp
     from flash_viterbi_tpu_torch.ops import cuda as k
     from flash_viterbi_tpu_torch.ops.beam import beam_topk
     from flash_viterbi_tpu_torch.ops.cuda import beam as kb
+    from flash_viterbi_tpu_torch.runtime import build
 
     K = 1000
     row = np.random.default_rng(11).choice(
@@ -523,18 +551,21 @@ def beam_select_checks(device) -> None:
         cpu = beam_topk(torch.as_tensor(row)[None], B)[1]
         require(torch.equal(hist[0], card) and torch.equal(card.cpu(), cpu),
                 f"beam_topk on the card differs from the kernel's select at B={B}")
-    big = 17000  # the next power of two's keys alone exceed a block's memory
-    try:
-        k.beam_scan(torch.empty((big, big), device=device),
-                    torch.zeros((1, 1, big), device=device),
-                    torch.zeros((1, 1), device=device),
-                    torch.zeros((1, 1), dtype=torch.int32, device=device))
-    except ValueError as e:
-        require(str(kb.SMEM_LIMIT) in str(e), f"the limit is not named: {e}")
-    else:
-        require(False, f"beam_scan at Kp={big} did not raise")
-    print("beam select: beam_topk on the card equals the kernel's select at "
-          "B = 1, 128, 1000; Kp=17000 raises", flush=True)
+    big, B = BEAM_LARGE["K"], BEAM_WIDTH
+    need = build.kernels().fvt_beam_scan_smem(big, B, 0)
+    require(need > kb.SMEM_LIMIT, f"Kp={big}: {need} bytes fit a block; not the scratch path")
+    g = torch.Generator(device=device).manual_seed(12)
+    logA = torch.round(torch.randn((big, big), generator=g, device=device) * 2) / 2
+    emits = torch.round(torch.randn((4, 1, big), generator=g, device=device))
+    vals0, states0 = beam_topk(torch.round(torch.randn((1, big), generator=g, device=device)), B)
+    rec = compare("beam_scan", k.beam_scan, bp.beam_scan_plain,
+                  (logA, emits, vals0, states0, None, None), device)
+    ms = elapsed_ms(lambda: k.beam_scan(logA, emits, vals0, states0), device, 5)
+    print(f"beam select: beam_topk on the card equals the kernel's select at B = 1, 128, "
+          f"1000; at Kp={big}, B={B}, T'=4 ({need} bytes a lane, in the global scratch) "
+          f"beam_scan equals the plain beam scan: {ms:.3f} ms, {ms / 4 * 1e3:.1f} us a step",
+          flush=True)
+    return [rec]
 
 
 def step_block_inputs(lh, y, device):
@@ -570,6 +601,170 @@ def step_block_tie_inputs(device, N: int = 20, Ks: int = 1000, Kd: int = 250,
     block[17], delta[:, 17] = block[3], delta[:, 3]
     block[9], block[:, 5] = -np.inf, -np.inf
     return tuple(torch.as_tensor(x.astype(np.float32), device=device) for x in (delta, block))
+
+
+def grid_inputs(K: int, N: int, Tm: int, device, seed: int, M: int = 50):
+    """The parity grid's inputs, drawn on the card from ``seed``: logA,
+    emits, delta0 and an (M, K) logBT in halves (ties everywhere), source
+    row K // 3 and destination column K // 5 all -inf; (T', N) symbols."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def halves(*shape):
+        return torch.round(torch.randn(shape, generator=g, device=device) * 2) / 2
+
+    logA = halves(K, K)
+    logA[K // 3] = float("-inf")
+    logA[:, K // 5] = float("-inf")
+    ys = torch.randint(0, M, (Tm, N), generator=g, device=device, dtype=torch.int32)
+    return logA, halves(Tm, N, K), halves(N, K), halves(M, K), ys
+
+
+def scan_grid_checks(device) -> list[dict]:
+    """The three scans against their plain versions at every (K, N) of
+    GRID_K x GRID_N; returns the comparisons' records."""
+    from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
+
+    t0 = time.perf_counter()
+    recs = []
+    for K in GRID_K:
+        for N in GRID_N:
+            Tm = GRID_TM_LARGE if K > 4096 else GRID_TM
+            logA, emits, delta0, logBT, ys = grid_inputs(K, N, Tm, device, seed=K + N)
+            recs += [compare("maxplus_scan", k.maxplus_scan, km.maxplus_scan_plain,
+                             (logA, emits, delta0), device),
+                     compare("maxplus_scan_deltas", k.maxplus_scan_deltas,
+                             km.maxplus_scan_deltas_plain, (logA, emits, delta0), device),
+                     compare("maxplus_scan_emitgather", k.maxplus_scan_emitgather,
+                             km.maxplus_scan_emitgather_plain, (logA, logBT, ys, delta0),
+                             device)]
+            del logA, emits, delta0, logBT, ys
+        torch.cuda.empty_cache()
+    print(f"scan parity grid: maxplus_scan, maxplus_scan_deltas and maxplus_scan_emitgather "
+          f"bit-exact at K = {GRID_K} x N = {GRID_N} (T' = {GRID_TM}, {GRID_TM_LARGE} at "
+          f"K > 4096); {time.perf_counter() - t0:.1f} s", flush=True)
+    return recs
+
+
+def streamed_bytes(plan) -> int:
+    """Bytes of logA the persistent scan streams a step: every tile's rows
+    past those held in shared memory."""
+    total = 0
+    for r in range(plan.R):
+        rows = plan.row_edges[r + 1] - plan.row_edges[r]
+        for c in range(plan.C):
+            cols = plan.col_edges[c + 1] - plan.col_edges[c]
+            total += max(0, rows - plan.rows_smem) * cols * 4
+    return total
+
+
+def looped_plan_checks(device) -> list[dict]:
+    """The three scans against their plain versions under plans made for
+    fewer SMs than K's column groups need (one range of every row, each
+    block walking several tiles a step, as above K=67584 at 16 lanes), in
+    both combines: 16 and 20 lanes on 4 SMs, one lane on 1 SM."""
+    import functools
+
+    from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
+
+    t0 = time.perf_counter()
+    recs = []
+    for K, N, sms in LOOPED_PLANS:
+        logA, emits, delta0, logBT, ys = grid_inputs(K, N, GRID_TM, device, seed=K + sms)
+        for two_phase in (False, True):
+            plan = km.scan_plan(K, N, sms, two_phase=two_phase)
+            require(plan.tiles > plan.blocks == sms, f"plan {plan} walks one tile a block")
+            recs += [compare("maxplus_scan", functools.partial(k.maxplus_scan, plan=plan),
+                             km.maxplus_scan_plain, (logA, emits, delta0), device),
+                     compare("maxplus_scan_deltas",
+                             functools.partial(k.maxplus_scan_deltas, plan=plan),
+                             km.maxplus_scan_deltas_plain, (logA, emits, delta0), device),
+                     compare("maxplus_scan_emitgather",
+                             functools.partial(k.maxplus_scan_emitgather, plan=plan),
+                             km.maxplus_scan_emitgather_plain, (logA, logBT, ys, delta0),
+                             device)]
+    print(f"scans with several tiles a block (K, N, SMs) = {LOOPED_PLANS}, both combines: "
+          f"bit-exact; {time.perf_counter() - t0:.1f} s", flush=True)
+    return recs
+
+
+def combine_turns(device) -> None:
+    """Both ways of combining partials, in turns (on read, two-phase,
+    two-phase, on read), for both scan forms at every lane count and K in
+    COMBINE_SHAPES; the plan's default is marked."""
+    import functools
+
+    from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
+
+    sms = km.sm_count(device)
+    for K, N in COMBINE_SHAPES:
+        Tm = 64 if K <= 4096 else 8
+        logA, emits, delta0, _, _ = grid_inputs(K, N, Tm, device, seed=K * N)
+        for name, fn in (("maxplus_scan", k.maxplus_scan),
+                         ("maxplus_scan_deltas", k.maxplus_scan_deltas)):
+            times = {False: [], True: []}
+            for two_phase in (False, True, True, False):
+                run = functools.partial(fn, logA, emits, delta0,
+                                        plan=km.scan_plan(K, N, sms, two_phase=two_phase))
+                run()
+                times[two_phase].append(elapsed_ms(run, device, 5))
+            on_read, two = (statistics.mean(times[m]) for m in (False, True))
+            default = "two-phase" if km.scan_plan(K, N, sms).two_phase else "on read"
+            print(f"combine {name} K={K} N={N} T'={Tm}: on read {on_read:.4f} ms, two-phase "
+                  f"{two:.4f} ms (two-phase/on read {two / on_read:.3f}; {K * N * 4} bytes "
+                  f"of partials a step; the plan takes {default}); runs {times}", flush=True)
+        del logA, emits, delta0
+    torch.cuda.empty_cache()
+
+
+def scan_floor_phase(hmm, device, recs: dict[str, dict], hbm_gbps: float) -> None:
+    """The persistent scan's own floor beside its time: the bytes it
+    streams a step at the rate this kernel streams logA when all of it fits
+    L2, plus the step's fixed cost (the pointer scan at K=128, N=1, T'=255,
+    over 255), times the steps; and the card's L2 figures.  The rate is
+    read from the pointer scan at N=1, T'=255 on a K whose logA has the
+    size of the headline scan's streamed part, planned with no row in
+    shared memory (every row streamed every step), less the fixed cost."""
+    import ctypes
+
+    from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
+    from flash_viterbi_tpu_torch.runtime import build
+
+    l2 = (ctypes.c_int * 2)()
+    build.check(build.kernels().fvt_device_l2(0, l2), "fvt_device_l2")
+    sms = km.sm_count(device)
+    Kp = -(-hmm.K // 128) * 128
+    steps = HEADLINE["T"] - 1
+    small = grid_inputs(128, 1, steps, device, seed=3)
+    fixed_ms = elapsed_ms(lambda: k.maxplus_scan(*small[:3]), device, 9) / steps
+    head = km.scan_plan(Kp, 1, sms)
+    Kl = int((streamed_bytes(head) / 4) ** 0.5) // 4 * 4
+    streamed = km.scan_plan(Kl, 1, sms, smem_bytes=km.STATIC_SMEM + 4096)
+    require(streamed.rows_smem == 0, f"the L2-rate plan keeps rows in shared memory: {streamed}")
+    l2_in = grid_inputs(Kl, 1, steps, device, seed=4)[:3]
+    l2_ms = elapsed_ms(lambda: k.maxplus_scan(*l2_in, plan=streamed), device, 9)
+    gbps = Kl * Kl * 4 * steps / ((l2_ms - steps * fixed_ms) * 1e-3) / 1e9
+    print(f"L2: {l2[0]} bytes, up to {l2[1]} bytes for persisting accesses; the scan's "
+          f"streaming rate with all of logA in L2 {gbps:.1f} GB/s (pointer scan K={Kl}, "
+          f"{Kl * Kl * 4} bytes streamed a step, N=1, T'={steps}: {l2_ms:.4f} ms less the fixed "
+          f"cost), HBM {hbm_gbps:.1f} GB/s; the fixed cost a step (K=128, N=1, T'={steps}) "
+          f"{fixed_ms * 1e3:.3f} us", flush=True)
+    combine_turns(device)
+    for name, N, Tm in (("maxplus_scan", 1, steps), ("maxplus_scan_emitgather", 1, steps),
+                        ("maxplus_scan_deltas", SEGMENTS, SEGMENTS)):
+        plan = km.scan_plan(Kp, N, sms)
+        moved = streamed_bytes(plan)
+        floor_ms = Tm * (moved / (gbps * 1e9) * 1e3 + fixed_ms)
+        recs[name].update(design_floor_ms=floor_ms)
+        print(f"{name} (N={N}, T'={Tm}, Kp={Kp}): {recs[name]['ms']:.3f} ms; plan R={plan.R} x "
+              f"C={plan.C} = {plan.blocks} blocks, {plan.rows_smem} of "
+              f"{plan.rows_smem + plan.rows_streamed} tile rows in shared memory, {moved} bytes "
+              f"streamed a step; design floor {floor_ms:.4f} ms (streamed bytes at the scan's "
+              f"L2 streaming rate plus the fixed cost, times {Tm} steps); bound "
+              f"{recs[name]['bound_ms']:.5f} ms", flush=True)
 
 
 def kernel_phase(hmm, y, device) -> dict[str, dict]:
@@ -617,7 +812,7 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
         print(f"maxplus_step_block at (N, Ks, Kd) = ({N}, {Ks}, {Kd}): {r['ms']:.4f} ms "
               f"(plain {r['plain_ms']:.3f} ms); bound {r['bound_ms'] * 1e3:.2f} us by "
               f"{r['bound_by']} ({r['bytes']} bytes)", flush=True)
-    beam_select_checks(device)
+    others += beam_select_checks(device) + scan_grid_checks(device) + looped_plan_checks(device)
     # attribution: at B=1 the fold reads one row a step, so the time is the
     # select and the step's fixed cost
     print(f"beam_scan at the segment shape (8 lanes, T'={beam_seg[1].shape[0]}): "
@@ -948,6 +1143,29 @@ def beam_phase(hmm, requests, oracles, device, cpu_device) -> list[dict[str, int
     return all_launches
 
 
+def beam_large_phase(device, cpu_device) -> dict[str, int]:
+    """One ``decode(..., "beam", beam_width=64)`` at BEAM_LARGE's K, whose
+    select takes the global scratch; the path must equal the port's CPU
+    decode.  Returns the launches."""
+    from flash_viterbi_tpu_torch import decode
+    from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm
+
+    t0 = time.perf_counter()
+    hmm, y = make_sparse_hmm(**BEAM_LARGE)
+    gen_s = time.perf_counter() - t0
+    r, launches = drive(f"beam K={hmm.K}", ("beam_scan", "backtrack_batched"),
+                        lambda: decode(hmm, y, "beam", beam_width=BEAM_WIDTH, device=device))
+    cpu = decode(hmm, y, "beam", beam_width=BEAM_WIDTH, device=cpu_device, warmup=False)
+    require(np.array_equal(r.path, cpu.path), f"beam K={hmm.K}: path differs from the CPU decode")
+    require(r.path.shape == (len(y),) and bool(((r.path >= -1) & (r.path < hmm.K)).all()),
+            f"beam K={hmm.K}: path out of range")
+    print(f"beam K={hmm.K} (Kp {-(-hmm.K // 128) * 128}), T={len(y)}, B={BEAM_WIDTH}: "
+          f"{r.time_s * 1e3:.3f} ms on the card, equal to the CPU decode ({cpu.time_s:.2f} s); "
+          f"-1 positions {int((r.path == -1).sum())}; tables made in {gen_s:.1f} s; "
+          f"{time.perf_counter() - t0:.1f} s in all", flush=True)
+    return launches
+
+
 def long_t_phase(hmm, device) -> dict[str, int]:
     """T=16384 through the registered checkpoint and fused decoders on
     tables already on the card: equal paths, and the checkpoint decode's
@@ -1257,9 +1475,10 @@ def main() -> None:
           flush=True)
     probe_launches = probe_phase(device, probe_recs, recs)
     gbps = hbm_read_gbps(device)
+    scan_floor_phase(hmm, device, recs, gbps)
     Kp, steps = tables(hmm, 128, "cpu").Kp, HEADLINE["T"] - 1
     floor_ms = steps * Kp * Kp * 4 / (gbps * 1e9) * 1e3
-    print(f"HBM read {gbps:.1f} GB/s measured; the scan's per-step streaming "
+    print(f"HBM read {gbps:.1f} GB/s measured; the one-step design's streaming "
           f"floor at K={Kp}: {steps} steps x {Kp * Kp * 4 / 2**20:.0f} MiB = "
           f"{floor_ms:.3f} ms at the measured rate, "
           f"{steps * Kp * Kp * 4 / PEAK_BYTES_PER_S * 1e3:.3f} ms at the published "
@@ -1272,7 +1491,7 @@ def main() -> None:
     launches = ([slice_phase(hmm, requests, oracles, device, cpu)]
                 + checkpoint_phase(hmm, requests, oracles, device)
                 + beam_phase(hmm, requests, oracles, device, cpu)
-                + [long_t_phase(hmm, device)]
+                + [beam_large_phase(device, cpu), long_t_phase(hmm, device)]
                 + batch_phase(hmm, device))
     sharded_paths, sharded_launches = sharded_phase(hmm, requests, oracles, device, cpu)
     multi_rank_phase(sharded_paths)

@@ -13,7 +13,9 @@ Counterpart of ``flash_viterbi_tpu/algorithms/checkpoint.py``'s kernel path
 Nothing (T, K)-shaped is built: each chunk's symbols are a slice of the
 observation vector on the device, and the scan gathers the emission rows
 from the (M, K) ``logB.T`` itself.  Live memory is the C+1 snapshots plus
-one chunk's (step, K) pointers.  On CUDA tensors both calls launch the
+one chunk's (step, K) pointers.  Every scan of a decode shares one error
+word, read once at its end, so the 2 x sqrt(T) scans cost one host
+synchronisation, not one each.  On CUDA tensors both calls launch the
 hand-written kernels; on CPU tensors they run their plain versions.
 
 JAX's ``lax.scan`` form of the decode (time padded to a whole number of
@@ -28,6 +30,7 @@ import torch
 
 from ..ops import maxplus as mp
 from ..ops.cuda import backtrack_batched, maxplus_scan_emitgather
+from ..ops.cuda.maxplus import error_word, raise_on_error
 from .base import Decoder, register
 
 
@@ -49,12 +52,13 @@ def checkpoint_decode(logA, logB, logPi, y, step: int = 0):
     ys = y.to(torch.int32)
     bounds = list(range(0, T - 1, step)) + [T - 1]  # chunk edges (times)
     chunks = list(zip(bounds[:-1], bounds[1:]))
+    err = error_word(y.device)
 
     def run_chunk(d0, lo, hi):
         """Scan steps lo+1..hi from the carry d0 at lo; returns (delta_hi,
         ptrs (hi-lo, 1, K))."""
         dfin, ptrs = maxplus_scan_emitgather(logA, logBT, ys[lo + 1:hi + 1, None],
-                                             d0[None, :])
+                                             d0[None, :], err=err)
         return dfin[0], ptrs
 
     # no variable holds a chunk's pointers past its use, so one chunk's
@@ -71,7 +75,9 @@ def checkpoint_decode(logA, logB, logPi, y, step: int = 0):
         pieces.append(seg[1:])
         state = seg[0]
     pieces.append(state[None])
-    return torch.cat(pieces[::-1])
+    path = torch.cat(pieces[::-1])
+    raise_on_error(err, "checkpoint")
+    return path
 
 
 def _memory(K: int, T: int, step: int = 0, **_) -> int:

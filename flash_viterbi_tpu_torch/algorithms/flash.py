@@ -13,6 +13,8 @@ in recompute form):
   argmax from one logA column; rows past a segment's end keep the state.
 * The segment paths are gathered into the output.
 
+The two scans share one error word, read once at the end of the decode
+(one host synchronisation for a timed-out grid barrier, not one a scan).
 On CUDA tensors every one of those four calls launches a hand-written
 kernel; on CPU tensors each runs its plain version.  Both give the path
 the JAX decoder gives, bit for bit.
@@ -26,6 +28,7 @@ import torch
 from ..ops import maxplus as mp
 from ..ops.cuda import (argmax_walk, backtrack_batched, maxplus_scan,
                         maxplus_scan_deltas)
+from ..ops.cuda.maxplus import error_word, raise_on_error
 from .base import Decoder, register
 
 
@@ -67,12 +70,13 @@ def prop_schedule(mids: list[int], T: int, j0: int = 1,
     return np.arange(j0, j1, dtype=np.int64)[:, None] > mids_a + 1
 
 
-def phase1_anchors(logA, logPi, emits, mids: torch.Tensor):
+def phase1_anchors(logA, logPi, emits, mids: torch.Tensor, err=None):
     """Final state and the states at ``mids`` (P,) int64: one pointer scan
-    over all steps, then one backtrack.  Returns (last () int32, anchors
-    (P,) int32)."""
+    over all steps (``err``: the scan's error word, as ``maxplus_scan``
+    takes it), then one backtrack.  Returns (last () int32, anchors (P,)
+    int32)."""
     delta0 = logPi + emits[0]
-    dfin, ptrs = maxplus_scan(logA, emits[1:].unsqueeze(1), delta0[None, :])
+    dfin, ptrs = maxplus_scan(logA, emits[1:].unsqueeze(1), delta0[None, :], err=err)
     last = mp.argmax_final(dfin[0])
     if not mids.numel():
         return last, torch.zeros((0,), dtype=torch.int32, device=emits.device)
@@ -81,8 +85,9 @@ def phase1_anchors(logA, logPi, emits, mids: torch.Tensor):
 
 
 def decode_segments_pointer(logA, logPi, emits, starts, lens, init_states,
-                            end_states, Lmax: int, T: int):
+                            end_states, Lmax: int, T: int, err=None):
     """Decode N forced-boundary segments as lanes; returns (N, Lmax) paths.
+    ``err`` is the scan's error word, as ``maxplus_scan_deltas`` takes it.
 
     ``init_states[s]`` is the resolved state at ``starts[s]-1`` (ignored for
     segment 0, which starts from ``logPi``); ``end_states[s]`` the resolved
@@ -97,7 +102,7 @@ def decode_segments_pointer(logA, logPi, emits, starts, lens, init_states,
     d0 = torch.where(first[:, None], logPi[None, :], logA[init_states]) + seg_emits[:, 0]
     emitsN = seg_emits[:, 1:, :].transpose(0, 1).contiguous()  # (Lmax-1, N, K)
     valid = torch.arange(1, Lmax, device=dev)[:, None] <= (lens - 1)[None, :]
-    _, deltas = maxplus_scan_deltas(logA, emitsN, d0)
+    _, deltas = maxplus_scan_deltas(logA, emitsN, d0, err=err)
     # the walk reads logA columns as contiguous rows of its transpose: one
     # K*K copy per decode
     return argmax_walk(deltas, logA.t().contiguous(), end_states, valid=valid)
@@ -119,13 +124,16 @@ def flash_decode(logA, logB, logPi, y, num_segments: int = 8):
     mids, starts, lens, order = (torch.tensor(v, dtype=torch.int64, device=dev)
                                  for v in (mids_l, starts_l, lens_l, order))
     emits = logB.t()[y].contiguous()  # (T, K)
+    err = error_word(dev)
 
-    last, anchors = phase1_anchors(logA, logPi, emits, mids)
+    last, anchors = phase1_anchors(logA, logPi, emits, mids, err)
     init_states = torch.cat([torch.zeros((1,), dtype=torch.int32, device=dev), anchors])
     end_states = torch.cat([anchors, last[None]])
     paths = decode_segments_pointer(logA, logPi, emits, starts, lens,
-                                    init_states, end_states, Lmax, T)
-    return paths.reshape(-1)[order]
+                                    init_states, end_states, Lmax, T, err)
+    out = paths.reshape(-1)[order]
+    raise_on_error(err, "flash")
+    return out
 
 
 def _threadpool_sizeof(N: int) -> int:

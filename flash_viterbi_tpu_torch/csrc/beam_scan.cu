@@ -16,7 +16,11 @@
 // block owns one lane and loops over the T' steps itself: one launch per
 // call and no synchronisation across blocks.  The lane's beam values, its
 // beam states (double-buffered), the P planes (double-buffered) and the
-// step's sort keys live in shared memory.
+// step's sort keys live in shared memory when they fit a block's 227 KB
+// (Kp <= 16384 at B=64); above that the same arrays live in a global
+// scratch the wrapper allocates, one region a lane (~330 KB at Kp=17024,
+// which stays in L2), and the same network runs over it.  The block's own
+// barriers order those global accesses as they do shared ones.
 //
 // What bounds it: a chain of T' dependent top-B selections.  Its bytes are
 // the distinct logA rows the beam touches plus the emissions, a few MB at
@@ -61,8 +65,9 @@ int pow2_at_least(int k) {
     return p;
 }
 
-// dynamic shared memory: keys (K2 x u64), slot per column (K), beam values
-// (B), beam states (2B), planes (2PB)
+// a lane's working set: keys (K2 x u64), slot per column (K), beam values
+// (B), beam states (2B), planes (2PB); in dynamic shared memory or, when it
+// does not fit, in a region of the global scratch
 size_t smem_bytes(int K, int B, int P) {
     return (size_t)pow2_at_least(K) * 8 + (size_t)K * 4 + (size_t)B * 4
            + (size_t)2 * B * 4 + (size_t)2 * P * B * 4;
@@ -73,16 +78,17 @@ beam_scan_kernel(const float* __restrict__ logA, const float* __restrict__ emits
                  const float* __restrict__ vals0, const int* __restrict__ states0,
                  const unsigned char* __restrict__ valid,
                  const unsigned char* __restrict__ prop, int* __restrict__ hist,
-                 int* __restrict__ slots, int* __restrict__ planes_out, int Tm,
-                 int N, int K, int B, int P, int K2) {
+                 int* __restrict__ slots, int* __restrict__ planes_out,
+                 unsigned long long* scratch, size_t lane_words, int Tm, int N, int K,
+                 int B, int P, int K2) {
     extern __shared__ unsigned long long smem[];
-    unsigned long long* s_key = smem;
+    const int n = blockIdx.x;
+    unsigned long long* s_key = scratch != nullptr ? scratch + n * lane_words : smem;
     int* s_slot = reinterpret_cast<int*>(s_key + K2);
     float* s_vals = reinterpret_cast<float*>(s_slot + K);
     int* s_states = reinterpret_cast<int*>(s_vals + B);  // two halves of B
     int* s_planes = s_states + 2 * B;                    // two halves of P*B
 
-    const int n = blockIdx.x;
     const int tid = threadIdx.x;
     const int nt = blockDim.x;
     const int PB = P * B;
@@ -172,7 +178,8 @@ beam_scan_kernel(const float* __restrict__ logA, const float* __restrict__ emits
 
 }  // namespace
 
-// Bytes of dynamic shared memory one block needs at (K, B, P).
+// Bytes of a lane's working set at (K, B, P): the dynamic shared memory a
+// block needs, or the scratch region a lane takes when that is too large.
 extern "C" int fvt_beam_scan_smem(int K, int B, int P) {
     return static_cast<int>(smem_bytes(K, B, P));
 }
@@ -180,16 +187,19 @@ extern "C" int fvt_beam_scan_smem(int K, int B, int P) {
 // The whole beam scan.  Layouts: logA (K, K), emits (Tm, N, K), vals0 and
 // states0 (N, B), valid (Tm, N) bool or null, prop (Tm, P) bool or null
 // (P = 0), hist and slots (Tm, N, B) int32, planes (N, P, B) int32.
-// 1 <= B <= K, Tm >= 1; the caller checks that fvt_beam_scan_smem fits a
-// block.  Returns the first CUDA error.
+// scratch: null to keep each lane's working set in shared memory, or N
+// regions of fvt_beam_scan_smem(K, B, P) bytes rounded up to 8, 8-byte
+// aligned, for a working set larger than a block's shared memory.
+// 1 <= B <= K, Tm >= 1.  Returns the first CUDA error.
 extern "C" int fvt_beam_scan(const float* logA, const float* emits,
                              const float* vals0, const int* states0,
                              const unsigned char* valid, const unsigned char* prop,
-                             int* hist, int* slots, int* planes, int Tm, int N,
-                             int K, int B, int P, void* stream,
+                             int* hist, int* slots, int* planes, void* scratch, int Tm,
+                             int N, int K, int B, int P, void* stream,
                              long long* launches) {
     const int K2 = pow2_at_least(K);
-    const size_t smem = smem_bytes(K, B, P);
+    const size_t lane_words = (smem_bytes(K, B, P) + 7) / 8;
+    const size_t smem = scratch != nullptr ? 0 : smem_bytes(K, B, P);
     cudaError_t e = cudaFuncSetAttribute(beam_scan_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -197,8 +207,8 @@ extern "C" int fvt_beam_scan(const float* logA, const float* emits,
     const int half = K2 >> 1;
     const int threads = half < 32 ? 32 : (half > MAX_THREADS ? MAX_THREADS : half);
     beam_scan_kernel<<<N, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-        logA, emits, vals0, states0, valid, prop, hist, slots, planes, Tm, N, K,
-        B, P, K2);
+        logA, emits, vals0, states0, valid, prop, hist, slots, planes,
+        static_cast<unsigned long long*>(scratch), lane_words, Tm, N, K, B, P, K2);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     ++*launches;

@@ -3,7 +3,9 @@
 Counterpart of ``flash_viterbi_tpu/ops/pallas/beam.py``'s ``beam_scan`` and
 ``beam_scan_planes`` in one function over a lane dimension N; the kernel is
 ``csrc/beam_scan.cu``.  Unlike the Pallas kernel it serves every beam
-width 1 <= B <= Kp and any Kp whose select fits one block's shared memory.
+width 1 <= B <= Kp at every Kp: a lane's select works in shared memory
+where it fits a block, and in an L2-resident global scratch where it does
+not (Kp > 16384 at B=64).
 """
 
 from __future__ import annotations
@@ -12,10 +14,7 @@ import torch
 
 from ...runtime import build
 from ..beam import beam_scan_plain
-from .common import expect, expect_contiguous, launch, on_cuda
-
-# dynamic shared memory one H100 block can use (227 KB)
-SMEM_LIMIT = 232448
+from .common import SMEM_LIMIT, expect, expect_contiguous, launch, on_cuda
 
 
 def _check(logA, emits, vals0, states0, valid, prop) -> tuple[int, int, int, int, int]:
@@ -70,12 +69,11 @@ def beam_scan(logA: torch.Tensor, emits: torch.Tensor, vals0: torch.Tensor,
     planes = torch.full((N, P, B), -1, dtype=torch.int32, device=dev)
     if Tm == 0:
         return hist, slots, planes
+    # a lane's working set above a block's shared memory goes to a scratch
+    # region of its own
     need = build.kernels().fvt_beam_scan_smem(Kp, B, P)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"beam_scan at Kp={Kp}, B={B}, P={P} needs {need} bytes of shared "
-            f"memory, above the {SMEM_LIMIT} bytes (227 KB) one H100 block can "
-            f"use; a larger-K select is not written yet (ROADMAP.md, queue 2)")
+    scratch = (torch.empty((N, -(-need // 8)), dtype=torch.int64, device=dev)
+               if need > SMEM_LIMIT else None)
     expect_contiguous(logA=logA, emits=emits, vals0=vals0, states0=states0)
     if valid is not None:
         valid = valid.contiguous()
@@ -85,7 +83,8 @@ def beam_scan(logA: torch.Tensor, emits: torch.Tensor, vals0: torch.Tensor,
            vals0.data_ptr(), states0.data_ptr(),
            None if valid is None else valid.data_ptr(),
            None if prop is None else prop.data_ptr(),
-           hist.data_ptr(), slots.data_ptr(), planes.data_ptr(), Tm, N, Kp, B, P)
+           hist.data_ptr(), slots.data_ptr(), planes.data_ptr(),
+           None if scratch is None else scratch.data_ptr(), Tm, N, Kp, B, P)
     return hist, slots, planes
 
 

@@ -13,6 +13,9 @@ import torch
 
 from ...runtime import build
 
+# dynamic shared memory one H100 block can use (227 KB)
+SMEM_LIMIT = 232448
+
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True for CUDA tensors, False for CPU tensors; raises otherwise or

@@ -3,16 +3,145 @@ their plain versions.
 
 Counterparts of ``flash_viterbi_tpu/ops/pallas/maxplus.py``'s
 ``maxplus_scan``, ``maxplus_scan_deltas``, ``maxplus_scan_emitgather`` and
-``maxplus_step_block``, with the same signatures and layouts.  The kernel
-is ``csrc/maxplus_scan.cu``.
+``maxplus_step_block``, with the same signatures and layouts.  The kernels
+are in ``csrc/maxplus_scan.cu``: the three scans run ``scan_persistent``,
+one cooperative launch a call over the tiling of :func:`scan_plan`; the
+step block runs ``scan_step``, one launch a step.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
 from .. import maxplus as mp
-from .common import expect, expect_contiguous, launch, on_cuda
+from .common import SMEM_LIMIT, expect, expect_contiguous, launch, on_cuda
+
+THREADS = 512        # threads of a block of the persistent scan (csrc: PT)
+LANES_MAX = 16       # lanes a group; more lanes go in groups, one after another
+MIN_TILE_ROWS = 16   # source rows a tile keeps at least: small K takes fewer blocks
+STATIC_SMEM = 1024   # bytes kept free for the kernel's static shared memory
+SYNC_ERR = 32        # the error word's index in a call's own barrier words
+# Above this many bytes of partials a block would read each step to form its
+# range's carry on its own (K x lanes floats), the scan combines each entry
+# once instead, between two barriers.  On an H100 on read was the faster at
+# 1 and 2 lanes of K=3968 (15872 and 31744 bytes) and two-phase from 4 lanes
+# (63488 bytes) up, and at K=16384 from 2 lanes; at one lane of K=16384
+# (65536 bytes) the two were even (chip_smoke.py:combine_turns)
+TWO_PHASE_BYTES = 48_000
+
+
+class ScanPlan(NamedTuple):
+    """How the persistent scan tiles logA over the SMs.
+
+    Tile q covers the source rows ``row_edges[q // C]`` up to
+    ``row_edges[q // C + 1]`` and the destination columns ``col_edges[q %
+    C]`` up to ``col_edges[q % C + 1]``.  ``blocks`` blocks are launched;
+    block b walks tiles b, b + blocks, ... (one tile each unless K needs
+    more column groups than there are SMs).  A block with one tile keeps
+    its first ``rows_smem`` rows in shared memory (rows ``stride`` floats
+    apart) and streams up to ``rows_streamed`` rows each step.  Shared
+    memory holds the carry of ``carry_rows`` source rows at once: a step
+    folds a tile in passes of that many rows (one pass unless the range's
+    carry would take more than half of shared memory).  A thread owns
+    ``cols`` neighbouring columns for each of ``lanes`` lanes.  After a step
+    each block forms the carry of its source range from the R partials of
+    each entry, or, with ``two_phase``, combines its share of the entries
+    once and publishes them behind a second barrier; ``team`` threads
+    combine an entry.  ``smem`` is the dynamic shared memory of a block, in
+    bytes."""
+
+    lanes: int
+    cols: int
+    R: int
+    C: int
+    blocks: int
+    row_edges: tuple
+    col_edges: tuple
+    stride: int
+    rows_smem: int
+    rows_streamed: int
+    carry_rows: int
+    team: int
+    two_phase: bool
+    smem: int
+
+    @property
+    def tiles(self) -> int:
+        return self.R * self.C
+
+    def c_args(self):
+        """The int array the C entry points take (csrc: PlanField)."""
+        fields = (self.lanes, self.R, self.C, self.blocks, self.rows_smem, self.stride,
+                  self.carry_rows, self.team, int(self.two_phase), self.smem)
+        return (ctypes.c_int * len(fields))(*fields)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def plan_lanes(N: int) -> int:
+    """Lanes of a group of an N-lane scan: the kernel's instantiation."""
+    return min(LANES_MAX, _pow2_at_least(N))
+
+
+def combine_team(entries: int, R: int) -> int:
+    """Threads that combine one carry entry's R partials when a block has
+    ``entries`` to combine: enough to give every thread work, a power of
+    two within a warp, no more than R needs."""
+    if entries >= THREADS:
+        return 1
+    return min(32, _pow2_at_least(R), 1 << ((THREADS // entries).bit_length() - 1))
+
+
+def scan_plan(K: int, N: int, sm_count: int, smem_bytes: int = SMEM_LIMIT,
+              two_phase: bool | None = None) -> ScanPlan:
+    """The tiling of a (K, K) logA for an N-lane scan on ``sm_count`` SMs
+    with ``smem_bytes`` of shared memory a block.
+
+    Column groups are as wide as a block's threads can own (``THREADS *
+    cols`` columns); source ranges split the rest of the SMs, keeping at
+    least ``MIN_TILE_ROWS`` rows a tile, so small K takes fewer blocks.
+    Where K needs more column groups than there are SMs (K > 270336 at one
+    lane, 67584 at 16), one range spans every row and each block walks
+    several groups, all streamed.  Edges split evenly (``r * K // R``), so
+    tiles differ by at most a row or a column unit.  ``two_phase`` chooses
+    the combine; by default the plan takes two-phase above
+    ``TWO_PHASE_BYTES`` of partials."""
+    if K < 1 or N < 1 or sm_count < 1:
+        raise ValueError(f"need K, N, sm_count >= 1, got {K}, {N}, {sm_count}")
+    lanes = plan_lanes(N)
+    cols = 4 if lanes <= 4 else 2 if lanes == 8 else 1
+    units = -(-K // cols)
+    C = -(-units // THREADS)
+    R = max(1, min(sm_count // C, K // MIN_TILE_ROWS))
+    blocks = min(R * C, sm_count)
+    row_edges = tuple(r * K // R for r in range(R + 1))
+    col_edges = tuple(min(K, (c * units // C) * cols) for c in range(C + 1))
+    kr_max = -(-K // R)
+    stride = -(-units // C) * cols
+    room = smem_bytes - STATIC_SMEM
+    if -(-kr_max * lanes // 4) * 16 <= room // 2:
+        carry_rows = kr_max
+    else:  # a tall range: its carry in passes, and no tile rows in shared memory
+        carry_rows = min(kr_max, room // (lanes * 4) // 4 * 4)
+    carry = -(-carry_rows * lanes // 4) * 16  # bytes, padded to 16
+    # a block that walks several tiles keeps none in shared memory
+    rows_smem = (max(0, min(kr_max, (room - carry) // (stride * 4)))
+                 if R * C == blocks else 0)
+    if two_phase is None:
+        two_phase = K * lanes * 4 > TWO_PHASE_BYTES
+    # the entries a block combines: its share of all, or its range's a pass
+    entries = -(-lanes * K // blocks) if two_phase else carry_rows * lanes
+    team = combine_team(entries, R)
+    return ScanPlan(lanes=lanes, cols=cols, R=R, C=C, blocks=blocks, row_edges=row_edges,
+                    col_edges=col_edges, stride=stride, rows_smem=rows_smem,
+                    rows_streamed=kr_max - rows_smem, carry_rows=carry_rows, team=team,
+                    two_phase=two_phase, smem=carry + rows_smem * stride * 4)
 
 
 def _check(logA, emits, delta0) -> tuple[int, int, int]:
@@ -81,10 +210,46 @@ def maxplus_scan_emitgather_plain(logA, logBT, ys, delta0):
     return dfin, ptrs
 
 
+@functools.lru_cache(maxsize=None)
+def _device_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of ``device``, which the scan plan fills."""
+    return _device_sms(device.index if device.index is not None
+                       else torch.cuda.current_device())
+
+
+# the plan of each shape a process scans, made once (a call's host time is
+# part of its latency)
+_cached_plan = functools.lru_cache(maxsize=256)(scan_plan)
+
+
+def error_word(device) -> torch.Tensor:
+    """A zeroed error word that several scan calls can share (``err=``):
+    the kernels set it when a grid barrier times out, and nothing reads it
+    until :func:`raise_on_error`, so a decode of many calls synchronises
+    with the host once, not once a call."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def raise_on_error(err: torch.Tensor, what: str) -> None:
+    """Read ``err`` (a host synchronisation on the card) and raise if a
+    scan that shared it timed out at a grid barrier."""
+    code = int(err[0])
+    if code:
+        raise RuntimeError(f"{what}: a grid barrier of a scan timed out (error word "
+                           f"{code}); the outputs are not valid")
+
+
 def _scan_cuda(fn_name: str, counter, inputs: dict, delta0, Tm: int,
-               with_ptr: bool):
+               with_ptr: bool, plan: ScanPlan | None, err: torch.Tensor | None):
     """Launch C entry point ``fn_name`` on ``inputs`` (logA and the
-    emission operands, in its argument order); returns (dfin, ptrs) or
+    emission operands, in its argument order) with ``plan`` (by default
+    the plan for this card) and its scratch.  With no ``err``, read the
+    call's own error word and raise if a grid barrier timed out; else the
+    kernel sets ``err`` and the caller reads it.  Returns (dfin, ptrs) or
     (dfin, deltas)."""
     N, K = delta0.shape
     expect_contiguous(delta0=delta0, **inputs)
@@ -93,23 +258,49 @@ def _scan_cuda(fn_name: str, counter, inputs: dict, delta0, Tm: int,
                        dtype=torch.int32 if with_ptr else torch.float32)
     if Tm == 0:
         return delta0, hist
+    if plan is None:
+        plan = _cached_plan(K, N, sm_count(dev))
+    elif plan.row_edges[-1] != K or plan.col_edges[-1] != K or plan.lanes != plan_lanes(N):
+        raise ValueError(f"the plan is for K={plan.row_edges[-1]} at {plan.lanes} lanes, "
+                         f"not for K={K}, N={N}")
+    if err is not None:
+        expect("err", err, torch.int32, (1,))
+        if err.device != dev:
+            raise ValueError(f"the error word is on {err.device}, the scan on {dev}")
     dfin = torch.empty((N, K), dtype=torch.float32, device=dev)
-    work = torch.empty((2, N, K), dtype=torch.float32, device=dev)
+    part_v = torch.empty((2, plan.R, plan.lanes, K), dtype=torch.float32, device=dev)
+    part_i = (torch.empty((2, plan.R, plan.lanes, K), dtype=torch.int32, device=dev)
+              if with_ptr else None)
+    carry = (torch.empty((plan.lanes, K), dtype=torch.float32, device=dev)
+             if plan.two_phase else None)
+    # the barrier's count at [0]; the call's own error word at [SYNC_ERR],
+    # 128 bytes on, where the caller passed none
+    sync = torch.zeros(SYNC_ERR + 1, dtype=torch.int32, device=dev)
+    err_ptr = sync[SYNC_ERR:].data_ptr() if err is None else err.data_ptr()
     launch(fn_name, counter, dev, *(t.data_ptr() for t in inputs.values()),
            delta0.data_ptr(), dfin.data_ptr(),
            hist.data_ptr() if with_ptr else None,
            None if with_ptr else hist.data_ptr(),
-           work.data_ptr(), Tm, N, K)
+           part_v.data_ptr(), None if part_i is None else part_i.data_ptr(),
+           None if carry is None else carry.data_ptr(), sync.data_ptr(), err_ptr,
+           plan.c_args(), Tm, N, K)
+    if err is None:
+        raise_on_error(sync[SYNC_ERR:], fn_name)
     return dfin, hist
 
 
-def maxplus_scan(logA: torch.Tensor, emits: torch.Tensor, delta0: torch.Tensor):
+def maxplus_scan(logA: torch.Tensor, emits: torch.Tensor, delta0: torch.Tensor, *,
+                 plan: ScanPlan | None = None, err: torch.Tensor | None = None):
     """Run the N-lane forward scan.
 
     Args:
       logA:   (K, K) fp32, source k rows -> dest i columns.
       emits:  (T', N, K) fp32 log emission rows for steps 1..T'.
       delta0: (N, K) fp32 scores at step 0.
+      plan:   the kernel's tiling (default: :func:`scan_plan` for the card).
+      err:    an :func:`error_word` shared by several calls, read by the
+        caller with :func:`raise_on_error`; by default the call reads its
+        own and raises.  The CPU's plain version ignores both.
 
     Returns:
       (delta_final (N, K) fp32, ptrs (T', N, K) int32).
@@ -118,26 +309,29 @@ def maxplus_scan(logA: torch.Tensor, emits: torch.Tensor, delta0: torch.Tensor):
     if not on_cuda(logA, emits, delta0):
         return maxplus_scan_plain(logA, emits, delta0)
     return _scan_cuda("fvt_maxplus_scan", maxplus_scan,
-                      {"logA": logA, "emits": emits}, delta0, emits.shape[0], True)
+                      {"logA": logA, "emits": emits}, delta0, emits.shape[0], True, plan, err)
 
 
 def maxplus_scan_deltas(logA: torch.Tensor, emits: torch.Tensor,
-                        delta0: torch.Tensor):
+                        delta0: torch.Tensor, *, plan: ScanPlan | None = None,
+                        err: torch.Tensor | None = None):
     """Forward scan emitting the carry history instead of pointers.
 
     Returns (delta_final (N, K), deltas (T', N, K) fp32) with
     ``deltas[t]`` = the carry before step t (``deltas[0] == delta0``).
-    Scores are bit-identical to :func:`maxplus_scan`'s.
+    Scores are bit-identical to :func:`maxplus_scan`'s; ``plan`` and
+    ``err`` as there.
     """
     _check(logA, emits, delta0)
     if not on_cuda(logA, emits, delta0):
         return maxplus_scan_deltas_plain(logA, emits, delta0)
     return _scan_cuda("fvt_maxplus_scan", maxplus_scan_deltas,
-                      {"logA": logA, "emits": emits}, delta0, emits.shape[0], False)
+                      {"logA": logA, "emits": emits}, delta0, emits.shape[0], False, plan, err)
 
 
 def maxplus_scan_emitgather(logA: torch.Tensor, logBT: torch.Tensor,
-                            ys: torch.Tensor, delta0: torch.Tensor):
+                            ys: torch.Tensor, delta0: torch.Tensor, *,
+                            plan: ScanPlan | None = None, err: torch.Tensor | None = None):
     """The pointer scan with each step's emission row gathered in the
     kernel, so no (T', N, K) emission buffer is built.
 
@@ -150,13 +344,14 @@ def maxplus_scan_emitgather(logA: torch.Tensor, logBT: torch.Tensor,
       delta0: (N, K) fp32.
 
     Returns (delta_final (N, K) fp32, ptrs (T', N, K) int32), bit-identical
-    to :func:`maxplus_scan` on the gathered emissions.
+    to :func:`maxplus_scan` on the gathered emissions; ``plan`` and ``err``
+    as there.
     """
     Tm, _, _ = _check_eg(logA, logBT, ys, delta0)
     if not on_cuda(logA, logBT, ys, delta0):
         return maxplus_scan_emitgather_plain(logA, logBT, ys, delta0)
     return _scan_cuda("fvt_maxplus_scan_eg", maxplus_scan_emitgather,
-                      {"logA": logA, "logBT": logBT, "ys": ys}, delta0, Tm, True)
+                      {"logA": logA, "logBT": logBT, "ys": ys}, delta0, Tm, True, plan, err)
 
 
 def _check_step(delta, logA_block) -> tuple[int, int, int]:

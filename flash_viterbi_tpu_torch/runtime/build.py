@@ -38,26 +38,34 @@ _lib: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.POINTER(ctypes.c_longlong)
+_IP = ctypes.POINTER(ctypes.c_int)
 
 # C entry points: every pointer and the stream as c_void_p (a c_int would cut
 # a 64-bit address); each returns the cudaError_t of its launches, but the
 # two *_smem functions, which return a size
 _SIGNATURES = {
-    # logA, emits, delta0, dfin, ptrs, deltas, work, Tm, N, K, stream, launches
-    "fvt_maxplus_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
-    # logA, logBT, ys, delta0, dfin, ptrs, deltas, work, Tm, N, K, stream, launches
-    "fvt_maxplus_scan_eg": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
+    # logA, emits, delta0, dfin, ptrs, deltas, part_v, part_i, carry, count, err,
+    # plan, Tm, N, K, stream, launches
+    "fvt_maxplus_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _IP, _I, _I, _I, _P,
+                         _LL],
+    # logA, logBT, ys, delta0, dfin, ptrs, deltas, part_v, part_i, carry, count,
+    # err, plan, Tm, N, K, stream, launches
+    "fvt_maxplus_scan_eg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _IP, _I, _I,
+                            _I, _P, _LL],
     # delta, logA_block, val, ptr, N, Ks, Kd, stream, launches
     "fvt_maxplus_step_block": [_P, _P, _P, _P, _I, _I, _I, _P, _LL],
     # ptrs, last, out, Tm, N, K, stream, launches
     "fvt_backtrack": [_P, _P, _P, _I, _I, _I, _P, _LL],
     # deltas, logAT, last, valid, out, Tm, N, K, stream, launches
     "fvt_argmax_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
-    # logA, emits, vals0, states0, valid, prop, hist, slots, planes, Tm, N, K,
-    # B, P, stream, launches
-    "fvt_beam_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _LL],
-    # K, B, P -> bytes of shared memory a block of fvt_beam_scan needs
+    # logA, emits, vals0, states0, valid, prop, hist, slots, planes, scratch, Tm,
+    # N, K, B, P, stream, launches
+    "fvt_beam_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _LL],
+    # K, B, P -> bytes of a lane's working set: the shared memory a block of
+    # fvt_beam_scan needs, or its scratch region when that exceeds a block's
     "fvt_beam_scan_smem": [_I, _I, _I],
+    # device, out[2] -> L2 bytes and the most it can keep for persisting accesses
+    "fvt_device_l2": [_I, _IP],
     # the probes (flash_viterbi_tpu_torch/probes/)
     # logA, emits, delta0, dfin, deltas, work, Tm, N, K, write_hist, kc, stream, launches
     "fvt_maxplus_scan_deltas_ablation": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _LL],

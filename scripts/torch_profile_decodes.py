@@ -1,0 +1,112 @@
+#!/usr/bin/env python3
+"""Where the port's headline decodes spend their time on the GPU.
+
+    python3 scripts/torch_profile_decodes.py
+
+On the headline problem (K=3965 padded to 3968, M=50, T=256, prob=0.112,
+seed=1), for each of ``flash`` (16 segments), ``checkpoint`` and
+``fused``: the wall time of one decode (median of 10 CUDA-event timings of
+one synchronized decode after a warmup), then torch.profiler over 3
+decodes: each kernel's device time and launches a decode, the device's busy
+time (the sum of every kernel's) and its idle share of the wall time.  For
+``flash`` and ``checkpoint``, whose scans share one error word read once a
+decode, also the wall time in turns against the same decode with every
+scan reading its own word (a host synchronisation a scan): shared, per
+scan, per scan, shared.  Prints the card's name and power limit first.  Fails when the profiler
+records no device time.  Needs the card.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import importlib
+import os
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from flash_viterbi_tpu_torch import build  # noqa: E402
+from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm  # noqa: E402
+
+DECODERS = (("flash", {"num_segments": 16}), ("checkpoint", {}), ("fused", {}))
+REPS = 3
+
+
+def wall_ms(fn, reps: int = 10) -> float:
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def per_scan_reads(name: str):
+    """Inside, decoder ``name``'s scans get no shared error word, so each
+    scan call reads its own and raises at once."""
+    mod = importlib.import_module(f"flash_viterbi_tpu_torch.algorithms.{name}")
+    saved = mod.error_word, mod.raise_on_error
+    mod.error_word, mod.raise_on_error = (lambda dev: None), (lambda err, what: None)
+    try:
+        yield
+    finally:
+        mod.error_word, mod.raise_on_error = saved
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device: the profile needs the card")
+    dev = torch.device("cuda", 0)
+    hmm, y = make_sparse_hmm(K=3965, M=50, T=256, prob=0.112, seed=1)
+    lh = hmm.log(device=dev).padded(128)
+    yd = torch.as_tensor(y.astype(np.int64), device=dev)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip(), flush=True)
+    for name, static in DECODERS:
+        dec = build(name, **static)
+
+        def run():
+            return dec(lh.logA, lh.logB, lh.logPi, yd)
+
+        run()
+        torch.cuda.synchronize()
+        wall = wall_ms(run)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                run()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        if not kernels:
+            sys.exit(f"{name}: the profiler recorded no device time")
+        busy = sum(e.self_device_time_total for e in kernels) / REPS / 1e3
+        print(f"{name}: wall {wall:.3f} ms a decode; device busy {busy:.3f} ms; idle "
+              f"{wall - busy:.3f} ms ({(wall - busy) / wall * 100:.1f}%)", flush=True)
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
+            print(f"  {e.self_device_time_total / REPS / 1e3:8.3f} ms  {e.count / REPS:6.1f} "
+                  f"launches  {e.key[:110]}", flush=True)
+        if name in ("flash", "checkpoint"):
+            turns = {"shared": [], "per scan": []}
+            for which in ("shared", "per scan", "per scan", "shared"):
+                with per_scan_reads(name) if which == "per scan" else contextlib.nullcontext():
+                    run()
+                    turns[which].append(wall_ms(run))
+            print(f"{name}: one error word a decode {statistics.mean(turns['shared']):.3f} ms, "
+                  f"one read a scan {statistics.mean(turns['per scan']):.3f} ms; in turns "
+                  f"{turns}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

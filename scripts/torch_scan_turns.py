@@ -6,14 +6,16 @@ checkouts in turns on one card.
 
 For each CHECKOUT (a directory holding ``flash_viterbi_tpu_torch``), in
 the order given, a fresh process builds that checkout's kernels, prints
-each kernel whose ``ptxas`` report shows a spill and the registers and
-spill stores of every ``scan_step`` instantiation (as ``<L, WITH_PTR,
-EMIT, WRITE_HIST, KC>``, the last two at their defaults 1, 256 where a
-checkout predates them), and prints the median of
-9 CUDA-event runs of ``maxplus_scan`` (N=1, T'=255) and
+each kernel whose ``ptxas`` report shows a spill, the registers and spill
+stores of every ``scan_step`` instantiation (as ``<L, WITH_PTR, EMIT,
+WRITE_HIST, KC>``, the last two at their defaults 1, 256 where a checkout
+predates them) and of every ``scan_persistent`` one (as ``<LG, WITH_PTR,
+EMIT>``, where the checkout has that kernel), and prints the median of 9
+CUDA-event runs of ``maxplus_scan`` (N=1, T'=255) and
 ``maxplus_scan_deltas`` (N=16, T'=16) on the headline tables (K=3965
-padded to 3968, M=50, prob=0.112, seed=1).  Pass the checkouts as A B B A
-to read a change against its parent.
+padded to 3968, M=50, prob=0.112, seed=1), and of both at K=16384 (N=1 and
+N=16, T'=32, standard normal tables drawn on the card).  Pass the
+checkouts as A B B A to read a change against its parent.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ def time_checkout(root: str) -> None:
     dev = torch.device("cuda", 0)
     build.kernels()
     fn = None
-    steps = {}
+    kernels = {"scan_step": {}, "scan_persistent": {}}
     with open(build.BUILD_LOG) as f:
         for line in f:
             m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
@@ -44,14 +46,22 @@ def time_checkout(root: str) -> None:
             if "spill stores" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                 print(f"  spill in {fn}: {line.strip().split('ptxas info    : ')[-1]}")
             t = re.search(r"scan_stepILi(\d+)ELb(\d)ELNS_4EmitE(\d)E(?:Lb(\d)ELi(\d+)E)?", fn or "")
+            q = re.search(r"scan_persistentILi(\d+)ELb(\d)ELNS_4EmitE(\d)E", fn or "")
             if t:
                 L, ptr, emit, write_hist, kc = t.groups()
-                key = f"<{L},{ptr},{emit},{write_hist or 1},{kc or 256}>"
-                r = re.search(r"Used (\d+) registers|(\d+) bytes spill stores", line)
-                if r:
-                    steps.setdefault(key, ["?", "?"])[0 if r.group(1) else 1] = r.group(1) or r.group(2)
-    print("  ptxas scan_step " + "; ".join(f"{k}: {v[0]} registers, {v[1]} B spilled"
-                                            for k, v in sorted(steps.items())))
+                name, key = "scan_step", f"<{L},{ptr},{emit},{write_hist or 1},{kc or 256}>"
+            elif q:
+                name, key = "scan_persistent", "<{},{},{}>".format(*q.groups())
+            else:
+                continue
+            r = re.search(r"Used (\d+) registers|(\d+) bytes spill stores", line)
+            if r:
+                kernels[name].setdefault(key, ["?", "?"])[0 if r.group(1) else 1] = (
+                    r.group(1) or r.group(2))
+    for name, found in kernels.items():
+        if found:
+            print(f"  ptxas {name} " + "; ".join(f"{k}: {v[0]} registers, {v[1]} B spilled"
+                                                 for k, v in sorted(found.items())))
     hmm, y = make_sparse_hmm(K=3965, M=50, T=256, prob=0.112, seed=1)
     lh = hmm.log(device=dev).padded(128)
     e = lh.logB.t()[torch.as_tensor(y, dtype=torch.int64, device=dev)].contiguous()
@@ -75,6 +85,16 @@ def time_checkout(root: str) -> None:
     print(f"{root}: maxplus_scan N=1 T'=255 {ms(lambda: k.maxplus_scan(*scan_in)):.4f} ms; "
           f"maxplus_scan_deltas N=16 T'=16 {ms(lambda: k.maxplus_scan_deltas(*deltas_in)):.4f} ms",
           flush=True)
+    del lh, e, scan_in, d16, deltas_in
+    g = torch.Generator(device=dev).manual_seed(16384)
+    K, Tm = 16384, 32
+    logA = torch.randn((K, K), generator=g, device=dev)
+    big = {N: (logA, torch.randn((Tm, N, K), generator=g, device=dev),
+               torch.randn((N, K), generator=g, device=dev)) for N in (1, 16)}
+    print(f"{root}: K={K}, T'={Tm}: maxplus_scan N=1 "
+          f"{ms(lambda: k.maxplus_scan(*big[1]), 5):.4f} ms; maxplus_scan_deltas N=1 "
+          f"{ms(lambda: k.maxplus_scan_deltas(*big[1]), 5):.4f} ms; N=16 "
+          f"{ms(lambda: k.maxplus_scan_deltas(*big[16]), 5):.4f} ms", flush=True)
 
 
 def main() -> None:
