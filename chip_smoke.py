@@ -18,9 +18,16 @@ Phases, each fatal on failure:
    anchor planes), its segment shape (8 ragged lanes), the unpadded
    K=3965, sparse integer-valued ties (K=1000, B=128, fewer than B finite
    scores) and B=1; ``beam_topk``, the stable sort that makes a decode's
-   first beam, is held to the kernel's select on a row of ties, -inf and
-   -0.0; a select too large for one block's shared memory (Kp=17000, B=64,
-   T'=4), which runs over a global scratch, against the plain beam scan.
+   first beam, and the plain scan are held to the kernel's select on a row
+   of ties, -inf and -0.0 at B = 1, 128 and K=1000 (the full beam); the
+   phase-1 shape under clusters forced to C = 1, 2 and 16 and with its
+   state squeezed into the global scratch; Kp=17000 (B=64, T'=4) under
+   its own plan and under C=2 (chunked folds), and its full beam (B=Kp,
+   T'=2), whose state takes the scratch.  The argmax walk is also held at
+   the recompute batch's N = 16 and 64 lanes (T'=255, timed) and with
+   out-of-range last states; a pointer chase through 60 MiB (the pointer
+   walk over a random table) gives the dependent-load latency, and the
+   walks' and the beam scan's latency floors from it (T' round trips).
    The three scans are also held on a parity grid, K in (64, 1024, 3965,
    4096, 16384) x N in (1, 16, 64), and under plans made for fewer SMs
    than their column groups (each block walking several tiles, both
@@ -39,7 +46,9 @@ Phases, each fatal on failure:
    ``decode(..., "flash", num_segments=16, device="cuda")``.  Each path
    must equal the port's CPU decode bit for bit, and the native C vanilla
    oracle exactly or, for FLASH's legitimate fp32 tie flips, within the f64
-   score tolerance (the seed-1 request exactly).
+   score tolerance (the seed-1 request exactly).  Phases 4-6 first keep the
+   card busy for half a second (the clocks after host work), and phases 4
+   and 5 time request 0 again after the others.
 5. Checkpoint slice: the same four requests through ``decode(...,
    "checkpoint")`` and ``decode(..., "fused")`` on the card; checkpoint
    must equal fused bit for bit and the C oracle under the rule above, and
@@ -146,8 +155,15 @@ CONFIG5_BATCH = 2
 CONFIG5_MICROBATCH = 2
 CONFIG5_MESH = (1, 1, 4)
 RANK_TIMEOUT_S = 300.0
+# PR 6's first request of each decode phase read ~2x the others, after
+# seconds of host work (C oracle, CPU decodes): the phases spin the card
+# up first and time request 0 again after the others
+SPIN_UP_S = 0.5
 SHARDED_NEEDS = ("maxplus_step_block", "maxplus_scan", "backtrack_batched",
                  "maxplus_scan_deltas", "argmax_walk")
+
+# the error word the kernel phase's timed beam scans and walks share
+SHARED_ERR = None
 
 # published peaks of one H100 SXM at its 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -384,7 +400,8 @@ def compare(name: str, kernel, plain, args, device, reps: int = 0) -> dict:
 def check_all(scan_in, deltas_in, valid, device, reps: int = 0) -> list[dict]:
     """All four kernels against their plain versions: the pointer scan and
     the backtrack on ``scan_in``, the deltas scan and the walk (with the
-    ``valid`` mask) on ``deltas_in``."""
+    ``valid`` mask, timed with a shared error word as a decode runs it) on
+    ``deltas_in``."""
     from flash_viterbi_tpu_torch.ops import cuda as k
     from flash_viterbi_tpu_torch.ops import maxplus as mp
     from flash_viterbi_tpu_torch.ops.cuda import backtrack as kb
@@ -401,9 +418,23 @@ def check_all(scan_in, deltas_in, valid, device, reps: int = 0) -> list[dict]:
     dfinN, deltas = k.maxplus_scan_deltas(*deltas_in)
     lastN = mp.first_argmax(dfinN, 1)[1]
     logAT = deltas_in[0].t().contiguous()
-    recs.append(compare("argmax_walk", k.argmax_walk, kb.argmax_walk_plain,
-                        (deltas, logAT, lastN, valid), device, reps))
+    recs.append(compare("argmax_walk", shared_word(k.argmax_walk, device),
+                        kb.argmax_walk_plain, (deltas, logAT, lastN, valid), device, reps))
     return recs
+
+
+def shared_word(kernel, device):
+    """``kernel`` (the beam scan or the argmax walk) with one error word for
+    every call, read once at the end of the kernel phase, as a decode runs
+    them; a call's own word would add a host read to its time."""
+    import functools
+
+    from flash_viterbi_tpu_torch.ops.cuda.maxplus import error_word
+
+    global SHARED_ERR
+    if SHARED_ERR is None:
+        SHARED_ERR = error_word(device)
+    return functools.partial(kernel, err=SHARED_ERR)
 
 
 def tie_fixture(device, K: int = 1000, N: int = 20, Tm: int = 21, seed: int = 5):
@@ -525,47 +556,145 @@ def beam_tie_inputs(ties, valid, device, B: int = 128, P: int = 3, seed: int = 7
     return sparse, emits, vals0, states0, valid, prop
 
 
-def beam_select_checks(device) -> list[dict]:
-    """``beam_topk`` on the card against the kernel's own select: a one-step
-    scan over all-zero transitions from an all-zero beam selects the top B
-    of its emission row.  The row holds ties, -inf and -0.0.  Then a select
-    too large for one block's shared memory (Kp=17000, B=64, T'=4, values
-    in halves: ties everywhere), which runs over a global scratch, against
-    the plain beam scan; returns that comparison's record."""
+def beam_select_checks(device, head, y) -> list[dict]:
+    """The beam scan's select and its plans against the plain beam scan:
+    a one-step scan over all-zero transitions from an all-zero beam selects
+    the top B of its emission row (ties, -inf and -0.0) at B = 1, 128 and
+    K=1000, also held to ``beam_topk`` on the card and on the CPU; the
+    phase-1 shape under clusters forced to C = 1, 2 and 16, and with the
+    state squeezed out of shared memory into the global scratch (a ring of
+    one group, refilled eight times a step); Kp=17000 (values in halves:
+    ties everywhere) at B=64, with its own plan and with C=2 (chunks of 2048
+    columns), and the full beam B=Kp, whose state takes the scratch.
+    Returns the comparisons' records."""
+    import functools
+
     from flash_viterbi_tpu_torch.ops import beam as bp
     from flash_viterbi_tpu_torch.ops import cuda as k
     from flash_viterbi_tpu_torch.ops.beam import beam_topk
     from flash_viterbi_tpu_torch.ops.cuda import beam as kb
-    from flash_viterbi_tpu_torch.runtime import build
+    from flash_viterbi_tpu_torch.ops.cuda.maxplus import sm_count
 
+    def check(args, plan=None) -> dict:
+        kernel = k.beam_scan if plan is None else functools.partial(k.beam_scan, plan=plan)
+        return compare("beam_scan", kernel, bp.beam_scan_plain, args, device)
+
+    t0 = time.perf_counter()
+    recs = []
+    sms = sm_count(device)
     K = 1000
     row = np.random.default_rng(11).choice(
         np.array([1.0, 0.5, 0.0, -0.0, -2.0, -np.inf], np.float32), K)
     row_d = torch.as_tensor(row, device=device)
     zerosA = torch.zeros((K, K), device=device)
     for B in (1, 128, K):
-        hist, _, _ = k.beam_scan(zerosA, row_d[None, None, :],
-                                 torch.zeros((1, B), device=device),
-                                 torch.zeros((1, B), dtype=torch.int32, device=device))
+        args = (zerosA, row_d[None, None, :], torch.zeros((1, B), device=device),
+                torch.zeros((1, B), dtype=torch.int32, device=device), None, None)
+        recs.append(check(args))
+        hist = k.beam_scan(*args[:4])[0]
         card = beam_topk(row_d[None], B)[1]
         cpu = beam_topk(torch.as_tensor(row)[None], B)[1]
         require(torch.equal(hist[0], card) and torch.equal(card.cpu(), cpu),
                 f"beam_topk on the card differs from the kernel's select at B={B}")
+    phase1 = beam_inputs(head, y, device)
+    P = phase1[5].shape[1]
+    for C in (1, 2, 16):
+        recs.append(check(phase1, kb.beam_plan(head.Kp, BEAM_WIDTH, 1, sms, P, C=C)))
+    roomy = kb.beam_plan(head.Kp, BEAM_WIDTH, 1, sms, P, C=16)
+    squeezed = kb.beam_plan(head.Kp, BEAM_WIDTH, 1, sms, P, C=16,
+                            smem_bytes=kb.STATIC_SMEM + roomy.rg * roomy.cw * 4 + 1024)
+    require(not squeezed.state_smem and squeezed.g == 1, f"not a squeezed plan: {squeezed}")
+    recs.append(check(phase1, squeezed))
+    beam = shared_word(k.beam_scan, device)
+    by_c, by_b = {}, {}
+    for C in (1, 2, 4, 8, 16):
+        plan = kb.beam_plan(head.Kp, BEAM_WIDTH, 1, sms, P, C=C)
+        by_c[C] = elapsed_ms(lambda: beam(*phase1, plan=plan), device, 7)
+    for b in (1, 8, 32, 64):
+        inputs = beam_inputs(head, y, device, B=b)
+        by_b[b] = elapsed_ms(lambda: beam(*inputs), device, 7)
+    print(f"beam_scan at the phase-1 shape (T'={len(y) - 1}), ms by cluster size at B=64: "
+          f"{by_c}; by B at the card's plan: {by_b}; the squeezed plan (state in the scratch, "
+          f"a ring of one group): {elapsed_ms(lambda: beam(*phase1, plan=squeezed), device, 7):.4f}",
+          flush=True)
     big, B = BEAM_LARGE["K"], BEAM_WIDTH
-    need = build.kernels().fvt_beam_scan_smem(big, B, 0)
-    require(need > kb.SMEM_LIMIT, f"Kp={big}: {need} bytes fit a block; not the scratch path")
     g = torch.Generator(device=device).manual_seed(12)
     logA = torch.round(torch.randn((big, big), generator=g, device=device) * 2) / 2
     emits = torch.round(torch.randn((4, 1, big), generator=g, device=device))
-    vals0, states0 = beam_topk(torch.round(torch.randn((1, big), generator=g, device=device)), B)
-    rec = compare("beam_scan", k.beam_scan, bp.beam_scan_plain,
-                  (logA, emits, vals0, states0, None, None), device)
-    ms = elapsed_ms(lambda: k.beam_scan(logA, emits, vals0, states0), device, 5)
-    print(f"beam select: beam_topk on the card equals the kernel's select at B = 1, 128, "
-          f"1000; at Kp={big}, B={B}, T'=4 ({need} bytes a lane, in the global scratch) "
-          f"beam_scan equals the plain beam scan: {ms:.3f} ms, {ms / 4 * 1e3:.1f} us a step",
+    start = torch.round(torch.randn((1, big), generator=g, device=device))
+    vals0, states0 = beam_topk(start, B)
+    args = (logA, emits, vals0, states0, None, None)
+    plan = kb.beam_plan(big, B, 1, sms)
+    chunked = kb.beam_plan(big, B, 1, sms, C=2)
+    require(plan.state_smem and -(-chunked.width // chunked.cw) > 1,
+            f"Kp={big}: plans {plan} and {chunked}")
+    recs += [check(args), check(args, chunked)]
+    ms = elapsed_ms(lambda: shared_word(k.beam_scan, device)(*args[:4]), device, 5)
+    full = kb.beam_plan(big, big, 1, sms)
+    require(not full.state_smem, f"Kp={big}, B={big}: the state fits shared memory: {full}")
+    recs.append(check((logA, emits[:2], *beam_topk(start, big), None, None)))
+    print(f"beam select: the zero-table select equals the plain scan and beam_topk at B = 1, "
+          f"128, {K}; the phase-1 shape under C = 1, 2, 16 and with the state in the global "
+          f"scratch; Kp={big}, B={B}, T'=4 under C={plan.C} ({ms:.3f} ms, "
+          f"{ms / 4 * 1e3:.1f} us a step) and C=2 ({-(-chunked.width // chunked.cw)} chunks a "
+          f"CTA); B={big}, T'=2 with its state in the scratch: all equal the plain beam scan; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return recs
+
+
+def walk_checks(head, y, device) -> tuple[list[dict], dict]:
+    """argmax_walk against its plain version at the recompute batch's
+    shapes (N = 16 and 64 headline sequences, T'=255, timed), and with out
+    of range last states (-1 and K + 5), whose lanes the kernel writes as
+    -1 while the others equal the plain walk.  Returns the records and the
+    batch shapes' times."""
+    from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.ops import maxplus as mp
+    from flash_viterbi_tpu_torch.ops.cuda import backtrack as kb
+
+    recs, times = [], {}
+    logAT = head.logA.t().contiguous()
+    seqs = batch_seqs()
+    for N in (16, 64):
+        scan_in = batch_inputs(head, seqs[:N], device)[0]
+        dfin, deltas = k.maxplus_scan_deltas(*scan_in)
+        last = mp.first_argmax(dfin, 1)[1]
+        rec = compare("argmax_walk", shared_word(k.argmax_walk, device), kb.argmax_walk_plain,
+                      (deltas, logAT, last, None), device, reps=9)
+        times[N] = rec["ms"]
+        recs.append(rec)
+    _, deltas_in, valid = phase_inputs(head, y, device, seed=4)
+    dfin, deltas = k.maxplus_scan_deltas(*deltas_in)
+    last = mp.first_argmax(dfin, 1)[1].clone()
+    last[1], last[2] = head.Kp + 5, -1
+    got = k.argmax_walk(deltas, logAT, last, valid)
+    keep = torch.tensor([n for n in range(len(last)) if n not in (1, 2)], device=device)
+    want = kb.argmax_walk_plain(deltas[:, keep].contiguous(), logAT, last[keep], valid[:, keep])
+    require(bool((got[1:3] == -1).all()) and torch.equal(got[keep], want),
+            "argmax_walk with out-of-range last states differs")
+    print(f"argmax_walk at N=16 and 64, T'=255: {times[16]:.4f} / {times[64]:.4f} ms "
+          f"({times[16] / 255 * 1e3:.2f} / {times[64] / 255 * 1e3:.2f} us a step); out-of-range "
+          f"last states give -1 lanes, the others equal the plain walk", flush=True)
+    return recs, times
+
+
+def chase_latency_us(device) -> float:
+    """The card's dependent-load latency: ``backtrack_batched`` (one
+    thread, each load's address from the previous load) through a table of
+    random pointers of 60 MiB, the size of the headline's logA, at K=3968;
+    microseconds a load, the median of 5 runs."""
+    from flash_viterbi_tpu_torch.ops import cuda as k
+
+    K = 3968
+    Tm = 60 * 2**20 // (K * 4)
+    g = torch.Generator(device=device).manual_seed(21)
+    ptrs = torch.randint(0, K, (Tm, 1, K), generator=g, device=device, dtype=torch.int32)
+    last = torch.zeros(1, dtype=torch.int32, device=device)
+    k.backtrack_batched(ptrs, last)
+    us = elapsed_ms(lambda: k.backtrack_batched(ptrs, last), device, 5) / Tm * 1e3
+    print(f"pointer chase: {us:.4f} us a dependent load ({Tm} loads through {Tm * K * 4} bytes)",
           flush=True)
-    return [rec]
+    return us
 
 
 def step_block_inputs(lh, y, device):
@@ -767,6 +896,22 @@ def scan_floor_phase(hmm, device, recs: dict[str, dict], hbm_gbps: float) -> Non
               f"{recs[name]['bound_ms']:.5f} ms", flush=True)
 
 
+def beam_cluster(Kp: int, N: int, device) -> int:
+    """The cluster size the beam scan's plan takes on this card for N lanes
+    of Kp columns, B=64."""
+    from flash_viterbi_tpu_torch.ops.cuda import beam as kb
+    from flash_viterbi_tpu_torch.ops.cuda.maxplus import sm_count
+
+    return kb._card_plan(device.index, sm_count(device), Kp, BEAM_WIDTH, N,
+                         BEAM_SEGMENTS - 1 if N == 1 else 0).C
+
+
+def valid_rows(valid) -> int:
+    """Rows the longest lane of a ragged mask walks: the walk's dependent
+    steps."""
+    return int(valid.sum(0).max())
+
+
 def kernel_phase(hmm, y, device) -> dict[str, dict]:
     """Kernels against plain versions; returns per-kernel records timed at
     the headline shapes, with the worst error over every fixture."""
@@ -779,7 +924,8 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
                        km.maxplus_scan_emitgather_plain, args, device, reps)
 
     def check_beam(args, reps: int = 0) -> dict:
-        return compare("beam_scan", k.beam_scan, bp.beam_scan_plain, args, device, reps)
+        return compare("beam_scan", shared_word(k.beam_scan, device), bp.beam_scan_plain, args,
+                       device, reps)
 
     def check_step(args, reps: int = 0) -> dict:
         return compare("maxplus_step_block", k.maxplus_step_block,
@@ -787,6 +933,7 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
 
     head, unpadded = tables(hmm, 128, device), tables(hmm, 1, device)
     scan_in, deltas_in, valid = phase_inputs(head, y, device, seed=0)
+    walk_valid = valid
     eg_in = eg_inputs(head, y, device)
     boundary, lanes16 = step_block_inputs(head, y, device)
     timed = (check_all(scan_in, deltas_in, valid, device, reps=9) + [check_eg(eg_in, 9)]
@@ -812,23 +959,34 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
         print(f"maxplus_step_block at (N, Ks, Kd) = ({N}, {Ks}, {Kd}): {r['ms']:.4f} ms "
               f"(plain {r['plain_ms']:.3f} ms); bound {r['bound_ms'] * 1e3:.2f} us by "
               f"{r['bound_by']} ({r['bytes']} bytes)", flush=True)
-    others += beam_select_checks(device) + scan_grid_checks(device) + looped_plan_checks(device)
+    walk_recs, _ = walk_checks(head, y, device)
+    others += (beam_select_checks(device, head, y) + walk_recs + scan_grid_checks(device)
+               + looped_plan_checks(device))
     # attribution: at B=1 the fold reads one row a step, so the time is the
     # select and the step's fixed cost
-    print(f"beam_scan at the segment shape (8 lanes, T'={beam_seg[1].shape[0]}): "
-          f"{elapsed_ms(lambda: k.beam_scan(*beam_seg), device, 9):.3f} ms; at the "
-          f"phase-1 shape with B=1: {elapsed_ms(lambda: k.beam_scan(*beam_b1), device, 9):.3f}"
-          f" ms", flush=True)
+    beam = shared_word(k.beam_scan, device)
+    print(f"beam_scan at the segment shape (8 lanes, T'={beam_seg[1].shape[0]}, cluster of "
+          f"{beam_cluster(head.Kp, 8, device)}): "
+          f"{elapsed_ms(lambda: beam(*beam_seg), device, 9):.3f} ms; at the "
+          f"phase-1 shape (cluster of {beam_cluster(head.Kp, 1, device)}) with B=1: "
+          f"{elapsed_ms(lambda: beam(*beam_b1), device, 9):.3f} ms", flush=True)
     recs = {r["name"]: dict(r, fixtures=1) for r in timed}
     for r in others:
         rec = recs[r["name"]]
         rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
         rec["fixtures"] += 1
+    # the walks' floor: their dependent round trips at the chased latency
+    lat_us = chase_latency_us(device)
+    for name, trips in (("backtrack_batched", len(y) - 1), ("argmax_walk", valid_rows(walk_valid)),
+                        ("beam_scan", len(y) - 1)):
+        recs[name]["latency_floor_ms"] = trips * lat_us / 1e3
     for name, r in recs.items():
+        floor = (f"; latency floor {r['latency_floor_ms']:.4f} ms" if "latency_floor_ms" in r
+                 else "")
         print(f"kernel {name}: bit-exact on {r['fixtures']} fixtures; {r['ms']:.3f} ms "
               f"(plain {r['plain_ms']:.3f} ms) at the headline shape; bound "
               f"{r['bound_ms']:.6f} ms by {r['bound_by']} ({r['bytes']} bytes, "
-              f"{r['operations']} operations)", flush=True)
+              f"{r['operations']} operations){floor}", flush=True)
 
     # the two pointer scans at one shape, timed in turns
     turns = {"maxplus_scan": [], "maxplus_scan_emitgather": []}
@@ -841,6 +999,7 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
     print(f"in turns at N=1, T'={len(y) - 1}, Kp={head.Kp}: maxplus_scan_emitgather "
           f"{eg_ms:.3f} ms vs maxplus_scan {scan_ms:.3f} ms "
           f"({(eg_ms / scan_ms - 1) * 100:+.2f}%); runs {turns}", flush=True)
+    km.raise_on_error(SHARED_ERR, "kernel phase")
     return recs
 
 
@@ -1007,6 +1166,27 @@ def reset_launches() -> None:
     probes.reset_launches()
 
 
+def smi_clocks() -> str:
+    """The card's SM clock and power draw as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def spin_up(device, seconds: float = SPIN_UP_S) -> str:
+    """Keep the card busy for ``seconds`` (fp32 products) so that a decode
+    phase after a stretch of host work finds the card at its working clock,
+    not at the idle one; returns the clocks before and after."""
+    before = smi_clocks()
+    x = torch.randn((4096, 4096), device=device)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(8):
+            x = torch.tanh(x @ x)
+        torch.cuda.synchronize(device)
+    return f"SM clock, power before the spin-up {before}, after {smi_clocks()}"
+
+
 def drive(label: str, needed, run):
     """Run one phase between a reset and a read of the launch counters;
     require every kernel in ``needed`` to have launched.  Returns
@@ -1046,6 +1226,7 @@ def slice_phase(hmm, requests, oracles, device, cpu_device) -> dict[str, int]:
     from flash_viterbi_tpu_torch.algorithms.flash import _memory
 
     K, T = hmm.K, len(requests[0])
+    spun = spin_up(device)
     results, launches = drive(
         f"flash, {len(requests)} decodes",
         ("maxplus_scan", "maxplus_scan_deltas", "backtrack_batched", "argmax_walk"),
@@ -1066,6 +1247,9 @@ def slice_phase(hmm, requests, oracles, device, cpu_device) -> dict[str, int]:
               f"{K * K * T / r.time_s / 1e9:.2f} G updates/s, oracle {verdict}, "
               f"cpu decode {cpu.time_s:.2f} s, memory {r.memory_bytes}, "
               f"launches {nonzero(r.extra['launches'])}", flush=True)
+    again = decode(hmm, requests[0], "flash", num_segments=SEGMENTS, device=device)
+    print(f"flash request 0 again after the others: {again.time_s * 1e3:.3f} ms (first read "
+          f"{results[0].time_s * 1e3:.3f} ms); {spun}", flush=True)
     return launches
 
 
@@ -1077,6 +1261,7 @@ def checkpoint_phase(hmm, requests, oracles, device) -> list[dict[str, int]]:
     from flash_viterbi_tpu_torch.algorithms import checkpoint, fused
 
     K, T = hmm.K, len(requests[0])
+    spun = spin_up(device)
     ck, ck_launches = drive(
         f"checkpoint, {len(requests)} decodes",
         ("maxplus_scan_emitgather", "backtrack_batched"),
@@ -1096,6 +1281,11 @@ def checkpoint_phase(hmm, requests, oracles, device) -> list[dict[str, int]]:
               f"(memory {c.memory_bytes}, launches {nonzero(c.extra['launches'])}), "
               f"fused {f.time_s * 1e3:.3f} ms (memory {f.memory_bytes}, launches "
               f"{nonzero(f.extra['launches'])}); equal paths, oracle {verdict}", flush=True)
+    again = [decode(hmm, requests[0], name, device=device).time_s * 1e3
+             for name in ("checkpoint", "fused")]
+    print(f"request 0 again after the others: checkpoint {again[0]:.3f} ms (first read "
+          f"{ck[0].time_s * 1e3:.3f}), fused {again[1]:.3f} ms (first read "
+          f"{fu[0].time_s * 1e3:.3f}); {spun}", flush=True)
     return [ck_launches, fu_launches]
 
 
@@ -1110,6 +1300,7 @@ def beam_phase(hmm, requests, oracles, device, cpu_device) -> list[dict[str, int
     from flash_viterbi_tpu_torch.oracle.validate import path_score_f64
 
     K, T = hmm.K, len(requests[0])
+    print(f"beam phase: {spin_up(device)}", flush=True)
     all_launches = []
     for name, static, mirror, memory in (
             ("flash_bs", {"beam_width": BEAM_WIDTH, "num_segments": BEAM_SEGMENTS},

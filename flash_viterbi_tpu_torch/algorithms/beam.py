@@ -14,6 +14,7 @@ import torch
 
 from ..ops.beam import beam_topk
 from ..ops.cuda import beam_scan
+from ..ops.cuda.maxplus import error_word, raise_on_error
 from .base import Decoder, register
 from .flash_bs import walk_beam
 
@@ -22,10 +23,13 @@ def beam_decode(logA, logB, logPi, y, beam_width: int):
     B = min(int(beam_width), logA.shape[0])  # clamp: beam cannot exceed K
     emits = logB.t()[y].contiguous()  # (T, K)
     vals0, states0 = beam_topk((logPi + emits[0])[None, :], B)
-    hist, slot_ptrs, _ = beam_scan(logA, emits[1:].unsqueeze(1), vals0, states0)
+    err = error_word(logA.device)  # read once, after the walk is queued
+    hist, slot_ptrs, _ = beam_scan(logA, emits[1:].unsqueeze(1), vals0, states0, err=err)
     states_hist = torch.cat([states0[None], hist])  # (T, 1, B)
     end_slot = torch.zeros((1,), dtype=torch.int32, device=logA.device)
-    return walk_beam(states_hist, slot_ptrs, end_slot)[0]
+    path = walk_beam(states_hist, slot_ptrs, end_slot)[0]
+    raise_on_error(err, "beam")
+    return path
 
 
 def _memory(K: int, T: int, beam_width: int = 64, **_) -> int:

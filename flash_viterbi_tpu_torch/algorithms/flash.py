@@ -87,7 +87,8 @@ def phase1_anchors(logA, logPi, emits, mids: torch.Tensor, err=None):
 def decode_segments_pointer(logA, logPi, emits, starts, lens, init_states,
                             end_states, Lmax: int, T: int, err=None):
     """Decode N forced-boundary segments as lanes; returns (N, Lmax) paths.
-    ``err`` is the scan's error word, as ``maxplus_scan_deltas`` takes it.
+    ``err`` is the scan's and the walk's error word, as ``maxplus_scan_deltas``
+    takes it.
 
     ``init_states[s]`` is the resolved state at ``starts[s]-1`` (ignored for
     segment 0, which starts from ``logPi``); ``end_states[s]`` the resolved
@@ -105,7 +106,7 @@ def decode_segments_pointer(logA, logPi, emits, starts, lens, init_states,
     _, deltas = maxplus_scan_deltas(logA, emitsN, d0, err=err)
     # the walk reads logA columns as contiguous rows of its transpose: one
     # K*K copy per decode
-    return argmax_walk(deltas, logA.t().contiguous(), end_states, valid=valid)
+    return argmax_walk(deltas, logA.t().contiguous(), end_states, valid=valid, err=err)
 
 
 def flash_decode(logA, logB, logPi, y, num_segments: int = 8):

@@ -28,6 +28,7 @@ import torch
 from ..ops import maxplus as mp
 from ..ops.beam import beam_topk
 from ..ops.cuda import backtrack_batched, beam_scan
+from ..ops.cuda.maxplus import error_word, raise_on_error
 from .base import Decoder, register
 from .flash import _threadpool_sizeof, flash_midpoints, prop_schedule, segment_layout
 
@@ -41,23 +42,25 @@ def walk_beam(states_hist, slot_ptrs, end_slot):
     return states_hist.gather(2, slots.t()[:, :, None].to(torch.int64))[:, :, 0].t()
 
 
-def phase1_beam(logA, logPi, emits, prop, B: int):
+def phase1_beam(logA, logPi, emits, prop, B: int, err=None):
     """Beam forward pass over all T with the anchor planes of ``prop``
-    (T-1, P); returns (last () int32, anchors (P,) int32)."""
+    (T-1, P); returns (last () int32, anchors (P,) int32).  ``err`` is the
+    beam scan's error word, as ``beam_scan`` takes it."""
     vals0, states0 = beam_topk((logPi + emits[0])[None, :], B)
-    hist, _, planes = beam_scan(logA, emits[1:].unsqueeze(1), vals0, states0, prop=prop)
+    hist, _, planes = beam_scan(logA, emits[1:].unsqueeze(1), vals0, states0, prop=prop,
+                                err=err)
     final = hist[-1] if hist.shape[0] else states0
     return final[0, 0], planes[0, :, 0]
 
 
 def segment_beam(logA, logPi, emits, starts, lens, init_states, end_states,
-                 Lmax: int, T: int, B: int):
+                 Lmax: int, T: int, B: int, err=None):
     """Forced-boundary beam decode of N segments as lanes; returns (N, Lmax)
     paths, a segment -1 throughout when its end state left its beam.
 
     ``init_states[s]`` is the state at ``starts[s]-1`` (ignored for segment
     0, which starts from ``logPi``); ``end_states[s]`` the state at the
-    segment's last position.
+    segment's last position.  ``err`` as in :func:`phase1_beam`.
     """
     N = starts.shape[0]
     dev = emits.device
@@ -70,7 +73,7 @@ def segment_beam(logA, logPi, emits, starts, lens, init_states, end_states,
     vals0, states0 = beam_topk(start + seg[:, 0], B)
     valid = torch.arange(1, Lmax, device=dev)[:, None] <= (lens - 1)[None, :]
     hist, slot_ptrs, _ = beam_scan(logA, seg[:, 1:].transpose(0, 1).contiguous(),
-                                   vals0, states0, valid=valid)
+                                   vals0, states0, valid=valid, err=err)
     states_hist = torch.cat([states0[None], hist])  # (Lmax, N, B)
     match = states_hist[-1] == end_states[:, None]
     end_slot = mp.first_argmax(match.to(torch.int32), 1)[1]
@@ -94,13 +97,16 @@ def flash_bs_decode(logA, logB, logPi, y, beam_width: int, num_segments: int = 8
                            for v in (starts_l, lens_l, order))
     prop = torch.as_tensor(prop_schedule(mids, T), device=dev)  # (T-1, P) bool
     emits = logB.t()[y].contiguous()  # (T, K)
+    err = error_word(dev)  # both beam scans', read once at the end
 
-    last, anchors = phase1_beam(logA, logPi, emits, prop, B)
+    last, anchors = phase1_beam(logA, logPi, emits, prop, B, err)
     init_states = torch.cat([torch.zeros((1,), dtype=torch.int32, device=dev), anchors])
     end_states = torch.cat([anchors, last[None]])
     paths = segment_beam(logA, logPi, emits, starts, lens, init_states, end_states,
-                         Lmax, T, B)
-    return paths.reshape(-1)[order]
+                         Lmax, T, B, err)
+    out = paths.reshape(-1)[order]
+    raise_on_error(err, "flash_bs")
+    return out
 
 
 def _memory(K: int, T: int, beam_width: int = 64, num_segments: int = 8, **_) -> int:

@@ -22,6 +22,7 @@ import torch
 from ..ops import maxplus as mp
 from ..ops.cuda import (argmax_walk, backtrack_batched, maxplus_scan,
                         maxplus_scan_deltas)
+from ..ops.cuda.maxplus import error_word, raise_on_error
 from .base import Decoder, register
 
 RESIDENT_MAX_K = 1024
@@ -30,14 +31,19 @@ POINTERS = ("auto", "store", "recompute")
 
 def _walk(logA, emits, delta0, pointers: str):
     """Scan ``emits`` (T', N, K) from ``delta0`` (N, K) and walk back from
-    the lowest-index argmax of the final scores; (N, T'+1) int32 paths."""
+    the lowest-index argmax of the final scores; (N, T'+1) int32 paths.
+    The scan and the walk share one error word, read once at the end."""
+    err = error_word(logA.device)
     if pointers == "recompute":
-        dfin, deltas = maxplus_scan_deltas(logA, emits, delta0)
+        dfin, deltas = maxplus_scan_deltas(logA, emits, delta0, err=err)
         last = mp.first_argmax(dfin, 1)[1]
-        return argmax_walk(deltas, logA.t().contiguous(), last)
-    dfin, ptrs = maxplus_scan(logA, emits, delta0)
-    last = mp.first_argmax(dfin, 1)[1]
-    return backtrack_batched(ptrs, last)
+        paths = argmax_walk(deltas, logA.t().contiguous(), last, err=err)
+    else:
+        dfin, ptrs = maxplus_scan(logA, emits, delta0, err=err)
+        last = mp.first_argmax(dfin, 1)[1]
+        paths = backtrack_batched(ptrs, last)
+    raise_on_error(err, "fused")
+    return paths
 
 
 def fused_decode(logA, logB, logPi, y):

@@ -19,9 +19,9 @@
 //       argmax.cuh's fvt_better, as a warp-shuffle and block tournament,
 //       broadcast to every output entry.
 //
-// Every mbarrier wait spins at most WAIT_CYCLES clock cycles (about a
-// second) and then sets a bit of the error flag and returns, so a wrong
-// phase fails the call instead of hanging the card.  A bulk copy needs
+// Every mbarrier wait spins at most FVT_WAIT_CYCLES clock cycles (about a
+// second, async_copy.cuh) and then sets a bit of the error flag and
+// returns, so a wrong phase fails the call instead of hanging the card.  A bulk copy needs
 // 16-byte-aligned addresses and a size that is a multiple of 16 bytes:
 // the wrappers check both (a padded K = 3968 row is 15872 bytes).
 
@@ -31,63 +31,13 @@
 #include <stdint.h>
 
 #include "argmax.cuh"
+#include "async_copy.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr long long WAIT_CYCLES = 1ll << 31;
 constexpr int ERR_TIMEOUT = 1;   // an mbarrier wait timed out
 constexpr int ERR_MISMATCH = 2;  // p3: a buffer differs from the first
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive_expect(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-                 "r"(bytes)
-                 : "memory");
-}
-
-// True once the barrier's phase of this parity has completed
-__device__ __forceinline__ bool bar_test(uint64_t* bar, uint32_t parity) {
-    uint32_t done;
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    return done != 0;
-}
-
-// Wait for the phase of this parity, at most WAIT_CYCLES; false on a timeout
-__device__ bool bar_wait(uint64_t* bar, uint32_t parity) {
-    const long long t0 = clock64();
-    while (!bar_test(bar, parity)) {
-        if (clock64() - t0 > WAIT_CYCLES) return false;
-    }
-    return true;
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-        ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-        : "memory");
-}
 
 // p1 (B = 1) and p3: dst[t] = src[t] for Tm rows of n floats, each row
 // fetched into B buffers by bulk copies that the previous step started
@@ -98,15 +48,15 @@ copy_rows_kernel(const float* __restrict__ src, float* __restrict__ dst, int Tm,
     __shared__ uint64_t bar;
     const int tid = threadIdx.x;
     const uint32_t bytes = (uint32_t)n * 4u;
-    if (tid == 0) bar_init(&bar, 1);
+    if (tid == 0) fvt_bar_init(&bar, 1);
     __syncthreads();
     if (tid == 0) {
-        bar_arrive_expect(&bar, bytes * B);
-        for (int b = 0; b < B; ++b) bulk_load(buf + (size_t)b * n, src, bytes, &bar);
+        fvt_bar_arrive_expect(&bar, bytes * B);
+        for (int b = 0; b < B; ++b) fvt_bulk_load(buf + (size_t)b * n, src, bytes, &bar);
     }
     for (int t = 0; t < Tm; ++t) {
         // step t's copies are the barrier's phase t
-        if (!__syncthreads_and(bar_wait(&bar, t & 1))) {
+        if (!__syncthreads_and(fvt_bar_wait(&bar, t & 1))) {
             if (tid == 0) atomicOr(err, ERR_TIMEOUT);
             return;
         }
@@ -123,9 +73,9 @@ copy_rows_kernel(const float* __restrict__ src, float* __restrict__ dst, int Tm,
         for (int i = tid; i < n; i += THREADS) dst[(size_t)t * n + i] = buf[i];
         __syncthreads();  // every thread is done with the buffers
         if (tid == 0 && t + 1 < Tm) {
-            bar_arrive_expect(&bar, bytes * B);
+            fvt_bar_arrive_expect(&bar, bytes * B);
             for (int b = 0; b < B; ++b) {
-                bulk_load(buf + (size_t)b * n, src + (size_t)(t + 1) * n, bytes, &bar);
+                fvt_bulk_load(buf + (size_t)b * n, src + (size_t)(t + 1) * n, bytes, &bar);
             }
         }
     }
@@ -138,12 +88,12 @@ __global__ void p4_kernel(int* __restrict__ out, int Tm, int W, int* __restrict_
     __shared__ int s_v[2][P4_MAXW];
     __shared__ uint64_t bar;
     const int tid = threadIdx.x;
-    if (tid == 0) bar_init(&bar, blockDim.x);  // every thread arrives once a step
+    if (tid == 0) fvt_bar_init(&bar, blockDim.x);  // every thread arrives once a step
     __syncthreads();
     for (int t = 0; t < Tm; ++t) {
         if (tid < W) s_v[t & 1][tid] = t;  // this thread's result
-        bar_arrive(&bar);                   // release: the store is published
-        if (!bar_wait(&bar, t & 1)) {       // acquire: every thread's store
+        fvt_bar_arrive(&bar);                   // release: the store is published
+        if (!fvt_bar_wait(&bar, t & 1)) {       // acquire: every thread's store
             atomicOr(err, ERR_TIMEOUT);
             return;
         }

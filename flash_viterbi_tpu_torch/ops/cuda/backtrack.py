@@ -17,6 +17,7 @@ import torch
 
 from ..maxplus import first_argmax
 from .common import expect, expect_contiguous, launch, on_cuda
+from .maxplus import error_word, raise_on_error
 
 
 def _check_last(last, N: int, K: int) -> torch.Tensor:
@@ -87,8 +88,8 @@ def argmax_walk_plain(deltas: torch.Tensor, logAT: torch.Tensor,
 
 
 def argmax_walk(deltas: torch.Tensor, logAT: torch.Tensor,
-                last_states: torch.Tensor,
-                valid: torch.Tensor | None = None) -> torch.Tensor:
+                last_states: torch.Tensor, valid: torch.Tensor | None = None, *,
+                err: torch.Tensor | None = None) -> torch.Tensor:
     """Backtrack over the carry history ``deltas``.
 
     Args:
@@ -99,6 +100,10 @@ def argmax_walk(deltas: torch.Tensor, logAT: torch.Tensor,
       last_states: (N,) integer states at the final time.
       valid: optional (T', N) bool — False keeps the lane's state at that
         row (ragged segments).  None: every row is real.
+      err: an error word (``maxplus.error_word``) shared by several calls
+        and read by the caller; by default the call reads its own and
+        raises if a wait for a prefetched carry row timed out.  The CPU's
+        plain version ignores it.
 
     Returns (N, T'+1) int32 paths ending in ``last_states``:
     ``path[t] = lowest argmax_k(deltas[t][n, k] + logAT[path[t+1], k])``.
@@ -117,12 +122,22 @@ def argmax_walk(deltas: torch.Tensor, logAT: torch.Tensor,
     if not on_cuda(*tensors):
         return argmax_walk_plain(deltas, logAT, last, valid)
     expect_contiguous(deltas=deltas, logAT=logAT)
+    # bulk copies and 16-byte loads need 16-byte-aligned rows' bases
+    deltas, logAT = (x.clone() if x.data_ptr() % 16 else x for x in (deltas, logAT))
     if valid is not None:
         valid = valid.contiguous()
+    own = err is None
+    if own:
+        err = error_word(deltas.device)
+    else:
+        expect("err", err, torch.int32, (1,))
     out = torch.empty((N, Tm + 1), dtype=torch.int32, device=deltas.device)
     launch("fvt_argmax_walk", argmax_walk, deltas.device,
            deltas.data_ptr(), logAT.data_ptr(), last.data_ptr(),
-           None if valid is None else valid.data_ptr(), out.data_ptr(), Tm, N, K)
+           None if valid is None else valid.data_ptr(), out.data_ptr(), err.data_ptr(),
+           Tm, N, K)
+    if own:
+        raise_on_error(err, "argmax_walk")
     return out
 
 

@@ -236,11 +236,12 @@ def error_word(device) -> torch.Tensor:
 
 def raise_on_error(err: torch.Tensor, what: str) -> None:
     """Read ``err`` (a host synchronisation on the card) and raise if a
-    scan that shared it timed out at a grid barrier."""
+    kernel that shared it timed out at a grid barrier (the scans) or at a
+    copy's barrier (the beam scan, the argmax walk)."""
     code = int(err[0])
     if code:
-        raise RuntimeError(f"{what}: a grid barrier of a scan timed out (error word "
-                           f"{code}); the outputs are not valid")
+        raise RuntimeError(f"{what}: a grid barrier or a copy barrier of a kernel timed out "
+                           f"(error word {code}); the outputs are not valid")
 
 
 def _scan_cuda(fn_name: str, counter, inputs: dict, delta0, Tm: int,

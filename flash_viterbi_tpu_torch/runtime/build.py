@@ -41,8 +41,8 @@ _LL = ctypes.POINTER(ctypes.c_longlong)
 _IP = ctypes.POINTER(ctypes.c_int)
 
 # C entry points: every pointer and the stream as c_void_p (a c_int would cut
-# a 64-bit address); each returns the cudaError_t of its launches, but the
-# two *_smem functions, which return a size
+# a 64-bit address); each returns the cudaError_t of its launches, but
+# fvt_probe_beam_smem, which returns a size, and fvt_beam_scan_clusters, a count
 _SIGNATURES = {
     # logA, emits, delta0, dfin, ptrs, deltas, part_v, part_i, carry, count, err,
     # plan, Tm, N, K, stream, launches
@@ -56,14 +56,15 @@ _SIGNATURES = {
     "fvt_maxplus_step_block": [_P, _P, _P, _P, _I, _I, _I, _P, _LL],
     # ptrs, last, out, Tm, N, K, stream, launches
     "fvt_backtrack": [_P, _P, _P, _I, _I, _I, _P, _LL],
-    # deltas, logAT, last, valid, out, Tm, N, K, stream, launches
-    "fvt_argmax_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
-    # logA, emits, vals0, states0, valid, prop, hist, slots, planes, scratch, Tm,
-    # N, K, B, P, stream, launches
-    "fvt_beam_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _LL],
-    # K, B, P -> bytes of a lane's working set: the shared memory a block of
-    # fvt_beam_scan needs, or its scratch region when that exceeds a block's
-    "fvt_beam_scan_smem": [_I, _I, _I],
+    # deltas, logAT, last, valid, out, err, Tm, N, K, stream, launches
+    "fvt_argmax_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
+    # logA, emits, vals0, states0, valid, prop, hist, slots, planes, scratch, err,
+    # plan, Tm, N, K, B, P, stream, launches
+    "fvt_beam_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _I, _P,
+                      _LL],
+    # plan -> clusters of its size and shared memory the card keeps resident
+    # (negative: a CUDA error)
+    "fvt_beam_scan_clusters": [_IP],
     # device, out[2] -> L2 bytes and the most it can keep for persisting accesses
     "fvt_device_l2": [_I, _IP],
     # the probes (flash_viterbi_tpu_torch/probes/)
@@ -88,6 +89,10 @@ def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -103,7 +108,7 @@ def _stale() -> bool:
     if not os.path.exists(KERNELS_SO):
         return True
     built = os.path.getmtime(KERNELS_SO)
-    return any(os.path.getmtime(s) > built for s in sources())
+    return any(os.path.getmtime(s) > built for s in sources() + headers())
 
 
 def compile_to(out: str, command) -> str:

@@ -4,11 +4,14 @@
     python3 scripts/torch_profile_decodes.py
 
 On the headline problem (K=3965 padded to 3968, M=50, T=256, prob=0.112,
-seed=1), for each of ``flash`` (16 segments), ``checkpoint`` and
-``fused``: the wall time of one decode (median of 10 CUDA-event timings of
-one synchronized decode after a warmup), then torch.profiler over 3
-decodes: each kernel's device time and launches a decode, the device's busy
-time (the sum of every kernel's) and its idle share of the wall time.  For
+seed=1), for each of ``flash`` (16 segments), ``checkpoint``, ``fused``,
+``flash_bs`` (B=64, 8 segments), ``beam`` (B=64) and the recompute batch
+(``fused_decode_batch(..., pointers="recompute")`` over the 16 sequences
+``observations(256, 50, seed=s)``, s = 1..16): the wall time of one decode
+(median of 10 CUDA-event timings of one synchronized decode after a
+warmup), then torch.profiler over 3 decodes: each kernel's device time and
+launches a decode, the device's busy time (the sum of every kernel's) and
+its idle share of the wall time.  For
 ``flash`` and ``checkpoint``, whose scans share one error word read once a
 decode, also the wall time in turns against the same decode with every
 scan reading its own word (a host synchronisation a scan): shared, per
@@ -19,6 +22,7 @@ records no device time.  Needs the card.
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib
 import os
 import statistics
@@ -32,9 +36,12 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from flash_viterbi_tpu_torch import build  # noqa: E402
-from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm  # noqa: E402
+from flash_viterbi_tpu_torch.algorithms.fused import fused_decode_batch  # noqa: E402
+from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm, observations  # noqa: E402
 
-DECODERS = (("flash", {"num_segments": 16}), ("checkpoint", {}), ("fused", {}))
+DECODERS = (("flash", {"num_segments": 16}), ("checkpoint", {}), ("fused", {}),
+            ("flash_bs", {"beam_width": 64, "num_segments": 8}), ("beam", {"beam_width": 64}))
+BATCH = 16
 REPS = 3
 
 
@@ -73,12 +80,13 @@ def main() -> None:
     yd = torch.as_tensor(y.astype(np.int64), device=dev)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip(), flush=True)
-    for name, static in DECODERS:
-        dec = build(name, **static)
-
-        def run():
-            return dec(lh.logA, lh.logB, lh.logPi, yd)
-
+    ys = torch.as_tensor(np.stack([observations(256, 50, seed=s) for s in range(1, BATCH + 1)]),
+                         dtype=torch.int64, device=dev)
+    runs = [(name, functools.partial(build(name, **static), lh.logA, lh.logB, lh.logPi, yd))
+            for name, static in DECODERS]
+    runs.append((f"recompute batch Bs={BATCH}", functools.partial(
+        fused_decode_batch, lh.logA, lh.logB, lh.logPi, ys, pointers="recompute")))
+    for name, run in runs:
         run()
         torch.cuda.synchronize()
         wall = wall_ms(run)

@@ -14,8 +14,13 @@ EMIT>``, where the checkout has that kernel), and prints the median of 9
 CUDA-event runs of ``maxplus_scan`` (N=1, T'=255) and
 ``maxplus_scan_deltas`` (N=16, T'=16) on the headline tables (K=3965
 padded to 3968, M=50, prob=0.112, seed=1), and of both at K=16384 (N=1 and
-N=16, T'=32, standard normal tables drawn on the card).  Pass the
-checkouts as A B B A to read a change against its parent.
+N=16, T'=32, standard normal tables drawn on the card); then, with the
+checkout's own ``chip_smoke.py`` input helpers, ``beam_scan`` at flash_bs's
+phase-1 shape (N=1, T'=255, B=64, 7 planes) and segment shape (8 ragged
+lanes, T'=32) and at Kp=17000 (B=64, T'=4, values in halves drawn on the
+card), and ``argmax_walk`` at flash's shape (16 ragged lanes, T'=16) and at
+the recompute batch's (16 sequences, T'=255).  Pass the checkouts as A B B
+A to read a change against its parent.
 """
 
 from __future__ import annotations
@@ -95,6 +100,35 @@ def time_checkout(root: str) -> None:
           f"{ms(lambda: k.maxplus_scan(*big[1]), 5):.4f} ms; maxplus_scan_deltas N=1 "
           f"{ms(lambda: k.maxplus_scan_deltas(*big[1]), 5):.4f} ms; N=16 "
           f"{ms(lambda: k.maxplus_scan_deltas(*big[16]), 5):.4f} ms", flush=True)
+    del logA, big
+    torch.cuda.empty_cache()
+
+    import chip_smoke as cs
+    from flash_viterbi_tpu_torch.ops import maxplus as mp
+    from flash_viterbi_tpu_torch.ops.beam import beam_topk
+
+    lh = hmm.log(device=dev).padded(128)
+    phase1 = cs.beam_inputs(lh, y, dev)
+    segment = cs.beam_segment_inputs(lh, y, dev, seed=2)
+    Kb = 17000
+    logA = torch.round(torch.randn((Kb, Kb), generator=g, device=dev) * 2) / 2
+    emits = torch.round(torch.randn((4, 1, Kb), generator=g, device=dev))
+    large = (logA, emits, *beam_topk(torch.round(torch.randn((1, Kb), generator=g,
+                                                              device=dev)), 64))
+    print(f"{root}: beam_scan phase-1 {ms(lambda: k.beam_scan(*phase1)):.4f} ms; segment "
+          f"{ms(lambda: k.beam_scan(*segment)):.4f} ms; Kp={Kb}, T'=4 "
+          f"{ms(lambda: k.beam_scan(*large), 5):.4f} ms", flush=True)
+    del logA, emits, large
+    torch.cuda.empty_cache()
+    logAT = lh.logA.t().contiguous()
+    _, deltas_in, valid = cs.phase_inputs(lh, y, dev, seed=0)
+    dfin, deltas = k.maxplus_scan_deltas(*deltas_in)
+    flash_walk = (deltas, logAT, mp.first_argmax(dfin, 1)[1], valid)
+    batch_in = cs.batch_inputs(lh, cs.batch_seqs()[:16], dev)[0]
+    dfin, deltas16 = k.maxplus_scan_deltas(*batch_in)
+    batch_walk = (deltas16, logAT, mp.first_argmax(dfin, 1)[1], None)
+    print(f"{root}: argmax_walk flash shape {ms(lambda: k.argmax_walk(*flash_walk)):.4f} ms; "
+          f"N=16, T'=255 {ms(lambda: k.argmax_walk(*batch_walk)):.4f} ms", flush=True)
 
 
 def main() -> None:

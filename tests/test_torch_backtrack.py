@@ -76,6 +76,8 @@ def _walk_inputs(kind, Tm, N, K, seed):
     ("resident_mm", 11, 17, 128, "ties"),     # N > 16: one-hot matmul route
     ("dma", 11, 2, 2048, "random"),           # K > 1024: per-row DMA route
     ("tail_only", 5, 4, 128, "ties"),         # T' < 8: the XLA tail alone
+    ("tail_only", 6, 3, 1001, "ties"),        # K % 4 != 0: the CUDA walk's scalar tail
+    ("resident_mm", 9, 64, 128, "random"),    # 64 lanes: 64 blocks on the card
 ])
 def test_argmax_walk_plain_matches_pallas(route, Tm, N, K, kind, masked):
     deltas, logAT, last, valid = _walk_inputs(kind, Tm, N, K, seed=Tm * N)
@@ -97,3 +99,38 @@ def test_walks_with_zero_rows_return_last():
     assert out.tolist() == [[2], [0]]
     out = tk.backtrack_batched(torch.zeros((0, 2, 4), dtype=torch.int32), last)
     assert out.tolist() == [[2], [0]]
+
+
+def test_argmax_walk_cuda_branch_passes_its_error_word(monkeypatch):
+    """Spied on the CPU: one launch a call on contiguous inputs with the
+    call's own error word, read at once (a timed-out wait raises); with a
+    caller's word the wrapper leaves the read to the caller."""
+    import ctypes
+
+    from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
+
+    calls = []
+
+    def fake_launch(fn_name, counter, device, *args):
+        calls.append((fn_name, args))
+        ctypes.c_int.from_address(args[5]).value = 1  # a timed-out wait
+        counter.launches += 1
+
+    monkeypatch.setattr(tkb, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(tkb, "launch", fake_launch)
+    deltas, logAT, last, valid = (torch.from_numpy(x) for x in
+                                  _walk_inputs("ties", 5, 3, 1001, seed=4))
+    tk.reset_launches()
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.argmax_walk(deltas, logAT.t(), last)
+    with pytest.raises(RuntimeError, match="argmax_walk: a grid barrier or a copy barrier"):
+        tk.argmax_walk(deltas, logAT, last, valid)
+    err = km.error_word("cpu")
+    tk.argmax_walk(deltas, logAT, last, err=err)
+    assert [c[0] for c in calls] == ["fvt_argmax_walk"] * 2
+    (_, a1), (_, a2) = calls
+    assert a1[0] == deltas.data_ptr() and a1[1] == logAT.data_ptr()
+    assert a1[3] is not None and a2[3] is None  # the valid mask, when given
+    assert a2[5] == err.data_ptr() and int(err[0]) == 1
+    assert a1[-3:] == a2[-3:] == (5, 3, 1001)
+    assert tk.launch_counts()["argmax_walk"] == 2

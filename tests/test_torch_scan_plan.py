@@ -332,24 +332,29 @@ def test_a_decode_reads_its_scans_error_word_once(algorithm, monkeypatch):
 
 @pytest.mark.parametrize("Kp,scratch", [(1000, False), (17000, True)])
 def test_beam_scan_takes_a_scratch_above_a_blocks_memory(Kp, scratch, monkeypatch):
-    """Above a block's shared memory the beam wrapper hands the kernel one
-    scratch region a lane (the kernel's working set) instead of raising."""
+    """Where a CTA's keys, slots and copy of the beam do not fit its shared
+    memory (the full beam at Kp=17000) the beam wrapper hands the kernel a
+    scratch of one region a (lane, CTA) instead of raising."""
     calls = []
 
     def fake_launch(fn_name, counter, device, *args):
         calls.append(args)
         counter.launches += 1
 
-    need = (1 << (Kp - 1).bit_length()) * 8 + Kp * 4 + 64 * 12
+    B = Kp if scratch else 64
     monkeypatch.setattr(kbeam, "on_cuda", lambda *t: True)
     monkeypatch.setattr(kbeam, "launch", fake_launch)
-    monkeypatch.setattr(kbeam.build, "kernels", lambda: type(
-        "Lib", (), {"fvt_beam_scan_smem": staticmethod(lambda K, B, P: need)})())
+    monkeypatch.setattr(kbeam, "sm_count", lambda dev: SMS)
+    monkeypatch.setattr(kbeam, "_clusters", lambda index, plan: SMS // plan.C)
+    monkeypatch.setattr(kbeam, "_card_plan", lambda index, sms, Kp, B, N, P: kbeam.beam_plan(
+        Kp, B, N, sms, P))
     logA = torch.zeros((Kp, 1))
     logA = logA.expand(Kp, Kp)  # no (Kp, Kp) allocation: the fake never reads it
     monkeypatch.setattr(kbeam, "expect_contiguous", lambda **t: None)
-    kbeam.beam_scan(logA, torch.zeros((2, 3, Kp)), torch.zeros((3, 64)),
-                    torch.zeros((3, 64), dtype=torch.int32))
+    kbeam.beam_scan(logA, torch.zeros((2, 3, Kp)), torch.zeros((3, B)),
+                    torch.zeros((3, B), dtype=torch.int32))
     (args,) = calls
-    assert (args[9] is not None) == scratch
-    assert (need > SMEM_LIMIT) == scratch
+    plan = kbeam.beam_plan(Kp, B, 3, SMS)
+    assert (args[9] is not None) == scratch == (not plan.state_smem)
+    need = plan.state_words * 4
+    assert (need + plan.rg * plan.cw * 4 > SMEM_LIMIT - kbeam.STATIC_SMEM) == scratch
