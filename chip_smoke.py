@@ -82,11 +82,17 @@ Phases, each fatal on failure:
    card, each memory-mapping the tables from ``.npy`` files and uploading
    only its 256 MiB column shard.  Equal paths, in range, finite scores.
 
-The kernel phase also holds ``maxplus_step_block`` bit-exact on four
+The kernel phase also holds ``maxplus_step_block`` bit-exact on nine
 fixtures: the (1, 1, 1) boundary step (N=1, Ks=Kd=3968), 16 phase-2 lanes
 on one of 4 state ranks (Kd=992), config-5's K on one of 4 state ranks
-(Ks=16384, Kd=4096) and an integer-valued tie fixture (N=20, Ks=1000,
-Kd=250, duplicated source rows, an all -inf source row and column).
+(Ks=16384, Kd=4096), the (1, 1, 2) and (1, 2, 2) meshes' shard steps
+(Kd=1984 at N = 1, 16 and 8), the 16-lane step under a plan of more tiles
+than SMs and under one of a single source range (no cluster), and an
+integer-valued tie fixture (N=20, Ks=1000, Kd=250, duplicated source rows,
+an all -inf source row and column), whose two lane groups must make one
+launch.  Each timed shape is timed back to back, as a sharded decode calls
+it (the shard stays in L2 where it fits), and with L2 flushed before each
+call.
 
 Probes (after the kernel phase): the counterparts of the JAX package's
 ``scripts/`` probes (``flash_viterbi_tpu_torch.probes``).  Every probe
@@ -96,9 +102,15 @@ scan ablation on its three shapes, with and without the history, at every
 staged chunk (K=16384 compared at T'=4: the plain version's (K, K)
 temporary is 1 GiB a lane-step); the beam probes ``full``, ``sort``,
 ``pick``, ``nosmem`` and ``blockm`` against the plain beam scan and the
-production ``beam_scan`` on the probes' fixture and on a tie fixture; p1
-and p3 on the TPU probe's fixture and on a beam scan's rows, p4, p5 on its
-forced tie.  Then the probe path, ``probes.run()``, is driven between a
+production ``beam_scan`` on the probes' fixture and on a beam scan's rows,
+p1 and p3 on the TPU probe's fixture and on a beam scan's rows, each under
+the card's plan and under plans of 1 and 3 CTAs (long runs of steps, every
+ring stage's barrier through many phases), p4, p5 on its forced tie.
+p1's and p3's time at both shapes is printed beside ``Tensor.copy_``'s,
+timed alike: the device's time a call back to back (chains queued behind a
+sleep of the card, no host read inside a chain: the records' ``ms`` and
+``library_ms``), with L2 flushed, and the slope of chains with the host's
+launch cost in it.  Then the probe path, ``probes.run()``, is driven between a
 reset and a read of the launch counters: every probe kernel must launch.
 Each variant's time is printed beside its bound, counted as in
 ``compare``; the measured add+max rate gives the scans' operation bound
@@ -147,6 +159,12 @@ LOOPED_PLANS = ((3000, 16, 4), (3000, 20, 4), (3001, 1, 1))
 COMBINE_SHAPES = ((3968, 1), (3968, 2), (3968, 4), (3968, 8), (3968, 16), (16384, 1),
                   (16384, 2), (16384, 16))
 RANK_MESHES = ((1, 1, 2), (1, 2, 2))
+# the step block's shard shapes on those meshes, (N, Kd) against the whole
+# carry (a spy on the CPU decode: (1, 1, 2) steps N=1 1024 times and N=16
+# 60 times a rank, (1, 2, 2) N=1 640 times and N=8 60 times)
+STEP_SHARD_SHAPES = ((1, 1984), (16, 1984), (8, 1984))
+# source ranges of a step-block plan whose tiles outnumber the SMs
+STEP_MANY_RANGES = 16
 # config-5 (K=16384, T=65536, 256 sequences) with T cut to 4096 and 2
 # sequences: its K, the size state sharding exists for, in a short run;
 # both sequences in one microbatch, so each trellis step serves both
@@ -265,10 +283,15 @@ def build_phase() -> None:
     secs = build.build()
     build.kernels()
     print(f"build: nvcc {secs:.1f} s", flush=True)
+    reports = spills = 0
     with open(build.BUILD_LOG) as f:
         for line in f:
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip().split("ptxas info    : ")[-1])
+            if "spill stores" in line:
+                reports += 1
+                spills += "0 bytes spill stores, 0 bytes spill loads" not in line
+    print(f"ptxas: {reports} kernels, {spills} with spills", flush=True)
 
 
 def tables(hmm, pad_to: int, device):
@@ -707,6 +730,58 @@ def step_block_inputs(lh, y, device):
             (deltas_in[2], lh.logA[:, :lh.Kp // 4].contiguous()))
 
 
+def step_block_shard_inputs(lh, y, device):
+    """maxplus_step_block's inputs at STEP_SHARD_SHAPES on the headline
+    tables: phase_inputs' carries (the N=1 first carry, the first N of the
+    16 phase-2 lanes) against the first of 2 state ranks' column shards."""
+    scan_in, deltas_in, _ = phase_inputs(lh, y, device, seed=3)
+    return [((scan_in[2] if N == 1 else deltas_in[2][:N].contiguous()),
+             lh.logA[:, :Kd].contiguous()) for N, Kd in STEP_SHARD_SHAPES]
+
+
+def cold_ms(fn, device, reps: int) -> float:
+    """Median milliseconds of ``reps`` runs of ``fn``, each after writing
+    128 MiB (more than the 50 MB L2) so that it finds its inputs in device
+    memory; all of them queued behind a ~20 ms sleep of the card, so the
+    events time the device, not the host's launch."""
+    flush = torch.empty(32 * 2**20, device=device)
+    fn()
+    torch.cuda.synchronize(device)
+    torch.cuda._sleep(40_000_000)
+    events = []
+    for _ in range(reps):
+        flush.fill_(0.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize(device)
+    return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
+def queued_ms(fn, device, k: int = 20, reps: int = 5) -> float:
+    """Median milliseconds a call of ``fn`` over chains of ``k`` calls,
+    each chain queued behind a ~20 ms sleep of the card, so the calls run
+    back to back on the device while the host enqueues them: the device's
+    time a call, the host's launch cost hidden."""
+    fn()
+    torch.cuda.synchronize(device)
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(40_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(k):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / k)
+    return statistics.median(times)
+
+
 def step_block_config5_inputs(device, seed: int = 5):
     """One carry against config-5's K on one of 4 state ranks: a (16384,
     4096) block, 11.2% of it finite (the generator's edge density), drawn
@@ -915,6 +990,8 @@ def valid_rows(valid) -> int:
 def kernel_phase(hmm, y, device) -> dict[str, dict]:
     """Kernels against plain versions; returns per-kernel records timed at
     the headline shapes, with the worst error over every fixture."""
+    import functools
+
     from flash_viterbi_tpu_torch.ops import beam as bp
     from flash_viterbi_tpu_torch.ops import cuda as k
     from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
@@ -927,8 +1004,8 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
         return compare("beam_scan", shared_word(k.beam_scan, device), bp.beam_scan_plain, args,
                        device, reps)
 
-    def check_step(args, reps: int = 0) -> dict:
-        return compare("maxplus_step_block", k.maxplus_step_block,
+    def check_step(args, reps: int = 0, plan=None) -> dict:
+        return compare("maxplus_step_block", functools.partial(k.maxplus_step_block, plan=plan),
                        km.maxplus_step_block_plain, args, device, reps)
 
     head, unpadded = tables(hmm, 128, device), tables(hmm, 1, device)
@@ -939,7 +1016,20 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
     timed = (check_all(scan_in, deltas_in, valid, device, reps=9) + [check_eg(eg_in, 9)]
              + [check_beam(beam_inputs(head, y, device), 9), check_step(boundary, 9)])
     config5_block = step_block_config5_inputs(device)
-    steps = [check_step(lanes16, 9), check_step(config5_block, 9)]
+    shard = step_block_shard_inputs(head, y, device)
+    steps = [check_step(lanes16, 9), check_step(config5_block, 9)] + [
+        check_step(args, 9) for args in shard]
+    sms = km.sm_count(device)
+    many = km.step_plan(*lanes16[0].shape, lanes16[1].shape[1], sms, R=STEP_MANY_RANGES)
+    require(many.blocks > sms, f"the many-tile step plan has {many.blocks} blocks")
+    one = km.step_plan(*lanes16[0].shape, lanes16[1].shape[1], sms, R=1)
+    step_plans = [check_step(lanes16, plan=many), check_step(lanes16, plan=one)]
+    step_ties = step_block_tie_inputs(device)
+    before = km.maxplus_step_block.launches
+    step_plans.append(check_step(step_ties))
+    require(km.maxplus_step_block.launches - before == 1,
+            f"the step block at N={step_ties[0].shape[0]} made "
+            f"{km.maxplus_step_block.launches - before} launches, not 1")
     ties, valid = tie_fixture(device)
     beam_seg, beam_b1 = beam_segment_inputs(head, y, device, seed=2), beam_inputs(
         head, y, device, B=1)
@@ -951,14 +1041,21 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
                  check_beam(beam_seg),
                  check_beam(beam_inputs(unpadded, y, device)),
                  check_beam(beam_tie_inputs(ties, valid, device)),
-                 check_beam(beam_b1),
-                 check_step(step_block_tie_inputs(device))] + steps)
-    for args, r in zip((boundary, lanes16, config5_block),
-                       [timed[-1]] + steps):
+                 check_beam(beam_b1)] + steps + step_plans)
+    print(f"maxplus_step_block: bit-exact under a plan of {many.blocks} tiles on {sms} SMs, "
+          f"under a single source range, and at N={step_ties[0].shape[0]} in one launch",
+          flush=True)
+    for args, r in zip([boundary, lanes16, config5_block] + shard, [timed[-1]] + steps):
         (N, Ks), Kd = args[0].shape, args[1].shape[1]
-        print(f"maxplus_step_block at (N, Ks, Kd) = ({N}, {Ks}, {Kd}): {r['ms']:.4f} ms "
-              f"(plain {r['plain_ms']:.3f} ms); bound {r['bound_ms'] * 1e3:.2f} us by "
-              f"{r['bound_by']} ({r['bytes']} bytes)", flush=True)
+        plan = km.step_plan(N, Ks, Kd, sms)
+        queued = queued_ms(lambda: k.maxplus_step_block(*args), device)
+        cold = cold_ms(lambda: k.maxplus_step_block(*args), device, 9)
+        print(f"maxplus_step_block at (N, Ks, Kd) = ({N}, {Ks}, {Kd}): {r['ms']:.4f} ms a "
+              f"timed call, {queued:.4f} ms of device time back to back (queued), {cold:.4f} "
+              f"ms with L2 flushed (plain {r['plain_ms']:.3f} ms); plan "
+              f"R={plan.R} x C={plan.C} x {plan.groups} lane groups = {plan.blocks} blocks, "
+              f"combine {plan.combine}; bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} "
+              f"({r['bytes']} bytes, {r['operations']} operations)", flush=True)
     walk_recs, _ = walk_checks(head, y, device)
     others += (beam_select_checks(device, head, y) + walk_recs + scan_grid_checks(device)
                + looped_plan_checks(device))
@@ -1009,7 +1106,9 @@ def probe_check_phase(device) -> dict[str, dict]:
     probes also against the production beam_scan.  Returns per-kernel
     records: the worst error, the fixtures and the plain version's time
     at the probe's timed shape."""
+    from flash_viterbi_tpu_torch.bench.harness import marginal_time
     from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.ops.cuda.maxplus import sm_count
     from flash_viterbi_tpu_torch.probes import alu, beam, copy, scan
 
     recs = {name: {"max_abs_err": 0.0, "fixtures": 0} for name in PROBE_KERNELS}
@@ -1067,13 +1166,34 @@ def probe_check_phase(device) -> dict[str, dict]:
           "a tie fixture (K=3968, values in halves)", flush=True)
 
     rows = copy.beam_rows(device=device)
+    sms = sm_count(device)
     for x in (copy.fixture(device=device), rows):
-        hold("probe_copy_p1", copy.probe_copy_p1(x), x.clone())
-        hold("probe_copy_p3", copy.probe_copy_p3(x), x.clone())
+        for name, fn, B in (("probe_copy_p1", copy.probe_copy_p1, 1),
+                            ("probe_copy_p3", copy.probe_copy_p3, copy.P3_B)):
+            hold(name, fn(x), x.clone())
+            for ctas in (1, 3):
+                plan = copy.copy_plan(x.shape[0], x[0].numel(), B, sms, ctas=ctas)
+                hold(name, fn(x, plan=plan), x.clone())
+    # p1, p3 and Tensor.copy_ timed alike: the device's time a call back to
+    # back (queued behind a sleep, no host read in the chain; the records'
+    # times) and with L2 flushed; and the slope of chains as probes.run()
+    # times every probe (the host's launch cost included)
+    err = torch.zeros(1, dtype=torch.int32, device=device)
+    for x in (copy.fixture(device=device), rows):
+        dst = torch.empty_like(x)
+        runs = (("Tensor.copy_", lambda: dst.copy_(x)),
+                ("probe_copy_p1", lambda: copy.probe_copy_p1(x, err=err)),
+                ("probe_copy_p3", lambda: copy.probe_copy_p3(x, err=err)))
+        times = {name: (queued_ms(fn, device), cold_ms(fn, device, 9)) for name, fn in runs}
+        print(f"copies of {tuple(x.shape)} float32, device time a call: " + "; ".join(
+            f"{name} {q:.4f} ms back to back (queued), {c:.4f} ms with L2 flushed"
+            for name, (q, c) in times.items()), flush=True)
+    copy.raise_on(err, "probe copies")
+    slope = marginal_time(lambda k: (lambda: [dst.copy_(rows) for _ in range(k)][-1])) * 1e3
     for name in ("probe_copy_p1", "probe_copy_p3"):
-        recs[name]["plain_ms"] = elapsed_ms(lambda: rows.clone(), device, 9)
-        out = torch.empty_like(rows)
-        recs[name]["library_ms"] = elapsed_ms(lambda: out.copy_(rows), device, 9)
+        recs[name].update(plain_ms=elapsed_ms(lambda: rows.clone(), device, 9),
+                          queued_ms=times[name][0], library_ms=times["Tensor.copy_"][0],
+                          library_slope_ms=slope)
     hold("probe_copy_p4", copy.probe_copy_p4(device=device),
          copy.probe_copy_p4_plain(device=device))
     hold("probe_copy_p4", copy.probe_copy_p4(255, 32, device=device),
@@ -1086,9 +1206,9 @@ def probe_check_phase(device) -> dict[str, dict]:
     require(int(copy.probe_copy_p5(v, c)[1][0, 0]) == best[1], "p5: not the numpy winner")
     recs["probe_copy_p5"]["plain_ms"] = elapsed_ms(
         lambda: copy.probe_copy_p5_plain(v, c), device, 9)
-    print("probe copies: p1 and p3 on the TPU probe's fixture and on 255 rows of 3968 floats, "
-          "p4 at (4, 8) and (255, 32), p5 on its forced tie: bit-exact, no mbarrier wait "
-          "timed out", flush=True)
+    print("probe copies: p1 and p3 on the TPU probe's fixture and on 255 rows of 3968 floats "
+          "under the card's plan and plans of 1 and 3 CTAs, p4 at (4, 8) and (255, 32), p5 on "
+          "its forced tie: bit-exact, no mbarrier wait timed out", flush=True)
     return recs
 
 
@@ -1128,6 +1248,18 @@ def probe_phase(device, probe_recs: dict[str, dict], kernel_recs: dict[str, dict
         ms, bound_ms, bound_by = timed[name][variant]
         probe_recs[name].update(ms=ms, bound_ms=bound_ms, bound_by=bound_by, timed=variant)
         probe_recs[name].setdefault("library_ms", None)
+    # p1's and p3's records: the device's time, as Tensor.copy_'s (library_ms)
+    p1, p3 = (probe_recs[n] for n in ("probe_copy_p1", "probe_copy_p3"))
+    lib = p1["library_ms"]
+    print(f"beam rows (255 x 15872 bytes), a call: device time back to back p1 "
+          f"{p1['queued_ms']:.4f} ms, p3 {p3['queued_ms']:.4f} ms, Tensor.copy_ {lib:.4f} ms "
+          f"(p1/copy_ {p1['queued_ms'] / lib:.3f}, p3/copy_ {p3['queued_ms'] / lib:.3f}); the "
+          f"slope of chains with no host read, the host's launch included: p1 {p1['ms']:.4f} "
+          f"ms, p3 {p3['ms']:.4f} ms, Tensor.copy_ {p1['library_slope_ms']:.4f} ms; at the TPU "
+          f"fixture (Tm=4, 1 KB rows), slopes: p1 {timed['probe_copy_p1']['p1'][0]:.4f} ms, p3 "
+          f"{timed['probe_copy_p3']['p3'][0]:.4f} ms", flush=True)
+    for rec in (p1, p3):
+        rec.update(slope_ms=rec["ms"], ms=rec["queued_ms"])
 
     rate = next(r for r in records if r["variant"] == "vpu_peak_rate")
     print(f"add+max rate (probe_alu, R={rate['R']}, {rate['shape']}): "

@@ -1,5 +1,7 @@
 // Bulk copies (global -> shared, TMA's cp.async.bulk) and the mbarriers
-// they complete on, shared by the kernels that prefetch rows.
+// they complete on, shared by the kernels that prefetch rows; and bulk
+// stores (shared -> global), which complete in bulk groups of the thread
+// that issued them.
 //
 // A bulk copy needs 16-byte-aligned addresses and a size that is a multiple
 // of 16 bytes; it adds its bytes to the barrier's transaction count when it
@@ -73,4 +75,30 @@ __device__ __forceinline__ void fvt_bulk_load(void* dst, const void* src, uint32
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
         ::"r"(fvt_smem_addr(dst)), "l"(src), "r"(bytes), "r"(fvt_smem_addr(bar))
         : "memory");
+}
+
+// Store bytes of shared memory to global memory as one bulk copy of this
+// thread's current bulk group.  Precede it with fvt_fence_proxy_async where
+// threads wrote the source; the source may be refilled only after
+// fvt_bulk_wait_read.
+__device__ __forceinline__ void fvt_bulk_store(void* dst, const void* src, uint32_t bytes) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                 ::"l"(dst), "r"(fvt_smem_addr(src)), "r"(bytes)
+                 : "memory");
+}
+
+// Close this thread's current bulk group
+__device__ __forceinline__ void fvt_bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until every bulk group this thread committed has read its source
+__device__ __forceinline__ void fvt_bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Wait until every bulk group this thread committed is complete (its
+// writes done)
+__device__ __forceinline__ void fvt_bulk_wait_all() {
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }

@@ -5,7 +5,7 @@
 //     deltas[t][n, :] = d_{t-1}[n, :], the carry before step t   (!WITH_PTR)
 //     emit_t[n, i] = logBT[ys[t, n], i]                  (EMIT_GATHER)
 //
-// Two kernels live here.
+// Three kernels live here.
 //
 // scan_persistent runs the scans: it replaces
 // flash_viterbi_tpu/ops/pallas/maxplus.py: maxplus_scan (_scan_kernel, and
@@ -14,11 +14,14 @@
 // With EMIT_GATHER the emission row of each lane is read from the (M, K)
 // table logBT by the lane's symbol, so no (T', N, K) emission buffer exists.
 //
-// scan_step is one step a launch; it runs maxplus_step_block
-// (_step_tiles_kernel), one step against a column shard logA[:, lo:lo+Kd]
-// with no emission, and the scan-ablation probe of scripts/vpu_probe.py
-// (ablation, _abl_kernel), which measures this per-step design with the
-// history write on or off and the staged chunk at 128, 256 or 512 rows.
+// step_block_kernel runs maxplus_step_block (ops/pallas/maxplus.py:720,
+// _step_tiles_kernel): one step against a column shard logA[:, lo:lo+Kd]
+// with no emission, one launch over every SM.
+//
+// scan_step is one step a launch; only the scan-ablation probe of
+// scripts/vpu_probe.py (ablation, _abl_kernel) runs it, to measure this
+// per-step design with the history write on or off and the staged chunk at
+// 128, 256 or 512 rows.
 //
 // ---- scan_persistent ----
 //
@@ -80,50 +83,87 @@
 // read with __ldcg (L2, never the non-coherent path or L1); logA, the
 // emissions and delta0 do not change and are read through __ldg.
 //
+// ---- step_block_kernel ----
+//
+// What bounds a step.  Its bytes are logA_blk's Ks x Kd floats, read once
+// (15.7 MB at Ks=3968, Kd=992; 63 MB at Kd=3968; 268 MB at Ks=16384,
+// Kd=4096), from L2 where a sharded decode's back-to-back steps leave the
+// shard there (it fits the 50 MB L2 up to Kd=1984 at Ks=3968) and from
+// device memory otherwise; at one lane that is all there is.  Its
+// operations are an add and a max per (lane, source, column): at 16 lanes
+// of Ks=3968, Kd=992 the card's add+max rate holds it to ~4.3 us, more than
+// the bytes.
+//
+// The design puts every SM on it in one launch.  The plan
+// (ops/cuda/maxplus.py:step_plan) cuts logA_blk into R source ranges x C
+// column groups of 32 x CPT columns, and the lanes into groups of up to
+// 16 (the grid's y); a tile is a block of 256 threads.  A thread owns CPT
+// neighbouring columns for every lane of its group (as in scan_persistent)
+// and each of the block's 8 warps folds one contiguous slice of the tile's
+// rows in ascending order with a strict '>': 16-byte loads of logA_blk
+// where Kd % 4 == 0 and the base is aligned (scalar ones, clamped, at the
+// ragged edge), several rows in flight a thread, the next rows' loads
+// issued before the current ones fold.  A warp stages the carry of its
+// slice in shared memory 32 rows at a time (lane-minor), each value read
+// once, the next chunk's loads in flight while one folds; no block-wide
+// barrier falls inside the fold.  The warps' partials then meet in shared
+// memory, and where R > 1 the R tiles of a column group are one
+// thread-block cluster: after one cluster barrier each CTA combines 1/R of
+// the group's entries from every CTA's shared memory and writes them out.
+// Every combine is the lexicographic one of argmax.cuh (larger value,
+// then lower index), associative and commutative, so neither the split
+// nor the order of arrival can change a bit.  No cooperative launch and no
+// scratch: the step has no grid-wide barrier to pay.  On an H100 one lane
+// streams logA_blk at 1.7-2.9 TB/s; 16 lanes fold 1.7-2.2 T cells/s, held
+// by the fold's compare-and-select chain, not by its loads (PERF.md).
+//
 // ---- scan_step ----
 //
-// One step a launch over a rectangular (Ks, Kd) logA: a block owns 32
-// destination columns for up to 16 lanes, its 16 warps split the source
-// rows, the carry slice of each source chunk is staged in shared memory and
-// read as a warp-wide broadcast.  The source dimension is not split across
-// blocks, and every step streams logA from device memory.
+// One step a launch over a (K, K) logA: a block owns 32 destination
+// columns for up to 16 lanes, its 16 warps split the source rows, the carry
+// slice of each source chunk is staged in shared memory and read as a
+// warp-wide broadcast.  The source dimension is not split across blocks,
+// and every step streams logA from device memory.
 //
-// Numerics (both): fp32 add and max only, emission added after the max,
+// Numerics (all three): fp32 add and max only, emission added after the max,
 // and the lowest-index tie rule of argmax.cuh; bit-identical to the plain
 // versions.  One kernel serves every K: ragged edges are clamped on read and
 // masked on write, so K need not be a multiple of anything.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "argmax.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int TI = 32;        // destination columns per block: one per thread of a warp
 constexpr int WK = 16;        // warps per block, splitting the source dimension
-constexpr int KC = 256;       // source rows staged per chunk (the step block's choice)
+constexpr int KC = 256;       // source rows staged per chunk (the ablation's default)
 constexpr int LMAX = 16;      // lanes per launch; more lanes go in groups of 16
 
-// What a step adds after the max: nothing (maxplus_step_block), this
-// step's (nl, Kd) emission rows, or rows of the (M, Kd) logBT gathered by
-// ys, this step's nl symbols
-enum Emit { EMIT_NONE, EMIT_ROWS, EMIT_GATHER };
+// What a step adds after the max: this step's (nl, K) emission rows, or
+// rows of the (M, K) logBT gathered by ys, this step's nl symbols (the
+// values are fixed: they appear in the kernels' names that ptxas reports)
+enum Emit { EMIT_ROWS = 1, EMIT_GATHER = 2 };
 
-// dcur (nl, Ks), logA (Ks, Kd), dnext / ptr / dhist (nl, Kd).  Only the
-// step block (EMIT_NONE) is rectangular; the ablation probe runs it at
-// Kd = Ks.  WRITE_HIST and KCH (the source rows staged a chunk) exist for
-// the scan-ablation probe (fvt_maxplus_scan_deltas_ablation).
+// dcur (nl, K), logA (K, K), dnext / ptr / dhist (nl, K).  WRITE_HIST and
+// KCH (the source rows staged a chunk) exist for the scan-ablation probe
+// (fvt_maxplus_scan_deltas_ablation).
 template <int L, bool WITH_PTR, Emit EMIT, bool WRITE_HIST = true, int KCH = KC>
 __global__ void __launch_bounds__(TI * WK)
 scan_step(const float* __restrict__ logA, const float* __restrict__ dcur,
           const float* __restrict__ emit, const int* __restrict__ ys,
           float* __restrict__ dnext, int* __restrict__ ptr,
-          float* __restrict__ dhist, int Ks, int Kd_block, int nl) {
+          float* __restrict__ dhist, int Ks, int nl) {
     constexpr int RPW = KCH / WK;  // rows of a chunk each warp takes
     static_assert(KCH % WK == 0, "chunk must split evenly across warps");
-    const int Kd = EMIT == EMIT_NONE ? Kd_block : Ks;
+    const int Kd = Ks;
     __shared__ float s_d[L][KCH];
     __shared__ float s_v[WK][TI];
     __shared__ int s_a[WK][TI];
@@ -201,35 +241,13 @@ scan_step(const float* __restrict__ logA, const float* __restrict__ dcur,
                 }
             }
             const size_t o = (size_t)n * Kd + i;
-            if (EMIT == EMIT_NONE) {
-                dnext[o] = bv;
-            } else {
-                dnext[o] = bv + (EMIT == EMIT_GATHER ? emit[(size_t)ys[n] * Kd + i] : emit[o]);
-            }
+            dnext[o] = bv + (EMIT == EMIT_GATHER ? emit[(size_t)ys[n] * Kd + i] : emit[o]);
             if (WITH_PTR) {
                 ptr[o] = ba;
             } else if (WRITE_HIST) {
                 dhist[o] = dcur[o];
             }
         }
-    }
-}
-
-template <bool WITH_PTR, Emit EMIT>
-void launch_step(int nl, dim3 grid, dim3 block, cudaStream_t stream,
-                 const float* logA, const float* dcur, const float* emit,
-                 const int* ys, float* dnext, int* ptr, float* dhist, int Ks,
-                 int Kd = 0) {
-    if (nl <= 1) {
-        scan_step<1, WITH_PTR, EMIT><<<grid, block, 0, stream>>>(logA, dcur, emit, ys, dnext, ptr, dhist, Ks, Kd, nl);
-    } else if (nl <= 2) {
-        scan_step<2, WITH_PTR, EMIT><<<grid, block, 0, stream>>>(logA, dcur, emit, ys, dnext, ptr, dhist, Ks, Kd, nl);
-    } else if (nl <= 4) {
-        scan_step<4, WITH_PTR, EMIT><<<grid, block, 0, stream>>>(logA, dcur, emit, ys, dnext, ptr, dhist, Ks, Kd, nl);
-    } else if (nl <= 8) {
-        scan_step<8, WITH_PTR, EMIT><<<grid, block, 0, stream>>>(logA, dcur, emit, ys, dnext, ptr, dhist, Ks, Kd, nl);
-    } else {
-        scan_step<16, WITH_PTR, EMIT><<<grid, block, 0, stream>>>(logA, dcur, emit, ys, dnext, ptr, dhist, Ks, Kd, nl);
     }
 }
 
@@ -269,7 +287,7 @@ int run_ablation(const float* logA, const float* emits, const float* delta0,
                          [&](int nl, const float* src, float* dst, size_t st) {
         scan_step<LMAX, false, EMIT_ROWS, WRITE_HIST, KCH><<<grid, block, 0, s>>>(
             logA, src, emits + st, nullptr, dst, nullptr,
-            WRITE_HIST ? deltas + st : nullptr, K, 0, nl);
+            WRITE_HIST ? deltas + st : nullptr, K, nl);
     });
 }
 
@@ -764,6 +782,235 @@ int run_scan(const float* logA, const float* emit, const int* ys, const float* d
     return 0;
 }
 
+// ---- the step block ----
+
+constexpr int SB_THREADS = 256;             // threads of a block (ops/cuda/maxplus.py: STEP_THREADS)
+constexpr int SB_WARPS = SB_THREADS / 32;   // warps, each folding a slice of the tile's rows
+constexpr int SB_CHUNK = 32;                // source rows whose carry a warp stages at once: one a lane
+constexpr int SB_CLUSTER_MAX = 16;          // tiles of a column group (a non-portable size above 8)
+
+// fields of the int array fvt_maxplus_step_block takes (step_plan's c_args)
+enum StepField { SF_LANES, SF_R, SF_C, SF_GROUPS, SF_COUNT };
+
+// Dynamic shared memory of a step-block tile at LG lanes: the warps' carry
+// chunks while they fold, their partials after
+template <int LG>
+__host__ __device__ constexpr int step_smem_floats() {
+    constexpr int carry = SB_WARPS * SB_CHUNK * LG;
+    constexpr int partials = 2 * SB_WARPS * LG * 32 * cols_per_thread<LG>();
+    return carry > partials ? carry : partials;
+}
+
+// One tile of the step: source range r (rows r0 .. r0 + kr) of column group
+// c (column units u0 .. u1, at most 32) for lane group blockIdx.y.  R and C
+// as in the plan; cluster rank r is blockIdx.x % R, so a cluster is the R
+// ranges of one column group.
+template <int LG>
+__global__ void __launch_bounds__(SB_THREADS, 2)
+step_block_kernel(const float* __restrict__ delta, const float* __restrict__ logA,
+                  float* __restrict__ val, int* __restrict__ ptr, int N, int Ks, int Kd, int R,
+                  int C) {
+    constexpr int CPT = cols_per_thread<LG>();
+    constexpr int UNROLL = unroll_rows<LG>();
+    constexpr int TW = 32 * CPT;  // columns of a tile at most
+    constexpr int E = LG * TW;    // (lane, column) entries of a tile, lane-major
+    static_assert(SB_CHUNK == 32, "a warp stages its carry one row a lane");
+    static_assert(SB_CHUNK % UNROLL == 0, "a chunk must hold whole groups of rows in flight");
+    extern __shared__ __align__(16) float s_buf[];  // step_smem_floats<LG>()
+    __shared__ float s_bv[E];  // the tile's partial, which the cluster reads
+    __shared__ int s_bi[E];
+
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int r = blockIdx.x % R, c = blockIdx.x / R;
+    const int g0 = blockIdx.y * LG, nl = min(LG, N - g0);
+    const int units = (Kd + CPT - 1) / CPT;
+    const int u0 = (int)((long long)c * units / C), u1 = (int)((long long)(c + 1) * units / C);
+    const int r0 = (int)((long long)r * Ks / R), kr = (int)((long long)(r + 1) * Ks / R) - r0;
+    // this warp's slice of the range
+    const int s0 = r0 + (int)((long long)w * kr / SB_WARPS);
+    const int s1 = r0 + (int)((long long)(w + 1) * kr / SB_WARPS);
+    const int col = min(u0 + lane, u1 - 1) * CPT;  // lanes past the group redo its last unit
+    const bool vec = Kd % CPT == 0 && reinterpret_cast<uintptr_t>(logA) % (CPT * 4) == 0;
+
+    float best[LG][CPT];
+    int arg[LG][CPT];
+#pragma unroll
+    for (int n = 0; n < LG; ++n) {
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+            best[n][j] = -INFINITY;
+            arg[n][j] = s1 > s0 ? s0 : INT_MAX;  // all -inf: the slice's first row; empty: identity
+        }
+    }
+    float* s_c = s_buf + w * SB_CHUNK * LG;  // this warp's carry chunk, lane-minor
+    if (s0 < s1) {
+        float nxt[UNROLL][CPT];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+            load_row<CPT>(nxt[u], logA + (size_t)min(s0 + u, s1 - 1) * Kd, col, Kd, vec);
+        }
+        // thread `lane` carries source row k0 + lane of the chunk, every lane of the group
+        float cn[LG];
+#pragma unroll
+        for (int n = 0; n < LG; ++n) {
+            cn[n] = n < nl && s0 + lane < s1 ? __ldg(delta + (size_t)(g0 + n) * Ks + s0 + lane)
+                                             : -INFINITY;
+        }
+        for (int k0 = s0; k0 < s1; k0 += SB_CHUNK) {
+            const int kend = min(k0 + SB_CHUNK, s1);
+            __syncwarp();  // the warp is done with the previous chunk
+            if constexpr (LG % 4 == 0) {
+#pragma unroll
+                for (int n = 0; n < LG; n += 4) {
+                    *reinterpret_cast<float4*>(s_c + lane * LG + n) =
+                        make_float4(cn[n], cn[n + 1], cn[n + 2], cn[n + 3]);
+                }
+            } else {
+#pragma unroll
+                for (int n = 0; n < LG; ++n) s_c[lane * LG + n] = cn[n];
+            }
+            __syncwarp();
+            if (kend < s1) {  // the next chunk's carry flies while this one folds
+#pragma unroll
+                for (int n = 0; n < LG; ++n) {
+                    cn[n] = n < nl && kend + lane < s1
+                        ? __ldg(delta + (size_t)(g0 + n) * Ks + kend + lane) : -INFINITY;
+                }
+            }
+            // whole groups of UNROLL rows with no test inside, so the
+            // compiler overlaps one row's carry reads with another's folds
+            int lr = k0;
+            for (; lr + UNROLL <= kend; lr += UNROLL) {
+                float cur[UNROLL][CPT];
+#pragma unroll
+                for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+                    for (int j = 0; j < CPT; ++j) cur[u][j] = nxt[u][j];
+                }
+                if (lr + UNROLL < s1) {
+#pragma unroll
+                    for (int u = 0; u < UNROLL; ++u) {
+                        load_row<CPT>(nxt[u], logA + (size_t)min(lr + UNROLL + u, s1 - 1) * Kd,
+                                      col, Kd, vec);
+                    }
+                }
+#pragma unroll
+                for (int u = 0; u < UNROLL; ++u) {
+                    float d[LG];
+                    load_carry<LG>(d, s_c + (lr + u - k0) * LG);
+                    fold<LG, CPT, true>(best, arg, d, cur[u], lr + u);
+                }
+            }
+            // the slice's last rows, fewer than UNROLL (kend == s1 here: a
+            // chunk before the last holds whole groups), already in nxt
+#pragma unroll
+            for (int u = 0; u < UNROLL - 1; ++u) {
+                if (lr + u < kend) {
+                    float d[LG];
+                    load_carry<LG>(d, s_c + (lr + u - k0) * LG);
+                    fold<LG, CPT, true>(best, arg, d, nxt[u], lr + u);
+                }
+            }
+        }
+    }
+
+    // the warps' partials meet: entry e = n * TW + (column within the tile)
+    __syncthreads();  // every warp is done with its carry chunks
+    float* s_pv = s_buf;
+    int* s_pi = reinterpret_cast<int*>(s_buf + SB_WARPS * E);
+#pragma unroll
+    for (int n = 0; n < LG; ++n) {
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+            s_pv[w * E + n * TW + lane * CPT + j] = best[n][j];
+            s_pi[w * E + n * TW + lane * CPT + j] = arg[n][j];
+        }
+    }
+    __syncthreads();
+    const int width = min((u1 - u0) * CPT, Kd - u0 * CPT);  // columns of this tile
+    for (int e = threadIdx.x; e < E; e += SB_THREADS) {
+        float bv = s_pv[e];
+        int ba = s_pi[e];
+#pragma unroll
+        for (int ww = 1; ww < SB_WARPS; ++ww) {
+            const float v = s_pv[ww * E + e];
+            const int a = s_pi[ww * E + e];
+            if (fvt_better(v, a, bv, ba)) {
+                bv = v;
+                ba = a;
+            }
+        }
+        const int n = e / TW, jc = e - n * TW;
+        if (R == 1) {
+            if (n < nl && jc < width) {
+                const size_t o = (size_t)(g0 + n) * Kd + u0 * CPT + jc;
+                val[o] = bv;
+                ptr[o] = ba;
+            }
+        } else {
+            s_bv[e] = bv;
+            s_bi[e] = ba;
+        }
+    }
+    if (R == 1) return;
+
+    // the R tiles of the column group meet: this CTA takes entries e0 .. e1
+    // of every CTA of the cluster
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every CTA's partial is in its shared memory
+    const int e0 = r * E / R, e1 = (r + 1) * E / R;
+    for (int e = e0 + threadIdx.x; e < e1; e += SB_THREADS) {
+        const int n = e / TW, jc = e - n * TW;
+        if (n >= nl || jc >= width) continue;
+        float bv = -INFINITY;
+        int ba = INT_MAX;
+        for (int q = 0; q < R; ++q) {
+            const float v = *cluster.map_shared_rank(s_bv + e, q);
+            const int a = *cluster.map_shared_rank(s_bi + e, q);
+            if (fvt_better(v, a, bv, ba)) {
+                bv = v;
+                ba = a;
+            }
+        }
+        const size_t o = (size_t)(g0 + n) * Kd + u0 * CPT + jc;
+        val[o] = bv;
+        ptr[o] = ba;
+    }
+    cluster.sync();  // no CTA leaves while another still reads its shared memory
+}
+
+template <int LG>
+int launch_step_block(const float* delta, const float* logA, float* val, int* ptr, int N,
+                      int Ks, int Kd, const int* plan, cudaStream_t stream) {
+    const auto kernel = step_block_kernel<LG>;
+    const int R = plan[SF_R], C = plan[SF_C];
+    if (R < 1 || R > SB_CLUSTER_MAX || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+    constexpr int smem = step_smem_floats<LG>() * 4;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(R * C, plan[SF_GROUPS]);
+    cfg.blockDim = dim3(SB_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    if (R > 1) {
+        if (R > 8) {
+            e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+            if (e != cudaSuccess) return static_cast<int>(e);
+        }
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = R;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+    }
+    e = cudaLaunchKernelEx(&cfg, kernel, delta, logA, val, ptr, N, Ks, Kd, R, C);
+    return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 }  // namespace
 
 // The whole scan, one cooperative launch.  Layouts are those of the JAX
@@ -806,25 +1053,25 @@ extern "C" int fvt_maxplus_scan_eg(const float* logA, const float* logBT, const 
 
 // One trellis step against a column shard: delta (N, Ks), logA_block
 // (Ks, Kd), both row-major; writes the pre-emission val (N, Kd) and ptr
-// (N, Kd), the lowest source row in [0, Ks) attaining each max.  One
-// launch per group of up to 16 lanes.  N, Ks, Kd >= 1.  Returns the first
-// launch error.
+// (N, Kd), the lowest source row in [0, Ks) attaining each max.  plan: the
+// SF_COUNT ints of step_plan (lanes a group, R, C, lane groups).  One
+// launch.  N, Ks, Kd >= 1.  Returns the launch error (a cluster the card
+// cannot schedule is one).
 extern "C" int fvt_maxplus_step_block(const float* delta, const float* logA_block,
-                                      float* val, int* ptr, int N, int Ks, int Kd,
-                                      void* stream, long long* launches) {
-    const dim3 block(TI, WK);
-    const dim3 grid((Kd + TI - 1) / TI);
+                                      float* val, int* ptr, const int* plan, int N, int Ks,
+                                      int Kd, void* stream, long long* launches) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    for (int g0 = 0; g0 < N; g0 += LMAX) {
-        const int nl = N - g0 < LMAX ? N - g0 : LMAX;
-        launch_step<true, EMIT_NONE>(nl, grid, block, s, logA_block,
-                                     delta + (size_t)g0 * Ks, nullptr, nullptr,
-                                     val + (size_t)g0 * Kd, ptr + (size_t)g0 * Kd,
-                                     nullptr, Ks, Kd);
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return static_cast<int>(err);
-        ++*launches;
+    int rc;
+    switch (plan[SF_LANES]) {
+        case 1: rc = launch_step_block<1>(delta, logA_block, val, ptr, N, Ks, Kd, plan, s); break;
+        case 2: rc = launch_step_block<2>(delta, logA_block, val, ptr, N, Ks, Kd, plan, s); break;
+        case 4: rc = launch_step_block<4>(delta, logA_block, val, ptr, N, Ks, Kd, plan, s); break;
+        case 8: rc = launch_step_block<8>(delta, logA_block, val, ptr, N, Ks, Kd, plan, s); break;
+        case 16: rc = launch_step_block<16>(delta, logA_block, val, ptr, N, Ks, Kd, plan, s); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
     }
+    if (rc != 0) return rc;
+    ++*launches;
     return 0;
 }
 

@@ -6,12 +6,23 @@
 // rests on, with TMA bulk copies (cp.async.bulk global -> shared,
 // completing on an mbarrier) and mbarrier phases:
 //
-//   p1  one block loops over Tm steps; step t waits for the bulk copy that
-//       step t-1 started (the barrier's phase t), writes the block out, and
-//       starts step t+1's copy into the same buffer: an identity copy.
+//   p1  an identity copy of Tm rows.  G CTAs each own a contiguous run of
+//       steps (probes/copy.py:copy_plan) and a ring of D stages, one
+//       mbarrier a stage: the copy of step t + D - 1 is issued while step t
+//       is consumed, so every wait is on a copy an earlier step started,
+//       at the phase parity of the stage's use (D = 1 where two stages do
+//       not fit: each step then waits on its own copy).  A step's row goes
+//       out by a bulk store from shared memory, and a stage is refilled
+//       only after the store has read it.
 //   p3  as p1 with B bulk copies of the step's row, issued from a loop by
 //       one thread and completing on one barrier that expects B * bytes;
 //       the kernel checks that all B buffers landed equal.
+//
+// What bounds p1 and p3: the bytes, each row read once and written once
+// (2.42 us for 255 rows of 15872 bytes at 3.35 TB/s).  One block walking
+// every step in series paid a whole copy round trip a step; spreading the
+// steps over the SMs and keeping D - 1 copies in flight a CTA leaves the
+// round trips to overlap.
 //   p4  per-thread results stored in shared memory, published by every
 //       thread's arrive on an mbarrier, and read back as block-uniform
 //       scalars: out[t, j] = t + 1.
@@ -39,46 +50,73 @@ constexpr int THREADS = 256;
 constexpr int ERR_TIMEOUT = 1;   // an mbarrier wait timed out
 constexpr int ERR_MISMATCH = 2;  // p3: a buffer differs from the first
 
-// p1 (B = 1) and p3: dst[t] = src[t] for Tm rows of n floats, each row
-// fetched into B buffers by bulk copies that the previous step started
+constexpr int STAGES_MAX = 16;  // ring stages a CTA (probes/copy.py: STAGES_MAX)
+
+// fields of the int array fvt_probe_copy_rows takes (copy_plan's c_args)
+enum CopyField { CF_CTAS, CF_STAGES, CF_COUNT };
+
+// p1 (B = 1) and p3: dst[t] = src[t] for Tm rows of n floats.  CTA g copies
+// steps t0 .. t1 of G; a step's row lands in the B buffers of stage
+// (t - t0) % D, the k-th use of that stage being its barrier's phase k.
 __global__ void __launch_bounds__(THREADS)
-copy_rows_kernel(const float* __restrict__ src, float* __restrict__ dst, int Tm, int n, int B,
-                 int* __restrict__ err) {
-    extern __shared__ __align__(16) float buf[];  // B rows of n floats
-    __shared__ uint64_t bar;
+copy_ring_kernel(const float* __restrict__ src, float* __restrict__ dst, int Tm, int n, int B,
+                 int G, int D, int* __restrict__ err) {
+    extern __shared__ __align__(128) float buf[];  // D stages of B rows of n floats
+    __shared__ uint64_t bar[STAGES_MAX];
     const int tid = threadIdx.x;
+    const int t0 = (int)((long long)blockIdx.x * Tm / G);
+    const int steps = (int)((long long)(blockIdx.x + 1) * Tm / G) - t0;
     const uint32_t bytes = (uint32_t)n * 4u;
-    if (tid == 0) fvt_bar_init(&bar, 1);
-    __syncthreads();
+    const size_t stage = (size_t)B * n;
+    // one thread issues step i's B copies into its stage
+    auto issue = [&](int i) {
+        float* s = buf + (size_t)(i % D) * stage;
+        fvt_bar_arrive_expect(&bar[i % D], bytes * B);
+        for (int b = 0; b < B; ++b) {
+            fvt_bulk_load(s + (size_t)b * n, src + (size_t)(t0 + i) * n, bytes, &bar[i % D]);
+        }
+    };
     if (tid == 0) {
-        fvt_bar_arrive_expect(&bar, bytes * B);
-        for (int b = 0; b < B; ++b) fvt_bulk_load(buf + (size_t)b * n, src, bytes, &bar);
+        for (int d = 0; d < D; ++d) fvt_bar_init(&bar[d], 1);
+        for (int i = 0; i < min(D - 1, steps); ++i) issue(i);
     }
-    for (int t = 0; t < Tm; ++t) {
-        // step t's copies are the barrier's phase t
-        if (!__syncthreads_and(fvt_bar_wait(&bar, t & 1))) {
-            if (tid == 0) atomicOr(err, ERR_TIMEOUT);
+    __syncthreads();
+    for (int i = 0; i < steps; ++i) {
+        const float* s = buf + (size_t)(i % D) * stage;
+        if (tid == 0 && i + D - 1 < steps) {
+            // the stage of step i - 1: its threads are done with it (the
+            // barrier below), and its bulk store must have read it
+            fvt_bulk_wait_read();
+            fvt_fence_proxy_async();
+            issue(i + D - 1);
+        }
+        if (!__syncthreads_and(fvt_bar_wait(&bar[i % D], (i / D) & 1))) {
+            if (tid == 0) {
+                atomicOr(err, ERR_TIMEOUT);
+                fvt_bulk_wait_all();
+            }
             return;
         }
         bool same = true;
         for (int b = 1; b < B; ++b) {
-            for (int i = tid; i < n; i += THREADS) {
-                same &= __float_as_uint(buf[(size_t)b * n + i]) == __float_as_uint(buf[i]);
+            for (int j = tid; j < n; j += THREADS) {
+                same &= __float_as_uint(s[(size_t)b * n + j]) == __float_as_uint(s[j]);
             }
         }
         if (!__syncthreads_and(same)) {
-            if (tid == 0) atomicOr(err, ERR_MISMATCH);
+            if (tid == 0) {
+                atomicOr(err, ERR_MISMATCH);
+                fvt_bulk_wait_all();
+            }
             return;
         }
-        for (int i = tid; i < n; i += THREADS) dst[(size_t)t * n + i] = buf[i];
-        __syncthreads();  // every thread is done with the buffers
-        if (tid == 0 && t + 1 < Tm) {
-            fvt_bar_arrive_expect(&bar, bytes * B);
-            for (int b = 0; b < B; ++b) {
-                fvt_bulk_load(buf + (size_t)b * n, src + (size_t)(t + 1) * n, bytes, &bar);
-            }
+        if (tid == 0) {
+            fvt_fence_proxy_async();
+            fvt_bulk_store(dst + (size_t)(t0 + i) * n, s, bytes);
+            fvt_bulk_commit();
         }
     }
+    if (tid == 0) fvt_bulk_wait_all();  // the stores are done before the CTA's memory goes
 }
 
 // p4: W <= blockDim.x per-thread results a step, double-buffered
@@ -169,18 +207,21 @@ int finish(long long* launches) {
 }  // namespace
 
 // p1 (B = 1) and p3: src and dst (Tm, n) float32, n * 4 a multiple of 16,
-// both 16-byte aligned, B * n * 4 bytes of shared memory; err one int32,
-// zero on entry, ORed with ERR_TIMEOUT / ERR_MISMATCH.  One launch of one
-// block.  Returns the launch error.
-extern "C" int fvt_probe_copy_rows(const float* src, float* dst, int Tm, int n, int B, int* err,
-                                   void* stream, long long* launches) {
-    const size_t smem = (size_t)B * n * 4;
-    const cudaError_t e = cudaFuncSetAttribute(copy_rows_kernel,
+// both 16-byte aligned; plan: the CF_COUNT ints of copy_plan (G CTAs, D
+// stages of B * n * 4 bytes of shared memory); err one int32, ORed with
+// ERR_TIMEOUT / ERR_MISMATCH.  One launch of G blocks.  Returns the launch
+// error.
+extern "C" int fvt_probe_copy_rows(const float* src, float* dst, const int* plan, int Tm, int n,
+                                   int B, int* err, void* stream, long long* launches) {
+    const int G = plan[CF_CTAS], D = plan[CF_STAGES];
+    if (G < 1 || G > Tm || D < 1 || D > STAGES_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = (size_t)D * B * n * 4;
+    const cudaError_t e = cudaFuncSetAttribute(copy_ring_kernel,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    copy_rows_kernel<<<1, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(src, dst, Tm, n, B,
-                                                                               err);
+    copy_ring_kernel<<<G, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(src, dst, Tm, n, B,
+                                                                               G, D, err);
     return finish(launches);
 }
 

@@ -6,7 +6,8 @@ Counterparts of ``flash_viterbi_tpu/ops/pallas/maxplus.py``'s
 ``maxplus_step_block``, with the same signatures and layouts.  The kernels
 are in ``csrc/maxplus_scan.cu``: the three scans run ``scan_persistent``,
 one cooperative launch a call over the tiling of :func:`scan_plan`; the
-step block runs ``scan_step``, one launch a step.
+step block runs ``step_block_kernel``, one launch a call over the tiling
+of :func:`step_plan`.
 """
 
 from __future__ import annotations
@@ -32,6 +33,17 @@ SYNC_ERR = 32        # the error word's index in a call's own barrier words
 # (63488 bytes) up, and at K=16384 from 2 lanes; at one lane of K=16384
 # (65536 bytes) the two were even (chip_smoke.py:combine_turns)
 TWO_PHASE_BYTES = 48_000
+STEP_THREADS = 256      # threads of a step-block tile (csrc: SB_THREADS)
+STEP_WARPS = STEP_THREADS // 32  # warps of a tile, each folding a slice of its rows
+STEP_UNITS = 32         # column units of a step-block tile: one a thread of a warp
+STEP_CLUSTER_MAX = 16   # source ranges of a column group: a cluster (non-portable above 8)
+STEP_MIN_ROWS = 4       # source rows a warp's slice keeps at least: small Ks takes fewer ranges
+# Tiles an SM should hold at once: one where a step is a chase of bytes (few
+# lanes), two from STEP_DENSE_LANES lanes up, where it is a chase of
+# instructions and a second block hides the first's stalls.  On an H100 at
+# Ks=3968 one lane ran fastest on 124-128 tiles (Kd = 1984, 3968) and 16
+# lanes on 248 or more (Kd = 992, 1984) (scripts/torch_step_variants.py)
+STEP_DENSE_LANES = 8
 
 
 class ScanPlan(NamedTuple):
@@ -144,6 +156,79 @@ def scan_plan(K: int, N: int, sm_count: int, smem_bytes: int = SMEM_LIMIT,
                     two_phase=two_phase, smem=carry + rows_smem * stride * 4)
 
 
+class StepPlan(NamedTuple):
+    """How the step block tiles a (Ks, Kd) ``logA_blk`` for N lanes.
+
+    The lanes go in ``groups`` groups of ``lanes`` (the last may be
+    short); tile (r, c) of a group covers the source rows ``row_edges[r]``
+    up to ``row_edges[r + 1]`` and the columns ``col_edges[c]`` up to
+    ``col_edges[c + 1]``, at most ``STEP_UNITS * cols`` of them.  A tile is
+    one block of ``STEP_THREADS`` threads: a thread owns ``cols``
+    neighbouring columns for every lane of the group, and warp w folds the
+    slice :meth:`warp_edges` of the tile's rows.  Where ``R > 1`` the R
+    tiles of a column group are one thread-block cluster that combines
+    their partials (``combine == "cluster"``); at ``R == 1`` nothing
+    combines across blocks (``"none"``)."""
+
+    lanes: int
+    cols: int
+    groups: int
+    R: int
+    C: int
+    row_edges: tuple
+    col_edges: tuple
+
+    @property
+    def combine(self) -> str:
+        return "cluster" if self.R > 1 else "none"
+
+    @property
+    def blocks(self) -> int:
+        return self.R * self.C * self.groups
+
+    def warp_edges(self, r: int) -> tuple:
+        """The first row of each warp's slice of source range r, and the
+        range's end: warp w folds rows ``e[w]`` up to ``e[w + 1]``."""
+        r0, r1 = self.row_edges[r], self.row_edges[r + 1]
+        return tuple(r0 + w * (r1 - r0) // STEP_WARPS for w in range(STEP_WARPS + 1))
+
+    def c_args(self):
+        """The int array fvt_maxplus_step_block takes (csrc: StepField)."""
+        fields = (self.lanes, self.R, self.C, self.groups)
+        return (ctypes.c_int * len(fields))(*fields)
+
+
+def step_plan(N: int, Ks: int, Kd: int, sm_count: int, R: int | None = None) -> StepPlan:
+    """The tiling of one N-lane step against a (Ks, Kd) column shard on
+    ``sm_count`` SMs.
+
+    Lanes and columns a thread owns are :func:`scan_plan`'s (4 columns at
+    up to 4 lanes, 2 at 8, 1 at 16); column groups are a warp's columns.
+    ``R`` (by default) is the number of source ranges, up to
+    ``STEP_CLUSTER_MAX`` and keeping ``STEP_MIN_ROWS`` rows a warp, that
+    spreads the blocks most evenly over the SMs' slots (one a SM below
+    ``STEP_DENSE_LANES`` lanes, two from there): the least of (blocks on
+    the busiest slot) / R, the fewest ranges among equals.  Edges split
+    evenly (``r * Ks // R``), so tiles differ by at most a row or a column
+    unit."""
+    if min(N, Ks, Kd, sm_count) < 1:
+        raise ValueError(f"need N, Ks, Kd, sm_count >= 1, got {N}, {Ks}, {Kd}, {sm_count}")
+    lanes = plan_lanes(N)
+    cols = 4 if lanes <= 4 else 2 if lanes == 8 else 1
+    units = -(-Kd // cols)
+    C = -(-units // STEP_UNITS)
+    groups = -(-N // lanes)
+    r_max = max(1, min(STEP_CLUSTER_MAX, Ks // (STEP_WARPS * STEP_MIN_ROWS)))
+    slots = sm_count * (2 if lanes >= STEP_DENSE_LANES else 1)
+    if R is None:
+        R = min(range(1, r_max + 1), key=lambda r: (-(-r * C * groups // slots) / r, r))
+    elif not 1 <= R <= min(STEP_CLUSTER_MAX, Ks):
+        raise ValueError(f"R must lie in [1, {min(STEP_CLUSTER_MAX, Ks)}], got {R}")
+    return StepPlan(lanes=lanes, cols=cols, groups=groups, R=R, C=C,
+                    row_edges=tuple(r * Ks // R for r in range(R + 1)),
+                    col_edges=tuple(min(Kd, (c * units // C) * cols) for c in range(C + 1)))
+
+
 def _check(logA, emits, delta0) -> tuple[int, int, int]:
     if emits.dim() != 3:
         raise ValueError(f"emits must be (T', N, K), got {tuple(emits.shape)}")
@@ -221,9 +306,10 @@ def sm_count(device: torch.device) -> int:
                        else torch.cuda.current_device())
 
 
-# the plan of each shape a process scans, made once (a call's host time is
-# part of its latency)
+# the plan of each shape a process scans or steps, made once (a call's host
+# time is part of its latency)
 _cached_plan = functools.lru_cache(maxsize=256)(scan_plan)
+_cached_step_plan = functools.lru_cache(maxsize=256)(step_plan)
 
 
 def error_word(device) -> torch.Tensor:
@@ -386,12 +472,15 @@ def maxplus_step_block_plain(delta, logA_block):
     return val, ptr
 
 
-def maxplus_step_block(delta: torch.Tensor, logA_block: torch.Tensor):
+def maxplus_step_block(delta: torch.Tensor, logA_block: torch.Tensor, *,
+                       plan: StepPlan | None = None):
     """One trellis step against a column shard of logA.
 
     Args:
       delta:      (N, Ks) fp32 full-source carry.
       logA_block: (Ks, Kd) fp32, a column slice ``logA[:, lo:lo+Kd]``.
+      plan:       the kernel's tiling (default: :func:`step_plan` for the
+        card); the CPU's plain version ignores it.
 
     Returns:
       (val (N, Kd) fp32 pre-emission scores,
@@ -402,10 +491,17 @@ def maxplus_step_block(delta: torch.Tensor, logA_block: torch.Tensor):
         return maxplus_step_block_plain(delta, logA_block)
     expect_contiguous(delta=delta, logA_block=logA_block)
     dev = delta.device
+    if plan is None:
+        plan = _cached_step_plan(N, Ks, Kd, sm_count(dev))
+    elif (plan.row_edges[-1], plan.col_edges[-1], plan.lanes, plan.groups) != (
+            Ks, Kd, plan_lanes(N), -(-N // plan_lanes(N))):
+        raise ValueError(f"the plan is for Ks={plan.row_edges[-1]}, Kd={plan.col_edges[-1]} "
+                         f"at {plan.groups} groups of {plan.lanes} lanes, not for N={N}, "
+                         f"Ks={Ks}, Kd={Kd}")
     val = torch.empty((N, Kd), dtype=torch.float32, device=dev)
     ptr = torch.empty((N, Kd), dtype=torch.int32, device=dev)
     launch("fvt_maxplus_step_block", maxplus_step_block, dev, delta.data_ptr(),
-           logA_block.data_ptr(), val.data_ptr(), ptr.data_ptr(), N, Ks, Kd)
+           logA_block.data_ptr(), val.data_ptr(), ptr.data_ptr(), plan.c_args(), N, Ks, Kd)
     return val, ptr
 
 

@@ -3,23 +3,29 @@ versions.
 
 Counterparts of ``scripts/beam_dma_probe.py``'s ``p1``, ``p3``, ``p4`` and
 ``p5``; the kernels are ``csrc/probe_copy.cu``.  p1 and p3 copy rows with
-TMA bulk copies that the previous step started (p3: B copies a step,
-issued from a loop onto one barrier); p4 publishes per-thread results
-through an mbarrier and reads them back as block-uniform scalars; p5 is
-the lexicographic winner of ``csrc/argmax.cuh``'s combine as a warp and
-block tournament.  Their plain versions are the identity, ``t + 1`` and
-the winner in torch.
+TMA bulk copies that an earlier step started, over the CTAs and ring
+stages of :func:`copy_plan` (p3: B copies a step, issued from a loop onto
+one barrier); p4 publishes per-thread results through an mbarrier and
+reads them back as block-uniform scalars; p5 is the lexicographic winner
+of ``csrc/argmax.cuh``'s combine as a warp and block tournament.  Their
+plain versions are the identity, ``t + 1`` and the winner in torch.
 
 Every mbarrier wait in the kernels gives up after about a second and sets
 an error flag, which the wrapper reads back (one synchronisation a call)
 and raises on, so a wrong barrier phase fails the call instead of hanging
-the card.  ``beam_dma_probe.p5`` itself cannot run: it imports
-``_lex_winner``, which ``flash_viterbi_tpu/ops/pallas/beam.py`` no longer
-has, so p5's plain version is held against the expression the TPU probe
-asserts, ``min(zip(-v, c))``.
+the card; p1 and p3 take ``err=``, a word that several calls share and
+their caller reads once (:func:`raise_on`).  ``beam_dma_probe.p5`` itself
+cannot run: it imports ``_lex_winner``, which
+``flash_viterbi_tpu/ops/pallas/beam.py`` no longer has, so p5's plain
+version is held against the expression the TPU probe asserts,
+``min(zip(-v, c))``.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,6 +34,7 @@ from ..bench.harness import device_name, marginal_time
 from ..models.hmm import resolve_device
 from ..ops.cuda.beam import SMEM_LIMIT
 from ..ops.cuda.common import expect, expect_contiguous, launch, on_cuda
+from ..ops.cuda.maxplus import sm_count
 
 # beam_dma_probe.py's fixture: Tm steps of (S, 128) float32; p3's B; p4's
 # W; p5's output width
@@ -39,9 +46,50 @@ P5_WIDTH = 128
 # bytes, a multiple of 16 as a bulk copy needs)
 BEAM_TM, BEAM_K = 255, 3968
 ERRORS = {1: "an mbarrier wait timed out", 2: "a bulk-copied buffer differs from the first"}
+STAGES_MAX = 16      # ring stages a CTA (csrc: STAGES_MAX)
+STATIC_SMEM = 8 * STAGES_MAX  # the kernel's static shared memory: a barrier a stage
 
 
-def _raise_on(err: torch.Tensor, what: str) -> None:
+class CopyPlan(NamedTuple):
+    """How p1 and p3 spread Tm steps: CTA g copies the steps
+    ``step_edges[g]`` up to ``step_edges[g + 1]`` through a ring of
+    ``stages`` stages of B rows each."""
+
+    ctas: int
+    stages: int
+    step_edges: tuple
+
+    def c_args(self):
+        """The int array fvt_probe_copy_rows takes (csrc: CopyField)."""
+        return (ctypes.c_int * 2)(self.ctas, self.stages)
+
+
+def copy_plan(Tm: int, n: int, B: int, sm_count: int, ctas: int | None = None) -> CopyPlan:
+    """The CTAs and ring stages for Tm steps of ``B`` copies of an n-float
+    row on ``sm_count`` SMs: one CTA an SM up to one a step (``ctas``
+    forces another count), each owning a contiguous run of steps, and as
+    many stages as its longest run takes, at least 2, at most what shared
+    memory holds beside the barriers (1 where two stages do not fit)."""
+    if min(Tm, n, B, sm_count) < 1:
+        raise ValueError(f"need Tm, n, B, sm_count >= 1, got {Tm}, {n}, {B}, {sm_count}")
+    G = min(Tm, sm_count) if ctas is None else ctas
+    if not 1 <= G <= Tm:
+        raise ValueError(f"ctas must lie in [1, {Tm}], got {G}")
+    if B * n * 4 > SMEM_LIMIT:
+        raise ValueError(f"{B} rows of {n * 4} bytes exceed the {SMEM_LIMIT} bytes of "
+                         f"shared memory one H100 block can use")
+    fit = max(1, (SMEM_LIMIT - STATIC_SMEM) // (B * n * 4))
+    stages = min(STAGES_MAX, fit, max(2, -(-Tm // G)))
+    return CopyPlan(ctas=G, stages=stages, step_edges=tuple(g * Tm // G for g in range(G + 1)))
+
+
+# the plan of each shape, made once (a call's host time is part of its time)
+_cached_copy_plan = functools.lru_cache(maxsize=64)(copy_plan)
+
+
+def raise_on(err: torch.Tensor, what: str) -> None:
+    """Read the error word ``err`` (a host synchronisation on the card) and
+    raise naming every bit set."""
     code = int(err.item())
     if code:
         raise RuntimeError(f"{what}: " + "; ".join(m for bit, m in ERRORS.items() if code & bit))
@@ -63,31 +111,43 @@ def _check_rows(x: torch.Tensor, nbuf: int) -> tuple[int, int]:
     return Tm, n
 
 
-def _copy_rows(counter, x: torch.Tensor, nbuf: int) -> torch.Tensor:
+def _copy_rows(counter, x: torch.Tensor, nbuf: int, plan: CopyPlan | None,
+               err: torch.Tensor | None) -> torch.Tensor:
     Tm, n = _check_rows(x, nbuf)
     if not on_cuda(x):
         return x.clone()
     expect_contiguous(x=x)
     if x.data_ptr() % 16:
         raise ValueError("x must start at a 16-byte-aligned address for a bulk copy")
+    if plan is None:
+        plan = _cached_copy_plan(Tm, n, nbuf, sm_count(x.device))
+    elif plan.step_edges[-1] != Tm or plan.stages * nbuf * n * 4 > SMEM_LIMIT:
+        raise ValueError(f"the plan is for {plan.step_edges[-1]} steps of {plan.stages} stages, "
+                         f"not for {Tm} steps of {nbuf} rows of {n * 4} bytes")
     out = torch.empty_like(x)
-    err = torch.zeros(1, dtype=torch.int32, device=x.device)
-    launch("fvt_probe_copy_rows", counter, x.device, x.data_ptr(), out.data_ptr(), Tm, n, nbuf,
-           err.data_ptr())
-    _raise_on(err, counter.__name__)
+    word = torch.zeros(1, dtype=torch.int32, device=x.device) if err is None else err
+    launch("fvt_probe_copy_rows", counter, x.device, x.data_ptr(), out.data_ptr(),
+           plan.c_args(), Tm, n, nbuf, word.data_ptr())
+    if err is None:
+        raise_on(word, counter.__name__)
     return out
 
 
-def probe_copy_p1(x: torch.Tensor) -> torch.Tensor:
+def probe_copy_p1(x: torch.Tensor, *, plan: CopyPlan | None = None,
+                  err: torch.Tensor | None = None) -> torch.Tensor:
     """p1: ``x`` (Tm, ...) float32 copied step by step, each step's row
-    bulk-copied into shared memory by the step before; returns the copy."""
-    return _copy_rows(probe_copy_p1, x, 1)
+    bulk-copied into shared memory by an earlier step; returns the copy.
+    ``plan``: the CTAs and stages (default: :func:`copy_plan` for the
+    card); ``err``: an int32 word shared by several calls, which the
+    caller reads with :func:`raise_on` (by default the call reads its own)."""
+    return _copy_rows(probe_copy_p1, x, 1, plan, err)
 
 
-def probe_copy_p3(x: torch.Tensor) -> torch.Tensor:
+def probe_copy_p3(x: torch.Tensor, *, plan: CopyPlan | None = None,
+                  err: torch.Tensor | None = None) -> torch.Tensor:
     """p3: as p1 with ``P3_B`` bulk copies of each row a step, issued from
     a loop and completing on one barrier; raises if any buffer differs."""
-    return _copy_rows(probe_copy_p3, x, P3_B)
+    return _copy_rows(probe_copy_p3, x, P3_B, plan, err)
 
 
 def probe_copy_p4_plain(Tm: int = TM, W: int = P4_W, device="cpu") -> torch.Tensor:
@@ -107,7 +167,7 @@ def probe_copy_p4(Tm: int = TM, W: int = P4_W, device="cuda") -> torch.Tensor:
     err = torch.zeros(1, dtype=torch.int32, device=out.device)
     launch("fvt_probe_copy_p4", probe_copy_p4, out.device, out.data_ptr(), Tm, W,
            err.data_ptr())
-    _raise_on(err, "probe_copy_p4")
+    raise_on(err, "probe_copy_p4")
     return out
 
 
@@ -171,22 +231,27 @@ def run(device="cuda", beam_tm: int = BEAM_TM, beam_k: int = BEAM_K) -> list[dic
     """Every probe of ``beam_dma_probe.py`` at its fixture, and p1 and p3
     also over a beam scan's rows; chains of 1 and 5 calls, one record each
     with the bytes a call must move (each input read once, each output
-    written once)."""
+    written once).  p1 and p3 share one error word, read once after their
+    chains, so no call of a chain waits for the host (as ``Tensor.copy_``
+    does not)."""
     dev = resolve_device(device)
     x, rows = fixture(device=dev), beam_rows(beam_tm, beam_k, dev)
     v, c = p5_fixture(device=dev)
-    cases = [("p1", probe_copy_p1, (x,), 2 * x.numel() * 4, 0),
-             ("p1_beam_rows", probe_copy_p1, (rows,), 2 * rows.numel() * 4, 0),
-             ("p3", probe_copy_p3, (x,), 2 * x.numel() * 4, 0),
-             ("p3_beam_rows", probe_copy_p3, (rows,), 2 * rows.numel() * 4, 0),
-             ("p4", probe_copy_p4, (TM, P4_W, dev), TM * P4_W * 4, 0),
-             ("p5", probe_copy_p5, (v, c), (v.numel() + c.numel() + 2 * P5_WIDTH) * 4,
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    shared = {"err": err}
+    cases = [("p1", probe_copy_p1, (x,), shared, 2 * x.numel() * 4, 0),
+             ("p1_beam_rows", probe_copy_p1, (rows,), shared, 2 * rows.numel() * 4, 0),
+             ("p3", probe_copy_p3, (x,), shared, 2 * x.numel() * 4, 0),
+             ("p3_beam_rows", probe_copy_p3, (rows,), shared, 2 * rows.numel() * 4, 0),
+             ("p4", probe_copy_p4, (TM, P4_W, dev), {}, TM * P4_W * 4, 0),
+             ("p5", probe_copy_p5, (v, c), {}, (v.numel() + c.numel() + 2 * P5_WIDTH) * 4,
               2 * v.numel())]
     records = []
-    for variant, fn, args, moved, ops in cases:
-        per = marginal_time(lambda k, fn=fn, args=args: (
-            lambda: [fn(*args) for _ in range(k)][-1]))
+    for variant, fn, args, kw, moved, ops in cases:
+        per = marginal_time(lambda k, fn=fn, args=args, kw=kw: (
+            lambda: [fn(*args, **kw) for _ in range(k)][-1]))
         records.append({"probe": "beam_dma_probe", "variant": variant, "kernel": fn.__name__,
                         "device": device_name(dev), "per_call_s": per, "bytes": moved,
                         "operations": ops})
+    raise_on(err, "probe_copy_p1 / probe_copy_p3")
     return records

@@ -52,8 +52,8 @@ _SIGNATURES = {
     # err, plan, Tm, N, K, stream, launches
     "fvt_maxplus_scan_eg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _IP, _I, _I,
                             _I, _P, _LL],
-    # delta, logA_block, val, ptr, N, Ks, Kd, stream, launches
-    "fvt_maxplus_step_block": [_P, _P, _P, _P, _I, _I, _I, _P, _LL],
+    # delta, logA_block, val, ptr, plan, N, Ks, Kd, stream, launches
+    "fvt_maxplus_step_block": [_P, _P, _P, _P, _IP, _I, _I, _I, _P, _LL],
     # ptrs, last, out, Tm, N, K, stream, launches
     "fvt_backtrack": [_P, _P, _P, _I, _I, _I, _P, _LL],
     # deltas, logAT, last, valid, out, err, Tm, N, K, stream, launches
@@ -76,8 +76,8 @@ _SIGNATURES = {
     "fvt_probe_beam": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _LL],
     # K, B -> bytes of shared memory fvt_probe_beam needs
     "fvt_probe_beam_smem": [_I, _I],
-    # src, dst, Tm, n, B, err, stream, launches
-    "fvt_probe_copy_rows": [_P, _P, _I, _I, _I, _P, _P, _LL],
+    # src, dst, plan, Tm, n, B, err, stream, launches
+    "fvt_probe_copy_rows": [_P, _P, _IP, _I, _I, _I, _P, _P, _LL],
     # out, Tm, W, err, stream, launches
     "fvt_probe_copy_p4": [_P, _I, _I, _P, _P, _LL],
     # v, c, n, outv, outc, width, stream, launches

@@ -4,14 +4,24 @@ checkouts in turns on one card.
 
     python3 scripts/torch_scan_turns.py CHECKOUT [CHECKOUT ...]
 
-For each CHECKOUT (a directory holding ``flash_viterbi_tpu_torch``), in
-the order given, a fresh process builds that checkout's kernels, prints
-each kernel whose ``ptxas`` report shows a spill, the registers and spill
-stores of every ``scan_step`` instantiation (as ``<L, WITH_PTR, EMIT,
-WRITE_HIST, KC>``, the last two at their defaults 1, 256 where a checkout
-predates them) and of every ``scan_persistent`` one (as ``<LG, WITH_PTR,
-EMIT>``, where the checkout has that kernel), and prints the median of 9
-CUDA-event runs of ``maxplus_scan`` (N=1, T'=255) and
+It prints the card's name and power limit first.  For each CHECKOUT (a
+directory holding ``flash_viterbi_tpu_torch``), in the order given, a fresh
+process builds that checkout's kernels, prints each kernel whose ``ptxas``
+report shows a spill, the registers and spill stores of every ``scan_step``
+instantiation (as ``<L, WITH_PTR, EMIT, WRITE_HIST, KC>``, the last two at
+their defaults 1, 256 where a checkout predates them; since the step block
+left it, the scan-ablation probe's alone), of every ``scan_persistent``
+one (as ``<LG, WITH_PTR, EMIT>``) and of every ``step_block_kernel`` one
+(as ``<LG>``), where the checkout has those kernels.  It times
+``maxplus_step_block`` at the sharded decode's shapes ((N, Ks, Kd) = (1,
+3968, 3968), (16, 3968, 992), (1, 16384, 4096), and the (1, 1, 2) and (1,
+2, 2) meshes' (1, 3968, 1984), (16, 3968, 1984), (8, 3968, 1984);
+standard normal inputs drawn on the card) three ways: the median of 9
+CUDA-event runs around one call each (the host's launch cost included),
+the device time a call of chains of 20 queued behind a sleep of the card
+(back to back, as a decode calls it), and the device time with L2 flushed
+before each call.  Then the median of 9 CUDA-event runs of
+``maxplus_scan`` (N=1, T'=255) and
 ``maxplus_scan_deltas`` (N=16, T'=16) on the headline tables (K=3965
 padded to 3968, M=50, prob=0.112, seed=1), and of both at K=16384 (N=1 and
 N=16, T'=32, standard normal tables drawn on the card); then, with the
@@ -43,7 +53,7 @@ def time_checkout(root: str) -> None:
     dev = torch.device("cuda", 0)
     build.kernels()
     fn = None
-    kernels = {"scan_step": {}, "scan_persistent": {}}
+    kernels = {"scan_step": {}, "scan_persistent": {}, "step_block_kernel": {}}
     with open(build.BUILD_LOG) as f:
         for line in f:
             m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
@@ -52,11 +62,14 @@ def time_checkout(root: str) -> None:
                 print(f"  spill in {fn}: {line.strip().split('ptxas info    : ')[-1]}")
             t = re.search(r"scan_stepILi(\d+)ELb(\d)ELNS_4EmitE(\d)E(?:Lb(\d)ELi(\d+)E)?", fn or "")
             q = re.search(r"scan_persistentILi(\d+)ELb(\d)ELNS_4EmitE(\d)E", fn or "")
+            b = re.search(r"step_block_kernelILi(\d+)E", fn or "")
             if t:
                 L, ptr, emit, write_hist, kc = t.groups()
                 name, key = "scan_step", f"<{L},{ptr},{emit},{write_hist or 1},{kc or 256}>"
             elif q:
                 name, key = "scan_persistent", "<{},{},{}>".format(*q.groups())
+            elif b:
+                name, key = "step_block_kernel", f"<{b.group(1)}>"
             else:
                 continue
             r = re.search(r"Used (\d+) registers|(\d+) bytes spill stores", line)
@@ -87,6 +100,54 @@ def time_checkout(root: str) -> None:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
+    def cold(fn, flush, reps: int = 9) -> float:
+        """Device time of a call after ``flush`` is overwritten, the runs
+        queued behind a sleep of the card so the host's launch is hidden."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(40_000_000)
+        events = []
+        for _ in range(reps):
+            flush.fill_(0.0)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            events.append((a, b))
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in events)
+
+    def queued(fn, k: int = 20, reps: int = 5) -> float:
+        """Device time a call: chains of k calls queued behind a sleep of the
+        card, so they run back to back while the host enqueues them."""
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda._sleep(40_000_000)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(k):
+                fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / k)
+        return statistics.median(times)
+
+    flush = torch.empty(32 * 2**20, device=dev)  # 128 MiB, more than the 50 MB L2
+    gs = torch.Generator(device=dev).manual_seed(992)
+    for N, Ks, Kd in ((1, 3968, 3968), (16, 3968, 992), (1, 16384, 4096), (1, 3968, 1984),
+                      (16, 3968, 1984), (8, 3968, 1984)):
+        step_in = (torch.randn((N, Ks), generator=gs, device=dev),
+                   torch.randn((Ks, Kd), generator=gs, device=dev))
+        timed = ms(lambda: k.maxplus_step_block(*step_in))
+        warm = queued(lambda: k.maxplus_step_block(*step_in))
+        flushed = cold(lambda: k.maxplus_step_block(*step_in), flush)
+        print(f"{root}: maxplus_step_block ({N}, {Ks}, {Kd}) {timed:.4f} ms a timed call, "
+              f"{warm:.4f} ms of device time back to back (queued), {flushed:.4f} ms with L2 "
+              f"flushed", flush=True)
+    del flush, step_in
     print(f"{root}: maxplus_scan N=1 T'=255 {ms(lambda: k.maxplus_scan(*scan_in)):.4f} ms; "
           f"maxplus_scan_deltas N=16 T'=16 {ms(lambda: k.maxplus_scan_deltas(*deltas_in)):.4f} ms",
           flush=True)
@@ -135,6 +196,8 @@ def main() -> None:
     if len(sys.argv) > 2 and sys.argv[1] == "--one":
         time_checkout(os.path.abspath(sys.argv[2]))
         return
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     for root in sys.argv[1:]:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root], check=True)
 

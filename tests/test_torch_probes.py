@@ -6,6 +6,7 @@ chain; and each wrapper's CUDA branch, spied on the CPU."""
 
 import functools
 import importlib.util
+import itertools
 import json
 import os
 import time
@@ -26,6 +27,7 @@ from flash_viterbi_tpu_torch.probes.__main__ import main as probes_main
 
 torch.set_num_threads(2)
 
+SMS = 132  # an H100's SMs
 SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts")
 
 
@@ -196,6 +198,56 @@ def test_copy_rows_checks():
         copy.probe_copy_p1(torch.zeros((4, 8), dtype=torch.float64))
 
 
+@pytest.mark.parametrize("B", [1, copy.P3_B])
+def test_copy_plan_takes_each_step_once_in_a_ring_that_fits(B):
+    """Every step to exactly one CTA, a contiguous run each; at least two
+    stages wherever two fit beside the barriers (one otherwise), never more
+    than shared memory holds; a row too large for a block is refused as
+    ``_check_rows`` refuses it."""
+    for Tm, n, sms in itertools.product([1, 2, 4, 255, 1000], [4, 256, 3968, 16384, 29056],
+                                        [1, 8, SMS]):
+        stage = B * n * 4
+        if stage > kbeam.SMEM_LIMIT:
+            with pytest.raises(ValueError, match="exceed"):
+                copy.copy_plan(Tm, n, B, sms)
+            with pytest.raises(ValueError, match="exceed"):
+                copy.probe_copy_p3(torch.zeros((2, n)))  # only p3's four rows exceed
+            continue
+        p = copy.copy_plan(Tm, n, B, sms)
+        assert p.ctas == min(Tm, sms) and len(p.step_edges) == p.ctas + 1
+        assert p.step_edges[0] == 0 and p.step_edges[-1] == Tm
+        assert (np.diff(p.step_edges) > 0).all()  # each step once, no idle CTA
+        assert 1 <= p.stages <= copy.STAGES_MAX
+        two_fit = 2 * stage + copy.STATIC_SMEM <= kbeam.SMEM_LIMIT
+        assert (p.stages >= 2) == two_fit
+        assert p.stages == 1 or p.stages * stage + copy.STATIC_SMEM <= kbeam.SMEM_LIMIT
+        assert list(p.c_args()) == [p.ctas, p.stages]
+    forced = copy.copy_plan(255, 3968, B, SMS, ctas=1)
+    assert forced.step_edges == (0, 255) and forced.stages == (14 if B == 1 else 3)
+    with pytest.raises(ValueError, match="ctas must lie"):
+        copy.copy_plan(4, 256, B, SMS, ctas=5)
+
+
+def test_copy_rows_cuda_branch_passes_its_plan_and_a_shared_word(monkeypatch):
+    """The C entry gets the card's plan (or the caller's) and a word of its
+    own, which the call reads, or the caller's ``err=``, which it leaves to
+    the caller; a plan of another shape is refused before the launch."""
+    calls = _fake_launches(monkeypatch, (copy,))
+    rows = copy.beam_rows(255, 3968, device="cpu")
+    copy.probe_copy_p1(rows)
+    copy.probe_copy_p3(rows, plan=copy.copy_plan(255, 3968, copy.P3_B, SMS, ctas=4))
+    assert [list(a[2]) for _, a in calls] == [[SMS, 2], [4, 3]]
+    err = torch.zeros(1, dtype=torch.int32)
+    err[0] = 1  # a word another call set: this call must not read it
+    copy.probe_copy_p1(rows, err=err)
+    assert calls[2][1][-1] == err.data_ptr()
+    with pytest.raises(RuntimeError, match="timed out"):
+        copy.raise_on(err, "probe_copy_p1")
+    with pytest.raises(ValueError, match="the plan is for"):
+        copy.probe_copy_p1(rows, plan=copy.copy_plan(254, 3968, 1, SMS))
+    assert len(calls) == 3 and probes.launch_counts()["probe_copy_p1"] == 2
+
+
 def test_marginal_time_on_a_cpu_chain():
     def chain(k):
         def f():
@@ -218,6 +270,7 @@ def _fake_launches(monkeypatch, modules):
     for mod in modules:
         monkeypatch.setattr(mod, "on_cuda", lambda *t: True)
         monkeypatch.setattr(mod, "launch", fake_launch)
+    monkeypatch.setattr(copy, "sm_count", lambda dev: SMS)
     monkeypatch.setattr(beam.build, "kernels", lambda: type(
         "Lib", (), {"fvt_probe_beam_smem": staticmethod(lambda K, B: 0)})())
     probes.reset_launches()

@@ -64,6 +64,7 @@ def test_cuda_branch_checks_and_launches(monkeypatch):
 
     monkeypatch.setattr(km, "on_cuda", lambda *t: True)
     monkeypatch.setattr(km, "launch", fake_launch)
+    monkeypatch.setattr(km, "sm_count", lambda dev: 132)
     monkeypatch.setattr(km.maxplus_step_block, "launches", 0)
     delta, logA = (torch.as_tensor(a) for a in _fixture(3, 384, 128, False))
     with pytest.raises(ValueError, match="contiguous"):
@@ -115,3 +116,34 @@ def test_sharded_hands_the_kernels_contiguous_inputs(opts, monkeypatch):
     if opts.get("use_kernel"):
         assert {"maxplus_scan", "maxplus_scan_deltas", "backtrack_batched",
                 "argmax_walk"} <= set(called)
+
+
+def test_one_launch_a_call_with_the_plan_at_the_c_entry(monkeypatch):
+    """N=20 lanes (two lane groups) make one launch, not one a group; the C
+    entry gets ``step_plan``'s ints for the card, or the caller's plan; a
+    plan of another shape is refused before any launch."""
+    calls = []
+
+    def fake_launch(fn_name, counter, device, *args):
+        calls.append((fn_name, args))
+        counter.launches += 1
+
+    monkeypatch.setattr(km, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(km, "launch", fake_launch)
+    monkeypatch.setattr(km, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(km.maxplus_step_block, "launches", 0)
+    delta, logA = (torch.as_tensor(a) for a in _fixture(20, 1000, 250, True))
+    km.maxplus_step_block(delta, logA)
+    assert km.maxplus_step_block.launches == 1
+    plan = km.step_plan(20, 1000, 250, 132)
+    ((name, args),) = calls
+    assert name == "fvt_maxplus_step_block" and args[-3:] == (20, 1000, 250)
+    assert list(args[4]) == [plan.lanes, plan.R, plan.C, plan.groups] == [16, 16, 8, 2]
+    forced = km.step_plan(20, 1000, 250, 132, R=3)
+    km.maxplus_step_block(delta, logA, plan=forced)
+    assert list(calls[1][1][4]) == [16, 3, 8, 2]
+    with pytest.raises(ValueError, match="the plan is for"):
+        km.maxplus_step_block(delta, logA, plan=km.step_plan(16, 1000, 250, 132))
+    with pytest.raises(ValueError, match="the plan is for"):
+        km.maxplus_step_block(delta, logA, plan=km.step_plan(20, 1000, 256, 132))
+    assert km.maxplus_step_block.launches == 2
