@@ -9,7 +9,7 @@ Phases, each fatal on failure:
 1. Device: the ``nvidia-smi`` name and power limit, and the torch device.
 2. Build: compile the port's CUDA sources with ``nvcc``, one process per
    source, all at once.
-3. Kernels: each of the seven kernels against its plain PyTorch version on
+3. Kernels: each of the eight kernels against its plain PyTorch version on
    the card, bit-exact (tolerance 0: the kernels use only correctly
    rounded fp32 adds, maxes and compares), at the headline shapes, at an
    unpadded K, on a fixture full of exact ties, and (the four PR 1
@@ -25,7 +25,11 @@ Phases, each fatal on failure:
    its own plan and under C=2 (chunked folds), and its full beam (B=Kp,
    T'=2), whose state takes the scratch.  The argmax walk is also held at
    the recompute batch's N = 16 and 64 lanes (T'=255, timed) and with
-   out-of-range last states; a pointer chase through 60 MiB (the pointer
+   out-of-range last states; ``fold_planes`` (lean mode's fold of pointer
+   rows into index planes) at lean phase 1's chunk of the headline (timed),
+   at its largest round's shape at T=16384 (118 planes, a row each), for
+   one step, with every plane propagating or recording, and at K=30000,
+   whose plane pair leaves shared memory; a pointer chase through 60 MiB (the pointer
    walk over a random table) gives the dependent-load latency, and the
    walks' and the beam scan's latency floors from it (T' round trips).
    The three scans are also held on a parity grid, K in (64, 1024, 3965,
@@ -66,6 +70,31 @@ Phases, each fatal on failure:
    peak allocation under 32 MiB above what was allocated before it.
 8. Batch: ``decode_batch(..., "fused")`` over 16 and 64 sequences in both
    pointer modes; every row must equal that sequence's single decode.
+8b. Lean, auto and the harness (its wall time printed):
+   the four requests through ``decode(..., "flash", mode="lean",
+   num_segments=16)`` and request 0 at ``lean_leaf=0``: each path equals
+   the C oracle or, on a mismatch only, the f32 FLASH mirror
+   (``arbitrate_flash_tie_flip`` says "mirror-exact"); request 0 equals the
+   port's CPU lean decode; ``memory:`` its analytic value; lean launches
+   only the scan, the deltas scan, the walk and ``fold_planes`` (only the
+   scan and the fold at leaf 0); each peak allocation above the tables
+   (after a warmup call, which also makes the decoder's transposed logA)
+   within ``auto.device_working_set``'s lean formula.  Lean at T=16384 on
+   the headline tables: within ``dp_divergence_tolerance_f64`` of fused's
+   path by f64 score, its peak within the formula, timed beside fused and
+   checkpoint.  docs/DESIGN.md section 1 (K=512, T=2048, seed 1, N=16):
+   lean equals the f32 mirror bit for bit, pointer mode is mirror-exact or
+   tie-equivalent, each one's positions off vanilla printed.
+   ``decode(..., "auto")`` on the four requests, T=16 and T=16384 at the
+   headline K, K=1024 at T=256, the headline under a budget one byte
+   below its choice's working set, and K=8192, T=1024 with 128 segments
+   under a budget of lean's working set, which must choose lean: each path
+   equals its chosen decoder's
+   own decode on the card, the C oracle under phase 4's rule where K^2 T
+   <= 2e10, and ``memory:`` the chosen decoder's figure.  The harness's
+   ``sweep`` at the headline over vanilla, flash, flash lean, checkpoint,
+   fused, flash_bs, beam and auto: every parity True, "mirror-exact" or
+   "tie-equivalent", every CSV header ``CSV_FIELDS``.
 9. Sharded, one rank: ``decode_batch(hmm, requests, mesh=make_mesh(1, 1,
    1), num_segments=16, device="cuda")`` on the four headline requests;
    every row must equal the C oracle under the rule of phase 4, request 0
@@ -173,6 +202,21 @@ CONFIG5_BATCH = 2
 CONFIG5_MICROBATCH = 2
 CONFIG5_MESH = (1, 1, 4)
 RANK_TIMEOUT_S = 300.0
+# lean mode's kernels at the default leaf, and at lean_leaf=0 (rounds only)
+LEAN_NEEDS = ("maxplus_scan", "maxplus_scan_deltas", "argmax_walk", "fold_planes")
+LEAN_ONLY_ROUNDS = ("maxplus_scan", "fold_planes")
+# docs/DESIGN.md section 1's tie-flip fixture (N=16): the C recursion flips 5
+DESIGN_CHECK = dict(K=512, M=50, T=2048, prob=0.112, seed=1)
+# auto's shapes beside the four headline requests: (K, T) on the headline's
+# M, prob and seed (the headline tables where K is the headline's)
+AUTO_SHAPES = ((3965, 16), (3965, 16384), (1024, 256))
+# (K, T, overrides) where a budget of lean's working set chooses lean: lean
+# leads checkpoint there, and its many short segments keep its working set
+# under fused's (auto.py's LEAN_MIN_K .. LEAN_MAX_T)
+AUTO_LEAN = (8192, 1024, {"num_segments": 128})
+# the C oracle's trellis cells at most (as the harness's _ORACLE_MAX_CELLS)
+ORACLE_MAX_CELLS = 2e10
+HARNESS_OK = (True, "mirror-exact", "tie-equivalent")
 # PR 6's first request of each decode phase read ~2x the others, after
 # seconds of host work (C oracle, CPU decodes): the phases spin the card
 # up first and time request 0 again after the others
@@ -203,6 +247,10 @@ KERNELS = {
                     "flash_viterbi_tpu/ops/pallas/backtrack.py:594"),
     "beam_scan": ("flash_viterbi_tpu_torch/csrc/beam_scan.cu",
                   "flash_viterbi_tpu/ops/pallas/beam.py:205"),
+    # not a Pallas kernel: the lax.scan that folds pointer rows into lean
+    # mode's anchor planes (and, at :401, its t2 planes)
+    "fold_planes": ("flash_viterbi_tpu_torch/csrc/fold_planes.cu",
+                    "flash_viterbi_tpu/algorithms/flash.py:190"),
 }
 # the probes' kernels (flash_viterbi_tpu_torch/probes/), the same way
 PROBE_KERNELS = {
@@ -384,9 +432,16 @@ def work_step_block(args, outs):
     return nbytes(*args, *outs), 2 * delta.shape[0] * logA_block.numel()
 
 
+def work_fold(args, outs):
+    """The fold: the planes, the pointer rows and the schedule in, the
+    planes out, each once; no arithmetic (gathers and selects)."""
+    return nbytes(*args, *outs), 0
+
+
 WORK = {"maxplus_scan": work_scan, "maxplus_scan_deltas": work_scan,
         "maxplus_scan_emitgather": work_emitgather, "maxplus_step_block": work_step_block,
-        "backtrack_batched": work_backtrack, "argmax_walk": work_walk, "beam_scan": work_beam}
+        "backtrack_batched": work_backtrack, "argmax_walk": work_walk, "beam_scan": work_beam,
+        "fold_planes": work_fold}
 
 
 def bound(moved: int, ops: int) -> tuple[float, str]:
@@ -663,6 +718,58 @@ def beam_select_checks(device, head, y) -> list[dict]:
           f"CTA); B={big}, T'=2 with its state in the scratch: all equal the plain beam scan; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return recs
+
+
+def fold_inputs(lh, y, device):
+    """fold_planes' inputs where lean mode's phase 1 gives them at the
+    headline (a chunk of LEAN_CHUNK pointer rows of the N=1 scan from step
+    c0 + 1, one row a step for all SEGMENTS - 1 anchor planes, the
+    schedule flipping from record to propagate inside it), and at its
+    largest round's shape at T=16384 (118 lanes of t2 planes, a row each)."""
+    from flash_viterbi_tpu_torch.algorithms.flash import (LEAN_CHUNK, flash_midpoints,
+                                                          prop_schedule)
+    from flash_viterbi_tpu_torch.ops import cuda as k
+
+    T = len(y)
+    c0 = 96
+    emits = lh.logB.t()[torch.as_tensor(y, dtype=torch.int64, device=device)].contiguous()
+    d0 = (lh.logPi + emits[c0])[None, :]
+    _, ptrs = k.maxplus_scan(lh.logA, emits[c0 + 1:c0 + 1 + LEAN_CHUNK].unsqueeze(1), d0)
+    mids = flash_midpoints(0, T - 1, SEGMENTS)
+    prop = torch.as_tensor(prop_schedule(mids, T, c0 + 1, c0 + 1 + LEAN_CHUNK), device=device)
+    rng = np.random.default_rng(11)
+    planes = torch.as_tensor(rng.integers(0, lh.Kp, (SEGMENTS - 1, lh.Kp)), dtype=torch.int32,
+                             device=device)
+    S = 118
+    t2 = torch.as_tensor(rng.integers(0, lh.Kp, (S, lh.Kp)), dtype=torch.int32, device=device)
+    rows = torch.as_tensor(rng.integers(0, lh.Kp, (LEAN_CHUNK, S, lh.Kp)), dtype=torch.int32,
+                           device=device)
+    rprop = torch.as_tensor(rng.random((LEAN_CHUNK, S)) < 0.5, device=device)
+    return (planes, ptrs, prop), (t2, rows, rprop)
+
+
+def fold_checks(phase1_in, round_in, device) -> list[dict]:
+    """fold_planes against its plain version beyond the headline shape: the
+    round shape, one step, every plane propagating or recording, and a K
+    whose plane pair leaves a block's shared memory (the global scratch)."""
+    from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.ops.cuda import fold as kf
+
+    planes, ptrs, prop = phase1_in
+    rng = np.random.default_rng(12)
+    Kbig, P, c = 30000, 3, 5
+    big = (torch.as_tensor(rng.integers(0, Kbig, (P, Kbig)), dtype=torch.int32, device=device),
+           torch.as_tensor(rng.integers(0, Kbig, (c, 1, Kbig)), dtype=torch.int32,
+                           device=device),
+           torch.as_tensor(rng.random((c, P)) < 0.5, device=device))
+    require(kf._smem(device.index, Kbig) == 0 < kf._smem(device.index, planes.shape[1]),
+            f"fold_planes: K={Kbig} should take the global scratch, K={planes.shape[1]} "
+            f"shared memory")
+    fixtures = [round_in, (planes, ptrs[:1], prop[:1]),
+                (planes, ptrs, torch.ones_like(prop)), (planes, ptrs, torch.zeros_like(prop)),
+                big]
+    return [compare("fold_planes", k.fold_planes, kf.fold_planes_plain, args, device)
+            for args in fixtures]
 
 
 def walk_checks(head, y, device) -> tuple[list[dict], dict]:
@@ -995,6 +1102,7 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
     from flash_viterbi_tpu_torch.ops import beam as bp
     from flash_viterbi_tpu_torch.ops import cuda as k
     from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
+    from flash_viterbi_tpu_torch.ops.cuda.fold import fold_planes_plain as fold_plain
 
     def check_eg(args, reps: int = 0) -> dict:
         return compare("maxplus_scan_emitgather", k.maxplus_scan_emitgather,
@@ -1013,8 +1121,10 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
     walk_valid = valid
     eg_in = eg_inputs(head, y, device)
     boundary, lanes16 = step_block_inputs(head, y, device)
+    fold_in, fold_round = fold_inputs(head, y, device)
     timed = (check_all(scan_in, deltas_in, valid, device, reps=9) + [check_eg(eg_in, 9)]
-             + [check_beam(beam_inputs(head, y, device), 9), check_step(boundary, 9)])
+             + [check_beam(beam_inputs(head, y, device), 9), check_step(boundary, 9),
+                compare("fold_planes", k.fold_planes, fold_plain, fold_in, device, 9)])
     config5_block = step_block_config5_inputs(device)
     shard = step_block_shard_inputs(head, y, device)
     steps = [check_step(lanes16, 9), check_step(config5_block, 9)] + [
@@ -1045,7 +1155,7 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
     print(f"maxplus_step_block: bit-exact under a plan of {many.blocks} tiles on {sms} SMs, "
           f"under a single source range, and at N={step_ties[0].shape[0]} in one launch",
           flush=True)
-    for args, r in zip([boundary, lanes16, config5_block] + shard, [timed[-1]] + steps):
+    for args, r in zip([boundary, lanes16, config5_block] + shard, [timed[-2]] + steps):
         (N, Ks), Kd = args[0].shape, args[1].shape[1]
         plan = km.step_plan(N, Ks, Kd, sms)
         queued = queued_ms(lambda: k.maxplus_step_block(*args), device)
@@ -1058,7 +1168,7 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
               f"({r['bytes']} bytes, {r['operations']} operations)", flush=True)
     walk_recs, _ = walk_checks(head, y, device)
     others += (beam_select_checks(device, head, y) + walk_recs + scan_grid_checks(device)
-               + looped_plan_checks(device))
+               + looped_plan_checks(device) + fold_checks(fold_in, fold_round, device))
     # attribution: at B=1 the fold reads one row a step, so the time is the
     # select and the step's fixed cost
     beam = shared_word(k.beam_scan, device)
@@ -1713,6 +1823,265 @@ def config5_phase(device) -> dict[str, int]:
     return launches
 
 
+def peak_run(dec, args, device):
+    """A warmup call of ``dec`` (which also makes what the decoder keeps
+    across calls, a transposed logA), then one timed call: (path, ms,
+    peak bytes allocated above what was allocated before it)."""
+    dec(*args)
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    path = dec(*args)
+    end.record()
+    end.synchronize()
+    return path, start.elapsed_time(end), torch.cuda.max_memory_allocated(device) - before
+
+
+def lean_verdict(hmm, y, path, oracle, segments: int) -> str:
+    """A lean path equals the C oracle's, or else the f32 FLASH mirror's
+    (the C recursion); the mirror runs only on a mismatch."""
+    from flash_viterbi_tpu_torch.oracle.validate import arbitrate_flash_tie_flip
+
+    if np.array_equal(path, oracle):
+        return "exact"
+    t0 = time.perf_counter()
+    verdict = arbitrate_flash_tie_flip(hmm.A, hmm.B, hmm.Pi, y, path, segments)
+    require(verdict == "mirror-exact", f"lean path differs from the C oracle at "
+            f"{int((path != oracle).sum())} positions and the mirror says {verdict!r}")
+    return (f"mirror-exact ({int((path != oracle).sum())} positions off vanilla; mirror "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+
+def only(launches: dict, names) -> None:
+    extra = {n: c for n, c in launches.items() if c and n not in names}
+    require(not extra, f"kernels outside the path launched: {extra}")
+
+
+def lean_phase(hmm, requests, oracles, device, cpu_device) -> list[dict[str, int]]:
+    """The four requests through ``decode(..., "flash", mode="lean",
+    num_segments=16)``, request 0 again at lean_leaf=0: each path equals
+    the C oracle or the f32 mirror, request 0 the CPU lean decode, memory
+    its analytic value; each peak above the tables within the working-set
+    formula.  Returns the launches."""
+    from flash_viterbi_tpu_torch import build, decode
+    from flash_viterbi_tpu_torch.algorithms.auto import device_working_set
+    from flash_viterbi_tpu_torch.algorithms.flash import _memory
+
+    K, T = hmm.K, len(requests[0])
+    spun = spin_up(device)
+    results, launches = drive(
+        f"flash lean, {len(requests)} decodes", LEAN_NEEDS,
+        lambda: [decode(hmm, y, "flash", mode="lean", num_segments=SEGMENTS, device=device)
+                 for y in requests])
+    only(launches, LEAN_NEEDS)
+    want_mem = _memory(K=K, T=T, num_segments=SEGMENTS)
+    for i, (y, r, oracle) in enumerate(zip(requests, results, oracles)):
+        verdict = lean_verdict(hmm, y, r.path, oracle, SEGMENTS)
+        require(r.memory_bytes == want_mem, f"lean request {i}: memory {r.memory_bytes}")
+        print(f"lean request {i}: {r.time_s * 1e3:.3f} ms, oracle {verdict}, memory "
+              f"{r.memory_bytes}, launches {nonzero(r.extra['launches'])}", flush=True)
+    t0 = time.perf_counter()
+    cpu = decode(hmm, requests[0], "flash", mode="lean", num_segments=SEGMENTS,
+                 device=cpu_device, warmup=False)
+    require(np.array_equal(results[0].path, cpu.path),
+            "lean request 0: the card's path differs from the CPU lean decode")
+    print(f"lean request 0 equals the CPU lean decode ({time.perf_counter() - t0:.1f} s); "
+          f"{spun}", flush=True)
+    r0, l0 = drive("flash lean lean_leaf=0, request 0", LEAN_ONLY_ROUNDS,
+                   lambda: decode(hmm, requests[0], "flash", mode="lean", lean_leaf=0,
+                                  num_segments=SEGMENTS, device=device))
+    only(l0, LEAN_ONLY_ROUNDS)
+    print(f"lean lean_leaf=0 request 0: {r0.time_s * 1e3:.3f} ms, oracle "
+          f"{lean_verdict(hmm, requests[0], r0.path, oracles[0], SEGMENTS)}", flush=True)
+    lh = tables(hmm, 128, device)
+    args = (lh.logA, lh.logB, lh.logPi,
+            torch.as_tensor(requests[0].astype(np.int64), device=device))
+    for leaf in (64, 0):
+        static = {"mode": "lean", "num_segments": SEGMENTS, "lean_leaf": leaf}
+        _, ms, peak = peak_run(build("flash", **static), args, device)
+        limit = device_working_set("flash", static, lh.Kp, T)
+        require(peak <= limit, f"lean lean_leaf={leaf}: peak +{peak} bytes above the "
+                f"tables, over the working-set formula's {limit}")
+        print(f"lean lean_leaf={leaf}: peak +{peak} bytes above the tables (formula {limit}, "
+              f"{peak / limit * 100:.1f}%), {ms:.3f} ms", flush=True)
+    return [launches, l0]
+
+
+def lean_long_phase(hmm, device) -> dict[str, int]:
+    """Lean mode at T=16384 on the headline tables: finite, within
+    dp_divergence_tolerance_f64 of fused's path by f64 score, its peak
+    within the formula; timed beside fused and checkpoint."""
+    from flash_viterbi_tpu_torch import build
+    from flash_viterbi_tpu_torch.algorithms.auto import device_working_set
+    from flash_viterbi_tpu_torch.models.generate import observations
+    from flash_viterbi_tpu_torch.oracle.validate import (dp_divergence_tolerance_f64,
+                                                         path_score_f64)
+
+    lh = tables(hmm, 128, device)
+    y = observations(LONG_T, HEADLINE["M"], seed=1)
+    args = (lh.logA, lh.logB, lh.logPi, torch.as_tensor(y.astype(np.int64), device=device))
+    lean = {"mode": "lean", "num_segments": SEGMENTS}
+    rows = {}
+
+    def run():
+        for name, static in (("flash", lean), ("fused", {}), ("checkpoint", {})):
+            rows[name] = peak_run(build(name, **static), args, device)
+
+    _, launches = drive(f"long T={LONG_T}, lean, fused and checkpoint", LEAN_NEEDS, run)
+    (path, ms, peak), fused = rows["flash"], rows["fused"]
+    p, f = path.cpu().numpy(), fused[0].cpu().numpy()
+    s_lean = path_score_f64(hmm.A, hmm.B, hmm.Pi, y, p)
+    s_fused = path_score_f64(hmm.A, hmm.B, hmm.Pi, y, f)
+    tol = dp_divergence_tolerance_f64(LONG_T, s_fused)
+    require(p.shape == (LONG_T,) and bool(((p >= 0) & (p < hmm.K)).all())
+            and np.isfinite(s_lean) and abs(s_lean - s_fused) <= tol,
+            f"lean T={LONG_T}: f64 score {s_lean} vs fused {s_fused} (tolerance {tol})")
+    limit = device_working_set("flash", lean, lh.Kp, LONG_T)
+    require(peak <= limit, f"lean T={LONG_T}: peak +{peak} bytes over the formula's {limit}")
+    print(f"long T={LONG_T}: lean {ms:.3f} ms, peak +{peak} bytes (formula {limit}, "
+          f"{peak / limit * 100:.1f}%), {int((p != f).sum())} positions off fused, f64 score "
+          f"gap {abs(s_lean - s_fused):.4g} (tolerance {tol:.4g}); fused "
+          f"{fused[1]:.3f} ms (peak +{fused[2]}), checkpoint {rows['checkpoint'][1]:.3f} ms "
+          f"(peak +{rows['checkpoint'][2]})", flush=True)
+    return launches
+
+
+def design_phase(device) -> list[dict[str, int]]:
+    """docs/DESIGN.md section 1 on the card: lean equals the f32 FLASH
+    mirror bit for bit, pointer mode is mirror-exact or tie-equivalent;
+    prints each one's positions off vanilla."""
+    from flash_viterbi_tpu_torch import decode
+    from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm
+    from flash_viterbi_tpu_torch.oracle import native, reference
+    from flash_viterbi_tpu_torch.oracle.validate import arbitrate_flash_tie_flip
+
+    hmm, y = make_sparse_hmm(**DESIGN_CHECK)
+    lean, l_launch = drive("DESIGN check, lean", LEAN_NEEDS, lambda: decode(
+        hmm, y, "flash", mode="lean", num_segments=SEGMENTS, device=device))
+    ptr, p_launch = drive("DESIGN check, pointer", ("maxplus_scan", "argmax_walk"),
+                          lambda: decode(hmm, y, "flash", num_segments=SEGMENTS, device=device))
+    t0 = time.perf_counter()
+    mirror = reference.flash(hmm.A, hmm.B, hmm.Pi, y, threads=SEGMENTS, numerics="f32")
+    mirror_s = time.perf_counter() - t0
+    require(np.array_equal(lean.path, mirror), "DESIGN check: lean differs from the f32 mirror")
+    verdict = ("mirror-exact" if np.array_equal(ptr.path, mirror)
+               else arbitrate_flash_tie_flip(hmm.A, hmm.B, hmm.Pi, y, ptr.path, SEGMENTS))
+    require(verdict in ("mirror-exact", "tie-equivalent"),
+            f"DESIGN check: pointer mode's arbiter verdict {verdict!r}")
+    vanilla = native.vanilla(hmm.A, hmm.B, hmm.Pi, y)
+    print(f"DESIGN check K={hmm.K}, T={len(y)}, N={SEGMENTS}: lean equals the f32 mirror "
+          f"({mirror_s:.1f} s), {int((lean.path != vanilla).sum())} positions off vanilla "
+          f"(the C recursion: 5); pointer {verdict}, {int((ptr.path != vanilla).sum())} "
+          f"positions off vanilla; lean {lean.time_s * 1e3:.3f} ms, pointer "
+          f"{ptr.time_s * 1e3:.3f} ms", flush=True)
+    return [l_launch, p_launch]
+
+
+def auto_phase(hmm, requests, oracles, device) -> list[dict[str, int]]:
+    """``decode(..., "auto")`` on the four headline requests, AUTO_SHAPES,
+    the headline under a budget one byte below its choice's working set,
+    and AUTO_LEAN under a budget of lean's working set: each path equals
+    its chosen decoder's own decode on the card bit for bit and the C
+    oracle under phase 4's rule where K^2 T <= ORACLE_MAX_CELLS;
+    ``memory:`` is the chosen decoder's figure at the logical K."""
+    from flash_viterbi_tpu_torch import build, decode
+    from flash_viterbi_tpu_torch.algorithms.auto import choose, device_working_set
+    from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm, observations
+    from flash_viterbi_tpu_torch.oracle import native
+
+    def problem(K, T):
+        other = hmm if K == hmm.K else make_sparse_hmm(K=K, M=HEADLINE["M"], T=T,
+                                                       prob=HEADLINE["prob"], seed=1)[0]
+        return other, observations(T, HEADLINE["M"], seed=1)
+
+    Kp = tables(hmm, 128, "cpu").Kp
+    T = len(requests[0])
+    cases = [(f"headline request {i}", hmm, y, {}, oracle)
+             for i, (y, oracle) in enumerate(zip(requests, oracles))]
+    cases += [(f"K={K} T={Tc}", *problem(K, Tc), {}, None) for K, Tc in AUTO_SHAPES]
+    budget = device_working_set(*choose(Kp, T), Kp, T) - 1
+    cases.append((f"headline request 0, budget {budget} bytes", hmm, requests[0],
+                  {"memory_budget_bytes": budget}, oracles[0]))
+    K, Tc, over = AUTO_LEAN
+    lean_hmm, lean_y = problem(K, Tc)
+    Kpl = -(-K // 128) * 128
+    budget = device_working_set("flash", {"mode": "lean", **over}, Kpl, Tc)
+    cases.append((f"K={K} T={Tc} {over}, budget {budget} bytes", lean_hmm, lean_y,
+                  {"memory_budget_bytes": budget, **over}, None))
+    all_launches = []
+    for label, prob, y, static, oracle in cases:
+        over = {k: v for k, v in static.items() if k != "memory_budget_bytes"}
+        Kpc = -(-prob.K // 128) * 128
+        name, kw = choose(Kpc, len(y), static.get("memory_budget_bytes"), static=over)
+        r, launches = drive(f"auto {label}", (), lambda: decode(prob, y, "auto", device=device,
+                                                                **static))
+        all_launches.append(launches)
+        own = decode(prob, y, name, device=device, **kw)
+        require(np.array_equal(r.path, own.path),
+                f"auto {label}: path differs from {name} {kw}'s own decode")
+        want_mem = build(name, **kw).analytic_memory(K=prob.K, T=len(y))
+        require(r.memory_bytes == want_mem, f"auto {label}: memory {r.memory_bytes} != "
+                f"{name}'s {want_mem}")
+        verdict = "not checked (K^2 T above the oracle's cells)"
+        if prob.K * prob.K * len(y) <= ORACLE_MAX_CELLS:
+            if oracle is None:
+                oracle = native.vanilla(prob.A, prob.B, prob.Pi, y)
+            verdict = oracle_verdict(prob, y, r.path, oracle, exact=False)
+        print(f"auto {label}: choose({Kpc}, {len(y)}) = {name} {kw}, {r.time_s * 1e3:.3f} ms, "
+              f"equal to {name}'s own decode ({own.time_s * 1e3:.3f} ms), oracle {verdict}, "
+              f"memory {r.memory_bytes}", flush=True)
+    require(name == "flash" and kw.get("mode") == "lean",
+            f"auto {label}: the budget chose {name} {kw}, not lean")
+    return all_launches
+
+
+def harness_phase(device) -> list[dict[str, int]]:
+    """The port's ``bench.harness.sweep`` at the headline over every
+    decoder and ``auto``, into a temporary CSV directory: every parity is
+    True, "mirror-exact" or "tie-equivalent" and every file's header is
+    CSV_FIELDS.  Returns the launches."""
+    import csv
+
+    from flash_viterbi_tpu_torch.bench.harness import CSV_FIELDS, RunConfig, sweep
+
+    base = dict(K=HEADLINE["K"], M=HEADLINE["M"], T=HEADLINE["T"], prob=HEADLINE["prob"],
+                seed=HEADLINE["seed"], device=str(device))
+    configs = [RunConfig(algorithm="vanilla", **base),
+               RunConfig(algorithm="flash", num_segments=SEGMENTS, **base),
+               RunConfig(algorithm="flash", num_segments=SEGMENTS, extra={"mode": "lean"},
+                         **base),
+               RunConfig(algorithm="checkpoint", **base), RunConfig(algorithm="fused", **base),
+               RunConfig(algorithm="flash_bs", beam_width=BEAM_WIDTH,
+                         num_segments=BEAM_SEGMENTS, **base),
+               RunConfig(algorithm="beam", beam_width=BEAM_WIDTH, **base),
+               RunConfig(algorithm="auto", **base)]
+    with tempfile.TemporaryDirectory() as csv_dir:
+        rows, launches = drive("harness sweep", ("maxplus_scan", "fold_planes", "beam_scan"),
+                               lambda: sweep(configs, csv_dir=csv_dir))
+        for name in sorted(os.listdir(csv_dir)):
+            with open(os.path.join(csv_dir, name)) as f:
+                header = next(csv.reader(f))
+            require(header == CSV_FIELDS, f"{name}: header {header}")
+    for cfg, row in zip(configs, rows):
+        require(row["parity"] in HARNESS_OK,
+                f"harness {cfg.algorithm} {cfg.extra}: parity {row['parity']!r}")
+        print("harness row: " + ",".join(str(row[k]) for k in CSV_FIELDS), flush=True)
+    return [launches]
+
+
+def lean_auto_harness_phase(hmm, requests, oracles, device, cpu_device) -> list[dict[str, int]]:
+    """Lean, auto and the harness; prints the phase's wall time."""
+    t0 = time.perf_counter()
+    launches = (lean_phase(hmm, requests, oracles, device, cpu_device)
+                + [lean_long_phase(hmm, device)] + design_phase(device)
+                + auto_phase(hmm, requests, oracles, device) + harness_phase(device))
+    print(f"lean, auto and the harness: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def headline() -> tuple:
     """(HMM, the four requests: the seed-1 sequence and
     ``observations(T, M, seed=s)`` for s in EXTRA_SEEDS)."""
@@ -1816,6 +2185,7 @@ def main() -> None:
                 + beam_phase(hmm, requests, oracles, device, cpu)
                 + [beam_large_phase(device, cpu), long_t_phase(hmm, device)]
                 + batch_phase(hmm, device))
+    launches += lean_auto_harness_phase(hmm, requests, oracles, device, cpu)
     sharded_paths, sharded_launches = sharded_phase(hmm, requests, oracles, device, cpu)
     multi_rank_phase(sharded_paths)
     launches += [sharded_launches, config5_phase(device), probe_launches]

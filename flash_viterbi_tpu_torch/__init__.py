@@ -1,16 +1,18 @@
 """flash_viterbi_tpu_torch — the FLASH Viterbi decoder on PyTorch and CUDA.
 
-A port of ``flash_viterbi_tpu`` (JAX/Pallas) that runs the FLASH
-pointer-mode, checkpoint and fused decoders, the beam family (``flash_bs``,
-``beam``) and batched decoding on an NVIDIA H100 through hand-written CUDA
-kernels, and on the CPU through their plain PyTorch versions.  It never
-imports JAX or the JAX package.
+A port of ``flash_viterbi_tpu`` (JAX/Pallas) that runs the FLASH decoder
+in pointer and lean modes, checkpoint and fused, the beam family
+(``flash_bs``, ``beam``), ``auto`` (the fastest of them for the shape, or
+the leanest under a memory budget) and batched decoding on an NVIDIA H100
+through hand-written CUDA kernels, and on the CPU through their plain
+PyTorch versions.  It never imports JAX or the JAX package.
 
 Quick start::
 
     from flash_viterbi_tpu_torch import decode, decode_batch, make_sparse_hmm
     hmm, y = make_sparse_hmm(K=512, M=50, T=256, prob=0.25, seed=1)
-    result = decode(hmm, y, algorithm="flash", num_segments=8, device="cuda")
+    result = decode(hmm, y, algorithm="auto", device="cuda")
+    lean = decode(hmm, y, algorithm="flash", mode="lean", num_segments=8, device="cuda")
     print(result.path, result.time_s, result.memory_bytes)
     beamed = decode(hmm, y, algorithm="flash_bs", beam_width=64, device="cuda")
     batch = decode_batch(hmm, [y, y], algorithm="fused", device="cuda")
@@ -21,6 +23,7 @@ imported on first use, so importing the package loads no
 ``torch.distributed`` machinery and starts no process group.
 """
 
+from .algorithms import auto as _auto  # noqa: F401
 from .algorithms import beam as _beam  # noqa: F401
 from .algorithms import checkpoint as _checkpoint  # noqa: F401
 from .algorithms import flash as _flash  # noqa: F401

@@ -61,9 +61,15 @@ class Decoder:
     def __call__(self, logA, logB, logPi, y) -> torch.Tensor:
         return self._fn(logA, logB, logPi, y)
 
-    def analytic_memory(self, K: int, T: int) -> int:
-        """Reference-style analytic working set at logical shape (K, T)."""
-        return int(self._memory_fn(K=K, T=T, **self.static))
+    def analytic_memory(self, K: int, T: int, K_padded: int | None = None) -> int:
+        """Reference-style analytic working set at logical shape (K, T).
+
+        ``K_padded`` (the device tables' state count) lets a decoder that
+        chooses by shape (``auto``) re-derive the configuration that ran,
+        chosen at the padded K, while the figure stays at the logical K.
+        Other decoders ignore it."""
+        kw = {} if K_padded is None else {"K_padded": int(K_padded)}
+        return int(self._memory_fn(K=K, T=T, **kw, **self.static))
 
 
 def build(algorithm: str, **static) -> Decoder:
@@ -145,7 +151,7 @@ def decode(
     return DecodeResult(
         path=path.cpu().numpy()[:T],
         time_s=time_s,
-        memory_bytes=dec.analytic_memory(K=K, T=T),
+        memory_bytes=dec.analytic_memory(K=K, T=T, K_padded=lh.Kp),
         algorithm=algorithm,
         extra={"K": K, "K_padded": lh.Kp, "T": T, "device": str(dev),
                "launches": launches, **dec.static},

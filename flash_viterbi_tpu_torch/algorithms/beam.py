@@ -4,8 +4,9 @@ Counterpart of ``flash_viterbi_tpu/algorithms/beam.py``: the top-B beam
 recursion over all T in one beam scan (``beam_scan``, N=1, no planes), then
 one walk of the beam-space slot pointers from slot 0, the best final state
 (``backtrack_batched`` with K = B).  O(T*B) memory.  With ``beam_width``
-at least K it equals ``vanilla``.  JAX's ``use_pallas`` switch does not
-exist here: on the card the kernel is the path.
+at least K it equals ``vanilla``.  JAX's ``use_pallas`` switch routes
+nothing here (it is recorded, as any extra keyword is): on the card the
+kernel is the path.
 """
 
 from __future__ import annotations
@@ -43,8 +44,8 @@ def _memory(K: int, T: int, beam_width: int = 64, **_) -> int:
 
 
 @register("beam")
-def _build(beam_width: int = 64) -> Decoder:
+def _build(beam_width: int = 64, **static) -> Decoder:
     def fn(logA, logB, logPi, y):
         return beam_decode(logA, logB, logPi, y, beam_width=beam_width)
 
-    return Decoder("beam", fn, {"beam_width": beam_width}, _memory)
+    return Decoder("beam", fn, {"beam_width": beam_width, **static}, _memory)

@@ -102,8 +102,8 @@ def _memory(K: int, T: int, step: int = 0, **_) -> int:
 
 
 @register("checkpoint")
-def _build(step: int = 0) -> Decoder:
+def _build(step: int = 0, **static) -> Decoder:
     def fn(logA, logB, logPi, y):
         return checkpoint_decode(logA, logB, logPi, y, step=step)
 
-    return Decoder("checkpoint", fn, {"step": step}, _memory)
+    return Decoder("checkpoint", fn, {"step": step, **static}, _memory)

@@ -17,8 +17,8 @@ The initial top-B selections are ``beam_topk``, a stable descending sort:
 the tie order of the kernel's select.  On CUDA tensors every beam scan and
 walk launches a hand-written kernel; on CPU tensors each runs its plain
 version.  Both give the path the JAX decoder gives, bit for bit.  JAX's
-``use_pallas`` switch does not exist here: on the card the kernel is the
-path.
+``use_pallas`` switch routes nothing here (it is recorded, as any extra
+keyword is): on the card the kernel is the path.
 """
 
 from __future__ import annotations
@@ -123,10 +123,10 @@ def _memory(K: int, T: int, beam_width: int = 64, num_segments: int = 8, **_) ->
 
 
 @register("flash_bs")
-def _build(beam_width: int = 64, num_segments: int = 8) -> Decoder:
+def _build(beam_width: int = 64, num_segments: int = 8, **static) -> Decoder:
     def fn(logA, logB, logPi, y):
         return flash_bs_decode(logA, logB, logPi, y, beam_width=beam_width,
                                num_segments=num_segments)
 
     return Decoder("flash_bs", fn, {"beam_width": beam_width,
-                                    "num_segments": num_segments}, _memory)
+                                    "num_segments": num_segments, **static}, _memory)

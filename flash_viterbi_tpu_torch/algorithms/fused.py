@@ -81,13 +81,14 @@ def _memory(K: int, T: int, **_) -> int:
 
 
 @register("fused")
-def _build(precision: str = "fp32", pointers: str = "auto") -> Decoder:
+def _build(precision: str = "fp32", pointers: str = "auto", **static) -> Decoder:
     """``pointers`` applies to batches (``decode_batch``); a single
-    sequence takes the route its K gives."""
+    sequence takes the route its K gives.  Other keywords are recorded in
+    ``static`` and change nothing, as in the JAX package."""
     if precision == "bf16":
         raise NotImplementedError(
             "fused precision='bf16' is not ported yet (ROADMAP.md, queue 1)")
     if precision != "fp32":
         raise ValueError(f"unknown precision {precision!r}")
     return Decoder("fused", fused_decode,
-                   {"precision": precision, "pointers": pointers}, _memory)
+                   {"precision": precision, "pointers": pointers, **static}, _memory)

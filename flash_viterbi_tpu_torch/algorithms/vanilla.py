@@ -26,5 +26,5 @@ def _memory(K: int, T: int, **_) -> int:
 
 
 @register("vanilla")
-def _build() -> Decoder:
-    return Decoder("vanilla", vanilla_decode, {}, _memory)
+def _build(**static) -> Decoder:
+    return Decoder("vanilla", vanilla_decode, static, _memory)

@@ -1,4 +1,4 @@
-"""Seeded synthetic sparse HMMs (numpy), bit-identical per seed to
+"""Seeded synthetic sparse and DAG HMMs (numpy), bit-identical per seed to
 ``flash_viterbi_tpu/models/generate.py``, which reproduces the reference
 generator's sampling (binomial out-degree, choice without replacement,
 U(0.01, 1) weights, row-normalised; B ~ U(0.1, 1) row-normalised; Pi
@@ -60,4 +60,49 @@ def make_sparse_hmm(
     if sanitize:
         bad = ~np.isfinite(A).all(axis=1)
         A[bad] = 0.0
+    return HMM(A=A, B=B, Pi=Pi), y
+
+
+def make_dag_hmm(
+    K: int, M: int, T: int, seed: int = 1, sanitize: bool = False
+) -> tuple[HMM, np.ndarray]:
+    """DAG-structured HMM (reference data_script_dag.py:46-61), bit-identical
+    per seed to ``flash_viterbi_tpu/models/generate.py``'s: edges (u, v) with
+    u < v kept from a G(n, 0.9) directed graph (networkx's where it is
+    installed, else the same sampling with Python's ``random``), weights
+    U(0, 1) from ``random``, rows normalised with NaN -> 0."""
+    _pyrandom.seed(seed)
+    y = np.array([_pyrandom.randint(0, M - 1) for _ in range(T)], dtype=np.int32)
+    try:
+        import networkx as nx
+    except ImportError:
+        nx = None
+    if nx is not None:
+        G = nx.gnp_random_graph(K, 0.9, directed=True)
+        DAG = nx.DiGraph(
+            [(u, v, {"weight": _pyrandom.uniform(0, 1)}) for (u, v) in G.edges() if u < v]
+        )
+        A = nx.to_numpy_array(DAG)
+        if A.shape[0] < K:  # isolated trailing nodes
+            Ap = np.zeros((K, K))
+            Ap[: A.shape[0], : A.shape[1]] = A
+            A = Ap
+    else:
+        A = np.zeros((K, K))
+        for u in range(K):
+            for v in range(K):
+                if u != v and _pyrandom.random() < 0.9 and u < v:
+                    A[u, v] = _pyrandom.uniform(0, 1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        if sanitize:
+            A = A / np.where(A.sum(axis=1, keepdims=True) == 0, 1.0, A.sum(axis=1, keepdims=True))
+        else:
+            # the reference divides by ``A.sum(axis=1)`` without keepdims
+            # (data_script_dag.py:54), which broadcasts over columns and
+            # overflows to 1.8e308 through nan_to_num where a row sum is 0;
+            # kept for fixture compatibility (sanitize=True for a usable HMM)
+            A = A / A.sum(axis=1)
+    A = np.nan_to_num(A)
+    B = uniform_B(M, K, seed=seed)
+    Pi = np.full(K, 1.0 / K)
     return HMM(A=A, B=B, Pi=Pi), y

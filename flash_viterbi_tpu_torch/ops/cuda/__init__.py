@@ -6,11 +6,12 @@ the kernel library is built at the first launch on a CUDA tensor.
 
 from .backtrack import argmax_walk, backtrack_batched
 from .beam import beam_scan
+from .fold import fold_planes
 from .maxplus import (maxplus_scan, maxplus_scan_deltas, maxplus_scan_emitgather,
                       maxplus_step_block)
 
 WRAPPERS = (maxplus_scan, maxplus_scan_deltas, maxplus_scan_emitgather,
-            maxplus_step_block, backtrack_batched, argmax_walk, beam_scan)
+            maxplus_step_block, backtrack_batched, argmax_walk, beam_scan, fold_planes)
 
 
 def launch_counts() -> dict[str, int]:

@@ -330,6 +330,20 @@ def raise_on_error(err: torch.Tensor, what: str) -> None:
                            f"(error word {code}); the outputs are not valid")
 
 
+def scan_scratch_bytes(K: int, N: int, device, with_ptr: bool) -> int:
+    """Bytes of scratch one N-lane scan call on ``device`` allocates beside
+    its outputs: the plan's partials (with their indices for a pointer
+    scan), a two-phase plan's carry and the barrier words.  0 on the CPU,
+    whose plain version keeps none past a step."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return 0
+    plan = _cached_plan(K, N, sm_count(dev))
+    part = 2 * plan.R * plan.lanes * K * 4
+    return (part * (2 if with_ptr else 1) + (plan.lanes * K * 4 if plan.two_phase else 0)
+            + (SYNC_ERR + 1) * 4)
+
+
 def _scan_cuda(fn_name: str, counter, inputs: dict, delta0, Tm: int,
                with_ptr: bool, plan: ScanPlan | None, err: torch.Tensor | None):
     """Launch C entry point ``fn_name`` on ``inputs`` (logA and the
@@ -355,6 +369,7 @@ def _scan_cuda(fn_name: str, counter, inputs: dict, delta0, Tm: int,
         if err.device != dev:
             raise ValueError(f"the error word is on {err.device}, the scan on {dev}")
     dfin = torch.empty((N, K), dtype=torch.float32, device=dev)
+    # the scratch scan_scratch_bytes counts
     part_v = torch.empty((2, plan.R, plan.lanes, K), dtype=torch.float32, device=dev)
     part_i = (torch.empty((2, plan.R, plan.lanes, K), dtype=torch.int32, device=dev)
               if with_ptr else None)

@@ -43,6 +43,17 @@ def maxplus_step_noptr(delta: torch.Tensor, logA: torch.Tensor, emit: torch.Tens
     return (delta[:, None] + logA).amax(dim=0) + emit
 
 
+def init_delta(logPi: torch.Tensor, logB: torch.Tensor, y0) -> torch.Tensor:
+    """delta_0 = logPi + logB[:, y_0]  (reference :142)."""
+    return logPi + logB[:, y0]
+
+
+def forced_delta(logA: torch.Tensor, logB: torch.Tensor, state, y_t) -> torch.Tensor:
+    """delta at a segment's entry, forced from the known previous state
+    (reference :147-151): logA[state, :] + logB[:, y_t]."""
+    return logA[state, :] + logB[:, y_t]
+
+
 def forward_scan(delta0: torch.Tensor, logA: torch.Tensor, emits: torch.Tensor):
     """Forward pass over ``emits`` (T', K) from ``delta0`` (K,).
 

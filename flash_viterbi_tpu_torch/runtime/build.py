@@ -42,7 +42,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 
 # C entry points: every pointer and the stream as c_void_p (a c_int would cut
 # a 64-bit address); each returns the cudaError_t of its launches, but
-# fvt_probe_beam_smem, which returns a size, and fvt_beam_scan_clusters, a count
+# fvt_probe_beam_smem and fvt_fold_planes_smem, which return a size, and
+# fvt_beam_scan_clusters, a count
 _SIGNATURES = {
     # logA, emits, delta0, dfin, ptrs, deltas, part_v, part_i, carry, count, err,
     # plan, Tm, N, K, stream, launches
@@ -62,6 +63,10 @@ _SIGNATURES = {
     # plan, Tm, N, K, B, P, stream, launches
     "fvt_beam_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _I, _P,
                       _LL],
+    # planes, rows, prop, out, scratch, c, R, P, K, stream, launches
+    "fvt_fold_planes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _LL],
+    # K -> bytes of shared memory fvt_fold_planes takes (0: global scratch)
+    "fvt_fold_planes_smem": [_I],
     # plan -> clusters of its size and shared memory the card keeps resident
     # (negative: a CUDA error)
     "fvt_beam_scan_clusters": [_IP],

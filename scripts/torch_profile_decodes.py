@@ -5,18 +5,23 @@
 
 On the headline problem (K=3965 padded to 3968, M=50, T=256, prob=0.112,
 seed=1), for each of ``flash`` (16 segments), ``checkpoint``, ``fused``,
-``flash_bs`` (B=64, 8 segments), ``beam`` (B=64) and the recompute batch
+``flash_bs`` (B=64, 8 segments), ``beam`` (B=64), ``flash`` lean (16
+segments, lean_leaf 64 and 0), ``auto`` and the recompute batch
 (``fused_decode_batch(..., pointers="recompute")`` over the 16 sequences
 ``observations(256, 50, seed=s)``, s = 1..16): the wall time of one decode
 (median of 10 CUDA-event timings of one synchronized decode after a
 warmup), then torch.profiler over 3 decodes: each kernel's device time and
 launches a decode, the device's busy time (the sum of every kernel's) and
-its idle share of the wall time.  For
-``flash`` and ``checkpoint``, whose scans share one error word read once a
-decode, also the wall time in turns against the same decode with every
-scan reading its own word (a host synchronisation a scan): shared, per
-scan, per scan, shared.  Prints the card's name and power limit first.  Fails when the profiler
-records no device time.  Needs the card.
+its idle share of the wall time.  For ``flash`` and ``checkpoint``, whose
+scans share one error word read once a decode, also the wall time in turns
+against the same decode with every scan reading its own word (a host
+synchronisation a scan): shared, per scan, per scan, shared.  Then at
+T=16384 (``observations(16384, 50, seed=1)``, the same tables): ``flash``
+lean, ``fused`` and ``checkpoint`` the same way, and lean mode with its
+anchor and t2 folds run as the plain version's gathers and selects (a
+launch or more a row) instead of the ``fold_planes`` kernel.  Prints the
+card's name and power limit first.  Fails when the profiler records no
+device time.  Needs the card.
 """
 
 from __future__ import annotations
@@ -38,9 +43,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from flash_viterbi_tpu_torch import build  # noqa: E402
 from flash_viterbi_tpu_torch.algorithms.fused import fused_decode_batch  # noqa: E402
 from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm, observations  # noqa: E402
+from flash_viterbi_tpu_torch.ops.cuda.fold import fold_planes_plain  # noqa: E402
 
 DECODERS = (("flash", {"num_segments": 16}), ("checkpoint", {}), ("fused", {}),
-            ("flash_bs", {"beam_width": 64, "num_segments": 8}), ("beam", {"beam_width": 64}))
+            ("flash_bs", {"beam_width": 64, "num_segments": 8}), ("beam", {"beam_width": 64}),
+            ("flash", {"num_segments": 16, "mode": "lean"}),
+            ("flash", {"num_segments": 16, "mode": "lean", "lean_leaf": 0}), ("auto", {}))
+LONG_T = 16384
+LONG_DECODERS = (("flash", {"num_segments": 16, "mode": "lean"}), ("fused", {}),
+                 ("checkpoint", {}))
 BATCH = 16
 REPS = 3
 
@@ -56,6 +67,19 @@ def wall_ms(fn, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def plain_folds():
+    """Inside, lean mode folds its pointer rows with the plain version's
+    gathers and selects, not the fold_planes kernel."""
+    mod = importlib.import_module("flash_viterbi_tpu_torch.algorithms.flash")
+    saved = mod.fold_planes
+    mod.fold_planes = fold_planes_plain
+    try:
+        yield
+    finally:
+        mod.fold_planes = saved
 
 
 @contextlib.contextmanager
@@ -82,38 +106,58 @@ def main() -> None:
                          check=True, capture_output=True, text=True).stdout.strip(), flush=True)
     ys = torch.as_tensor(np.stack([observations(256, 50, seed=s) for s in range(1, BATCH + 1)]),
                          dtype=torch.int64, device=dev)
-    runs = [(name, functools.partial(build(name, **static), lh.logA, lh.logB, lh.logPi, yd))
+    def label(name, static):
+        return " ".join([name] + [f"{k}={v}" for k, v in static.items()])
+
+    runs = [(label(name, static), contextlib.nullcontext,
+             functools.partial(build(name, **static), lh.logA, lh.logB, lh.logPi, yd))
             for name, static in DECODERS]
-    runs.append((f"recompute batch Bs={BATCH}", functools.partial(
+    runs.append((f"recompute batch Bs={BATCH}", contextlib.nullcontext, functools.partial(
         fused_decode_batch, lh.logA, lh.logB, lh.logPi, ys, pointers="recompute")))
-    for name, run in runs:
-        run()
+    y_long = torch.as_tensor(observations(LONG_T, 50, seed=1).astype(np.int64), device=dev)
+    for name, static in LONG_DECODERS:
+        runs.append((f"T={LONG_T} {label(name, static)}", contextlib.nullcontext,
+                     functools.partial(build(name, **static), lh.logA, lh.logB, lh.logPi,
+                                       y_long)))
+    runs.append((f"T={LONG_T} flash lean, folds as gathers and selects", plain_folds,
+                 functools.partial(build("flash", num_segments=16, mode="lean"),
+                                   lh.logA, lh.logB, lh.logPi, y_long)))
+    for name, ctx, run in runs:
+        with ctx():
+            profile_one(name, run)
+
+
+def profile_one(name: str, run) -> None:
+    """Print ``run``'s wall time, its kernels' device time and launches a
+    decode, and the device's idle share (see the module's docstring)."""
+    run()
+    torch.cuda.synchronize()
+    wall = wall_ms(run)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            run()
         torch.cuda.synchronize()
-        wall = wall_ms(run)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        sys.exit(f"{name}: the profiler recorded no device time")
+    busy = sum(e.self_device_time_total for e in kernels) / REPS / 1e3
+    print(f"{name}: wall {wall:.3f} ms a decode; device busy {busy:.3f} ms; idle "
+          f"{wall - busy:.3f} ms ({(wall - busy) / wall * 100:.1f}%)", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
+        print(f"  {e.self_device_time_total / REPS / 1e3:8.3f} ms  {e.count / REPS:6.1f} "
+              f"launches  {e.key[:110]}", flush=True)
+    decoder = name.split()[0]
+    if name in ("flash num_segments=16", "checkpoint"):
+        turns = {"shared": [], "per scan": []}
+        for which in ("shared", "per scan", "per scan", "shared"):
+            with per_scan_reads(decoder) if which == "per scan" else contextlib.nullcontext():
                 run()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0]
-        if not kernels:
-            sys.exit(f"{name}: the profiler recorded no device time")
-        busy = sum(e.self_device_time_total for e in kernels) / REPS / 1e3
-        print(f"{name}: wall {wall:.3f} ms a decode; device busy {busy:.3f} ms; idle "
-              f"{wall - busy:.3f} ms ({(wall - busy) / wall * 100:.1f}%)", flush=True)
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
-            print(f"  {e.self_device_time_total / REPS / 1e3:8.3f} ms  {e.count / REPS:6.1f} "
-                  f"launches  {e.key[:110]}", flush=True)
-        if name in ("flash", "checkpoint"):
-            turns = {"shared": [], "per scan": []}
-            for which in ("shared", "per scan", "per scan", "shared"):
-                with per_scan_reads(name) if which == "per scan" else contextlib.nullcontext():
-                    run()
-                    turns[which].append(wall_ms(run))
-            print(f"{name}: one error word a decode {statistics.mean(turns['shared']):.3f} ms, "
-                  f"one read a scan {statistics.mean(turns['per scan']):.3f} ms; in turns "
-                  f"{turns}", flush=True)
+                turns[which].append(wall_ms(run))
+        print(f"{name}: one error word a decode {statistics.mean(turns['shared']):.3f} ms, "
+              f"one read a scan {statistics.mean(turns['per scan']):.3f} ms; in turns "
+              f"{turns}", flush=True)
 
 
 if __name__ == "__main__":

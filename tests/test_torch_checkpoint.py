@@ -143,5 +143,10 @@ def test_snapshot_step_and_memory_match_jax():
 
 
 def test_use_pallas_is_not_an_option():
-    with pytest.raises(TypeError):
-        tfv.build("checkpoint", use_pallas=False)
+    """JAX's use_pallas is recorded, as every extra keyword is, and routes
+    nothing: the path is the same."""
+    hmm, y = tfv.make_sparse_hmm(K=40, M=5, T=30, prob=0.3, seed=2)
+    got = tfv.decode(hmm, y, "checkpoint", use_pallas=False, device="cpu", warmup=False)
+    assert got.extra["use_pallas"] is False
+    np.testing.assert_array_equal(
+        got.path, tfv.decode(hmm, y, "checkpoint", device="cpu", warmup=False).path)

@@ -91,15 +91,15 @@ def test_padding_invariance_and_logHMM_input():
 
 def test_unported_options_and_unknown_names_raise():
     hmm, y = tfv.make_sparse_hmm(K=16, M=3, T=8, prob=0.5, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfv.decode(hmm, y, "flash", mode="lean", device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        tfv.decode(hmm, y, "flash", mode="fast", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfv.decode(hmm, y, "flash", precision="bf16", device="cpu")
     with pytest.raises(KeyError):
         tfv.decode(hmm, y, "sieve_mp", device="cpu")
     with pytest.raises(ValueError):
         tfv.decode(hmm, y, "flash", device="meta")
-    assert tfv.available_algorithms() == ["beam", "checkpoint", "flash", "flash_bs",
+    assert tfv.available_algorithms() == ["auto", "beam", "checkpoint", "flash", "flash_bs",
                                           "fused", "vanilla"]
 
 
@@ -123,6 +123,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "flash_viterbi_tpu_torch.parallel.multihost, "
             "flash_viterbi_tpu_torch.parallel.commtrace, "
             "flash_viterbi_tpu_torch.bench.harness, flash_viterbi_tpu_torch.probes, "
+            "flash_viterbi_tpu_torch.algorithms.auto, flash_viterbi_tpu_torch.oracle.reference, "
+            "flash_viterbi_tpu_torch.utils.io, flash_viterbi_tpu_torch.ops.cuda.fold, "
             "flash_viterbi_tpu_torch.probes.alu, flash_viterbi_tpu_torch.probes.scan, "
             "flash_viterbi_tpu_torch.probes.beam, flash_viterbi_tpu_torch.probes.copy, "
             "flash_viterbi_tpu_torch.probes.__main__; "

@@ -156,6 +156,12 @@ def test_memory_matches_jax():
 
 
 def test_use_pallas_is_not_an_option():
+    """JAX's use_pallas is recorded, as every extra keyword is, and routes
+    nothing: the path is the same."""
+    hmm, y = tfv.make_sparse_hmm(K=40, M=5, T=30, prob=0.3, seed=2)
     for algorithm in ("flash_bs", "beam"):
-        with pytest.raises(TypeError):
-            tfv.build(algorithm, use_pallas=False)
+        got = tfv.decode(hmm, y, algorithm, beam_width=8, use_pallas=False, device="cpu",
+                         warmup=False)
+        assert got.extra["use_pallas"] is False
+        np.testing.assert_array_equal(got.path, tfv.decode(
+            hmm, y, algorithm, beam_width=8, device="cpu", warmup=False).path)

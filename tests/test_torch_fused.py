@@ -145,5 +145,9 @@ def test_unported_options_raise():
         tfv.decode_batch(hmm, ys, "fused", precision="bf16", device="cpu")
     with pytest.raises(ValueError, match="pointers"):
         tfv.decode_batch(hmm, ys, "fused", pointers="both", device="cpu")
-    with pytest.raises(TypeError):
-        tfv.build("fused", use_pallas=True)
+    # JAX's use_pallas is recorded only (every decoder records its extra
+    # keywords) and routes nothing
+    assert tfv.build("fused", use_pallas=True).static["use_pallas"] is True
+    np.testing.assert_array_equal(
+        tfv.decode(hmm, ys[0], "fused", use_pallas=True, device="cpu").path,
+        tfv.decode(hmm, ys[0], "fused", device="cpu").path)
