@@ -8,7 +8,10 @@ Phases, each fatal on failure:
 
 1. Device: the ``nvidia-smi`` name and power limit, and the torch device.
 2. Build: compile the port's CUDA sources with ``nvcc``, one process per
-   source, all at once.
+   source, all at once.  Then three worker processes start (this script
+   with ``--cpu-witness``, no card visible, 2 threads each) that make the
+   port's CPU decodes phases 4 and 8c hold the card's paths to, and the
+   SIEVE mirror fixtures' oracles, while the card's phases run.
 3. Kernels: each of the eight kernels against its plain PyTorch version on
    the card, bit-exact (tolerance 0: the kernels use only correctly
    rounded fp32 adds, maxes and compares), at the headline shapes, at an
@@ -95,6 +98,23 @@ Phases, each fatal on failure:
    ``sweep`` at the headline over vanilla, flash, flash lean, checkpoint,
    fused, flash_bs, beam and auto: every parity True, "mirror-exact" or
    "tie-equivalent", every CSV header ``CSV_FIELDS``.
+8c. SIEVE (its wall time printed): the four requests through ``decode(...,
+   "sieve_mp")`` and ``decode(..., "sieve_bs_mp", beam_width=64)``, and
+   request 0 at ``prune=False``: request 0 of each equals the port's CPU
+   decode bit for bit (its host time in the witness printed), ``memory:`` its analytic
+   value; each path's positions off the C vanilla oracle and f64 score
+   are printed as information (the right child's re-argmax may score
+   -inf), and request 0's peak allocation above the tables beside the
+   analytic figure.  ``sieve_mp``
+   launches only the scan and ``fold_planes``, ``sieve_bs_mp`` only the
+   scan.  Mirror fixtures (the headline's M, prob, seed and T at K=1024
+   for ``sieve_mp``, K=512 for ``sieve_bs_mp``, the harness's
+   ``_MIRROR_MAX_K``): each path equals its copied oracle.  A tie
+   fixture (``make_tie_hmm``: uniform rows, an all -inf column, K=300,
+   T=64) equals the CPU decode and the oracles.  The scan at every lane count 1..128 a headline
+   level gives and at 8192 lanes (T=16384's deepest level) equals its
+   plain version, all -inf columns pointing at 0.  The harness's ``sweep``
+   at the mirror fixtures: parity True, headers ``CSV_FIELDS``.
 9. Sharded, one rank: ``decode_batch(hmm, requests, mesh=make_mesh(1, 1,
    1), num_segments=16, device="cuda")`` on the four headline requests;
    every row must equal the C oracle under the rule of phase 4, request 0
@@ -156,6 +176,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -217,6 +238,27 @@ AUTO_LEAN = (8192, 1024, {"num_segments": 128})
 # the C oracle's trellis cells at most (as the harness's _ORACLE_MAX_CELLS)
 ORACLE_MAX_CELLS = 2e10
 HARNESS_OK = (True, "mirror-exact", "tie-equivalent")
+# the SIEVE decoders' kernels, and their oracles' largest K (the harness's
+# _MIRROR_MAX_K): the mirror fixtures are the headline's M, prob, seed and T
+SIEVE_NEEDS = {"sieve_mp": ("maxplus_scan", "fold_planes"), "sieve_bs_mp": ("maxplus_scan",)}
+SIEVE_MIRROR_K = {"sieve_mp": 1024, "sieve_bs_mp": 512}
+SIEVE_STATIC = {"sieve_mp": {}, "sieve_bs_mp": {"beam_width": BEAM_WIDTH}}
+# the port's CPU decodes that the card's headline paths are held to bit for
+# bit, and the SIEVE mirror fixtures' oracles (request None), made by
+# worker processes (``witness_main``) while the card's phases run: (tag,
+# decoder, request, static keywords) a worker, in the order the phases read
+# them.  The CPU decodes gain little from more threads (the plain scan goes
+# a lane at a time): three workers of 2 threads each, to finish before the
+# phases that read them
+WITNESS_JOBS = (
+    tuple((f"flash{i}", "flash", i, {"num_segments": SEGMENTS})
+          for i in range(1 + len(EXTRA_SEEDS)))
+    + tuple((f"mirror_{name}", name, None, SIEVE_STATIC[name]) for name in SIEVE_MIRROR_K),
+    (("sieve_mp", "sieve_mp", 0, {}),),
+    (("sieve_bs_mp", "sieve_bs_mp", 0, SIEVE_STATIC["sieve_bs_mp"]),
+     ("sieve_mp_unpruned", "sieve_mp", 0, {"prune": False})))
+WITNESS_THREADS = 2
+WITNESS_TIMEOUT_S = 600.0
 # PR 6's first request of each decode phase read ~2x the others, after
 # seconds of host work (C oracle, CPU decodes): the phases spin the card
 # up first and time request 0 again after the others
@@ -1461,9 +1503,10 @@ def oracle_verdict(hmm, y, path, oracle, exact: bool) -> str:
             f"f64 score gap {abs(s_got - s_ref):.3g})")
 
 
-def slice_phase(hmm, requests, oracles, device, cpu_device) -> dict[str, int]:
-    """Decode every request with FLASH on ``device``; check against the CPU
-    decode, the C oracle and the analytic memory; return the launches."""
+def slice_phase(hmm, requests, oracles, device, witness) -> dict[str, int]:
+    """Decode every request with FLASH on ``device``; check each against
+    the port's CPU decode (from ``witness``), the C oracle and the analytic
+    memory; return the launches."""
     from flash_viterbi_tpu_torch import decode
     from flash_viterbi_tpu_torch.algorithms.flash import _memory
 
@@ -1476,9 +1519,8 @@ def slice_phase(hmm, requests, oracles, device, cpu_device) -> dict[str, int]:
                  for y in requests])
     want_mem = _memory(K=K, T=T, num_segments=SEGMENTS)
     for i, (y, r, oracle) in enumerate(zip(requests, results, oracles)):
-        cpu = decode(hmm, y, "flash", num_segments=SEGMENTS, device=cpu_device,
-                     warmup=False)
-        require(np.array_equal(r.path, cpu.path),
+        cpu_path, cpu_s = witness.get(f"flash{i}")
+        require(np.array_equal(r.path, cpu_path),
                 f"request {i}: {device} path differs from the CPU decode")
         verdict = oracle_verdict(hmm, y, r.path, oracle, exact=i == 0)
         require(r.memory_bytes == want_mem,
@@ -1487,7 +1529,7 @@ def slice_phase(hmm, requests, oracles, device, cpu_device) -> dict[str, int]:
                 f"request {i}: path out of range")
         print(f"request {i}: time_s {r.time_s:.6f}, "
               f"{K * K * T / r.time_s / 1e9:.2f} G updates/s, oracle {verdict}, "
-              f"cpu decode {cpu.time_s:.2f} s, memory {r.memory_bytes}, "
+              f"cpu decode {cpu_s:.2f} s (witness), memory {r.memory_bytes}, "
               f"launches {nonzero(r.extra['launches'])}", flush=True)
     again = decode(hmm, requests[0], "flash", num_segments=SEGMENTS, device=device)
     print(f"flash request 0 again after the others: {again.time_s * 1e3:.3f} ms (first read "
@@ -1739,6 +1781,75 @@ def run_ranks(job: dict) -> tuple[list[dict], float]:
             rec["paths"] = np.load(os.path.join(out, f"rank{r}.npy"))
             recs.append(rec)
     return recs, wall
+
+
+class Witness:
+    """The worker processes that make WITNESS_JOBS on the host
+    (``witness_main``: this script with ``--cpu-witness``, no card
+    visible) while the card's phases run."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="fvt_witness_")
+        self.waited = 0.0
+        self.worker = {tag: k for k, jobs in enumerate(WITNESS_JOBS) for tag, *_ in jobs}
+        self.logs = [open(os.path.join(self.dir, f"log{k}"), "w")
+                     for k in range(len(WITNESS_JOBS))]
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-witness", self.dir, str(k)],
+            stdout=log, stderr=subprocess.STDOUT, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+            for k, log in enumerate(self.logs)]
+
+    def get(self, tag: str) -> tuple[np.ndarray, float]:
+        """(``tag``'s path, the seconds its worker took for it), waiting
+        for it; raises with the worker's log if it failed or took too long."""
+        k = self.worker[tag]
+        rec = os.path.join(self.dir, f"{tag}.json")
+        t0 = time.perf_counter()
+        while not os.path.exists(rec):
+            waited = time.perf_counter() - t0
+            if self.procs[k].poll() is not None or waited > WITNESS_TIMEOUT_S:
+                self.logs[k].flush()
+                with open(os.path.join(self.dir, f"log{k}")) as f:
+                    tail = f.read()[-3000:]
+                raise RuntimeError(f"CPU witness {k} has no {tag!r} (exit code "
+                                   f"{self.procs[k].poll()}, waited {waited:.0f} s): {tail}")
+            time.sleep(0.1)
+        self.waited += time.perf_counter() - t0
+        with open(rec) as f:
+            secs = json.load(f)["s"]
+        return np.load(os.path.join(self.dir, f"{tag}.npy")), secs
+
+    def stop(self) -> None:
+        for proc, log in zip(self.procs, self.logs):
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def witness_main(outdir: str, k: str) -> None:
+    """``Witness`` worker ``k``: its WITNESS_JOBS, each the port's CPU
+    decode of a headline request or (request None) the SIEVE decoder's
+    oracle at its mirror fixture; each path saved as ``<tag>.npy`` and its
+    seconds as ``<tag>.json``, which is renamed into place last."""
+    from flash_viterbi_tpu_torch import decode
+    from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm
+
+    torch.set_num_threads(WITNESS_THREADS)
+    hmm, requests = headline()
+    for tag, name, i, static in WITNESS_JOBS[int(k)]:
+        t0 = time.perf_counter()
+        if i is None:
+            path = sieve_mirror(name, *make_sparse_hmm(**dict(HEADLINE, K=SIEVE_MIRROR_K[name])))
+        else:
+            path = decode(hmm, requests[i], name, device="cpu", warmup=False, **static).path
+        secs = time.perf_counter() - t0
+        np.save(os.path.join(outdir, f"{tag}.npy"), np.asarray(path))
+        with open(os.path.join(outdir, f"{tag}.part"), "w") as f:
+            json.dump({"s": secs}, f)
+        os.replace(os.path.join(outdir, f"{tag}.part"), os.path.join(outdir, f"{tag}.json"))
+        print(f"{tag}: {secs:.1f} s", flush=True)
 
 
 def check_ranks(label: str, recs: list[dict], want: np.ndarray, wall: float) -> None:
@@ -2082,6 +2193,157 @@ def lean_auto_harness_phase(hmm, requests, oracles, device, cpu_device) -> list[
     return launches
 
 
+def sieve_mirror(name: str, hmm, y) -> np.ndarray:
+    """The copied oracle of SIEVE decoder ``name`` at SIEVE_STATIC's
+    options: SIEVE-Mp in fp32 numerics, or the fp32 SIEVE-BS-Mp mirror."""
+    from flash_viterbi_tpu_torch.oracle import framework
+    from flash_viterbi_tpu_torch.oracle.sieve import sieve_mp
+
+    if name == "sieve_mp":
+        return sieve_mp(hmm.A, hmm.B, hmm.Pi, y, numerics="f32")
+    return framework.sieve_bs_mp(hmm.A, hmm.B, hmm.Pi, y, **SIEVE_STATIC[name])
+
+
+def sieve_lane_checks(device) -> None:
+    """The scan at every lane count a headline SIEVE level gives (1 to
+    T/2 = 128, two steps) and at T=16384's deepest level (8192 lanes, one
+    step), at the headline's Kp, against its plain version; masked lanes carry whole
+    -inf columns, whose pointer must be 0 (jnp.argmax's)."""
+    from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
+
+    Kp = -(-HEADLINE["K"] // 128) * 128
+    g = torch.Generator(device=device).manual_seed(3)
+    logA = torch.randn((Kp, Kp), generator=g, device=device)
+    logA[:, 9] = float("-inf")
+    t0 = time.perf_counter()
+    for N, Tm in [(n, 2) for n in range(1, HEADLINE["T"] // 2 + 1)] + [(LONG_T // 2, 1)]:
+        emits = torch.randn((Tm, N, Kp), generator=g, device=device)
+        emits[:, :, 11] = float("-inf")  # a masked state of every lane
+        delta0 = torch.randn((N, Kp), generator=g, device=device)
+        got, want = k.maxplus_scan(logA, emits, delta0), km.maxplus_scan_plain(logA, emits,
+                                                                               delta0)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"sieve lanes: the scan at N={N} differs from its plain version")
+        require(bool((got[1][:, :, 9] == 0).all()), f"N={N}: an all -inf column's pointer")
+    print(f"sieve lanes: the scan at N = 1..{HEADLINE['T'] // 2} (T'=2) and N={LONG_T // 2} "
+          f"(T'=1), Kp={Kp}, equals its plain version; all -inf columns point at 0 "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def sieve_headline(hmm, requests, oracles, device, witness, name, static):
+    """The four requests through ``decode(..., name)`` on ``device``:
+    request 0 equals the port's CPU decode (from ``witness``), every ``memory:`` its
+    analytic value; prints each path's f64 score beside the C oracle's and
+    request 0's peak allocation above the tables beside the analytic
+    figure.
+    Returns (the launches, request 0's path)."""
+    from flash_viterbi_tpu_torch import build, decode
+    from flash_viterbi_tpu_torch.oracle.validate import path_score_f64
+
+    K, T = hmm.K, len(requests[0])
+    results, launches = drive(f"{name} {static}, {len(requests)} decodes", SIEVE_NEEDS[name],
+                              lambda: [decode(hmm, y, name, device=device, **static)
+                                       for y in requests])
+    only(launches, SIEVE_NEEDS[name])
+    dec = build(name, **static)
+    want_mem = dec.analytic_memory(K=K, T=T)
+    cpu_path, cpu_s = witness.get(name)
+    require(np.array_equal(results[0].path, cpu_path),
+            f"{name} {static} request 0: {device} path differs from the CPU decode")
+    lh = tables(hmm, 128, device)
+    for i, (y, r, oracle) in enumerate(zip(requests, results, oracles)):
+        require(r.memory_bytes == want_mem,
+                f"{name} request {i}: memory {r.memory_bytes} != {want_mem}")
+        low = -1 if name == "sieve_bs_mp" else 0
+        require(r.path.shape == (T,) and bool(((r.path >= low) & (r.path < K)).all()),
+                f"{name} request {i}: path out of range")
+        misses = int((r.path == -1).sum())
+        score = "n/a (-1 positions)" if misses else repr(
+            path_score_f64(hmm.A, hmm.B, hmm.Pi, y, r.path))
+        print(f"{name} {static} request {i}: {r.time_s * 1e3:.3f} ms, -1 positions {misses}, "
+              f"positions off the C oracle {int((r.path != oracle).sum())}, f64 score "
+              f"{score} (the oracle's {path_score_f64(hmm.A, hmm.B, hmm.Pi, y, oracle)!r}), "
+              f"memory {r.memory_bytes}, launches {nonzero(r.extra['launches'])}", flush=True)
+    _, ms, peak = peak_run(dec, (lh.logA, lh.logB, lh.logPi,
+                                 torch.as_tensor(requests[0].astype(np.int64), device=device)),
+                           device)
+    print(f"{name} {static}: request 0 equals the CPU decode ({cpu_s:.1f} s in the witness); "
+          f"its peak +{peak} bytes above the tables ({ms:.3f} ms), the analytic figure "
+          f"{want_mem}", flush=True)
+    return launches, results[0].path
+
+
+def sieve_phase(hmm, requests, oracles, device, cpu_device, witness) -> list[dict[str, int]]:
+    """The SIEVE decoders: the headline requests (``sieve_mp`` pruned and,
+    request 0 only, not; ``sieve_bs_mp`` at B=64), the mirror fixtures
+    against the copied oracles, the tie fixture against the CPU decode, the
+    scan at every lane count a level gives, and the harness's rows at the
+    mirror fixtures.  Prints the phase's wall time; returns the launches."""
+    import csv
+
+    from flash_viterbi_tpu_torch import decode
+    from flash_viterbi_tpu_torch.bench.harness import CSV_FIELDS, RunConfig, sweep
+    from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm, make_tie_hmm
+
+    t_phase = time.perf_counter()
+    print(f"sieve phase: {spin_up(device)}", flush=True)
+    (mp_launches, pruned), (bs_launches, _) = (
+        sieve_headline(hmm, requests, oracles, device, witness, name, static)
+        for name, static in SIEVE_STATIC.items())
+    all_launches = [mp_launches, bs_launches]
+    r, launches = drive("sieve_mp prune=False, request 0", SIEVE_NEEDS["sieve_mp"],
+                        lambda: decode(hmm, requests[0], "sieve_mp", prune=False,
+                                       device=device))
+    all_launches.append(launches)
+    cpu_path, cpu_s = witness.get("sieve_mp_unpruned")
+    require(np.array_equal(r.path, cpu_path), "sieve_mp prune=False: path differs from the "
+            "CPU decode")
+    print(f"sieve_mp prune=False request 0: {r.time_s * 1e3:.3f} ms, equal to the CPU decode "
+          f"({cpu_s:.1f} s in the witness); positions off the pruned path "
+          f"{int((r.path != pruned).sum())}", flush=True)
+
+    configs = []
+    tie_hmm, tie_y = make_tie_hmm(K=300, M=3, T=64, prob=8 / 300, seed=11)
+    for name, K in SIEVE_MIRROR_K.items():
+        static = SIEVE_STATIC[name]
+        fix = dict(HEADLINE, K=K)
+        prob, y = make_sparse_hmm(**fix)
+        r, launches = drive(f"{name} K={K} T={len(y)}", SIEVE_NEEDS[name],
+                            lambda: decode(prob, y, name, device=device, **static))
+        all_launches.append(launches)
+        want, oracle_s = witness.get(f"mirror_{name}")
+        require(np.array_equal(r.path, want), f"{name} K={K}: path differs from its oracle")
+        print(f"{name} K={K} T={len(y)}: {r.time_s * 1e3:.3f} ms, equal to its oracle "
+              f"({oracle_s:.1f} s in the witness)", flush=True)
+        configs.append(RunConfig(algorithm=name, device=str(device),
+                                 beam_width=static.get("beam_width"), **fix))
+        r, launches = drive(f"{name} tie fixture", SIEVE_NEEDS[name],
+                            lambda: decode(tie_hmm, tie_y, name, device=device, **static))
+        all_launches.append(launches)
+        cpu = decode(tie_hmm, tie_y, name, device=cpu_device, warmup=False, **static)
+        require(np.array_equal(r.path, cpu.path), f"{name} tie fixture: path differs from the "
+                "CPU decode")
+        require(np.array_equal(r.path, sieve_mirror(name, tie_hmm, tie_y)),
+                f"{name} tie fixture: path differs from its oracle")
+        print(f"{name} tie fixture (K={tie_hmm.K}, T={len(tie_y)}): equal to the CPU decode "
+              f"and the oracle", flush=True)
+    sieve_lane_checks(device)
+    with tempfile.TemporaryDirectory() as csv_dir:
+        rows, launches = drive("sieve harness sweep", ("maxplus_scan", "fold_planes"),
+                               lambda: sweep(configs, csv_dir=csv_dir))
+        all_launches.append(launches)
+        for name in sorted(os.listdir(csv_dir)):
+            with open(os.path.join(csv_dir, name)) as f:
+                header = next(csv.reader(f))
+            require(header == CSV_FIELDS, f"{name}: header {header}")
+    for cfg, row in zip(configs, rows):
+        require(row["parity"] is True, f"harness {cfg.algorithm}: parity {row['parity']!r}")
+        print("harness row: " + ",".join(str(row[k]) for k in CSV_FIELDS), flush=True)
+    print(f"sieve phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return all_launches
+
+
 def headline() -> tuple:
     """(HMM, the four requests: the seed-1 sequence and
     ``observations(T, M, seed=s)`` for s in EXTRA_SEEDS)."""
@@ -2155,7 +2417,16 @@ def main() -> None:
     t_start = time.perf_counter()
     device = device_phase()
     build_phase()
+    witness = Witness()
+    try:
+        phases(device, witness, t_start)
+    finally:
+        witness.stop()
 
+
+def phases(device, witness: Witness, t_start: float) -> None:
+    """Phases 3 to 11 and the closing lines, the CPU decodes of phases 4
+    and 8c read from ``witness``."""
     from flash_viterbi_tpu_torch.oracle import native
 
     hmm, requests = headline()
@@ -2180,12 +2451,14 @@ def main() -> None:
     print(f"C oracle: {len(requests)} decodes in {time.perf_counter() - t0:.1f} s",
           flush=True)
     cpu = torch.device("cpu")
-    launches = ([slice_phase(hmm, requests, oracles, device, cpu)]
+    launches = ([slice_phase(hmm, requests, oracles, device, witness)]
                 + checkpoint_phase(hmm, requests, oracles, device)
                 + beam_phase(hmm, requests, oracles, device, cpu)
                 + [beam_large_phase(device, cpu), long_t_phase(hmm, device)]
                 + batch_phase(hmm, device))
     launches += lean_auto_harness_phase(hmm, requests, oracles, device, cpu)
+    launches += sieve_phase(hmm, requests, oracles, device, cpu, witness)
+    print(f"CPU witness: the phases waited {witness.waited:.1f} s for it in all", flush=True)
     sharded_paths, sharded_launches = sharded_phase(hmm, requests, oracles, device, cpu)
     multi_rank_phase(sharded_paths)
     launches += [sharded_launches, config5_phase(device), probe_launches]
@@ -2208,5 +2481,7 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 5:  # one rank of a multi-rank phase (run_ranks)
         rank_main(*sys.argv[1:])
+    elif sys.argv[1:2] == ["--cpu-witness"]:  # a Witness worker
+        witness_main(*sys.argv[2:])
     else:
         main()

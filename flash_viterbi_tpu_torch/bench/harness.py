@@ -20,7 +20,11 @@ beam family against its numpy mirrors.  Above the oracle's cells a row
 names its witness: the port's ``fused`` decode on the device (``checkpoint``
 for a ``fused`` row), bit for bit, with the FLASH family's paths within
 ``dp_divergence_tolerance_f64`` of its f64 score labelled
-``witness:fused:tie-equivalent``.
+``witness:fused:tie-equivalent``.  ``sieve_mp`` rows are held to the
+SIEVE-Mp oracle in fp32 numerics, ``sieve_bs_mp`` rows to their numpy
+mirror, up to ``_MIRROR_MAX_K`` states; above it, and for an unpruned
+``sieve_mp`` row (the oracle prunes), to the port's decode of the same
+options on the CPU, labelled ``witness:cpu:True`` or ``False``.
 
 :func:`marginal_time`: a probe's kernel runs for microseconds, shorter than
 one call can be timed well, so a chain of k calls is timed at two lengths
@@ -125,7 +129,8 @@ def marginal_time(make_chain, k1: int = 1, k2: int = 5, reps: int = 3) -> float:
 # take the device witness instead (labelled, so no parity cell is empty).
 _ORACLE_MAX_CELLS = 2e10
 # Above these state counts the SIEVE family's numpy mirrors are too slow for
-# a sweep (kept with the JAX package's figures for the SIEVE slices).
+# a sweep: such rows take the port's CPU decode as witness (the JAX
+# package's figures, kept for the SIEVE decoders not ported yet too).
 _MIRROR_MAX_K = {"sieve_mp": 1024, "sieve_bs": 512, "sieve_bs_mp": 512,
                  "sieve": 512, "sieve_dag": 256}
 _EXACT = ("vanilla", "checkpoint", "flash", "fused")  # exact decoders: vanilla's path
@@ -193,7 +198,33 @@ def _parity(cfg: RunConfig, hmm, y, path, dec, tables):
     if routed == "beam":
         want = fw.beam(hmm.A, hmm.B, hmm.Pi, y, beam_width=bw)
         return bool(np.array_equal(path, np.asarray(want)[: cfg.T]))
+    if routed in ("sieve_mp", "sieve_bs_mp"):
+        # the copied sieve_mp oracle always prunes: an unpruned row, like a
+        # row above the mirror's K, is held to the port's CPU decode
+        if cfg.K > _MIRROR_MAX_K[routed] or not kw.get("prune", True):
+            return _cpu_witness(cfg, path, routed, kw, tables)
+        if routed == "sieve_mp":
+            from ..oracle.sieve import sieve_mp
+
+            want = sieve_mp(hmm.A, hmm.B, hmm.Pi, y, numerics="f32")
+        else:
+            # the fp32 framework mirror: bit-exact with the decoder even on
+            # permuted-path ties where the f64 reference differs
+            want = fw.sieve_bs_mp(hmm.A, hmm.B, hmm.Pi, y, beam_width=bw)
+        return bool(np.array_equal(path, np.asarray(want)[: cfg.T]))
     raise KeyError(f"no yardstick for {routed!r}")
+
+
+def _cpu_witness(cfg: RunConfig, path, routed: str, kw: dict, tables) -> str:
+    """Above a mirror's state count, or where the mirror does not compute
+    the row's options: the port's decode of the same decoder and options
+    on the CPU, bit for bit (the JAX package's alternate build
+    without its kernels has no counterpart: the port has no kernel
+    switch)."""
+    from ..algorithms.base import build
+
+    want = build(routed, **kw)(*(t.cpu() for t in tables)).numpy()[: cfg.T]
+    return f"witness:cpu:{bool(np.array_equal(path, want))}"
 
 
 def _problem_key(cfg: RunConfig) -> tuple:

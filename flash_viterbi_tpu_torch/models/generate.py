@@ -106,3 +106,23 @@ def make_dag_hmm(
     B = uniform_B(M, K, seed=seed)
     Pi = np.full(K, 1.0 / K)
     return HMM(A=A, B=B, Pi=Pi), y
+
+
+def make_tie_hmm(K: int, M: int, T: int, prob: float, seed: int = 11) -> tuple[HMM, np.ndarray]:
+    """A problem of exact ties everywhere (a test fixture, no reference
+    counterpart): uniform rows over a sparse edge pattern (each edge kept
+    with probability ``prob``, every self-loop kept), a state no edge
+    enters (state 5: an all -inf column of logA), one that only loops
+    (state 7), uniform emissions over two symbols a state, and a uniform
+    Pi.  Needs K > 7."""
+    rng = np.random.RandomState(seed)
+    A = (rng.uniform(size=(K, K)) < prob).astype(np.float64)
+    np.fill_diagonal(A, 1.0)
+    A[:, 5] = 0.0
+    A[7] = 0.0
+    A[7, 7] = 1.0
+    A /= A.sum(axis=1, keepdims=True)
+    B = np.zeros((K, M))
+    for k in range(K):
+        B[k, [k % M, (k + 1) % M]] = 0.5
+    return HMM(A, B, np.full(K, 1.0 / K)), rng.randint(0, M, T)

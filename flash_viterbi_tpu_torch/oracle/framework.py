@@ -3,8 +3,8 @@
 Identical fp32 operations in identical order and the lowest-index tie
 rule, so a decoder's path must equal this one exactly.  Copies of
 ``flash_viterbi_tpu/oracle/framework.py``'s ``vanilla``, ``topk``,
-``flash_bs`` and ``beam``, kept here because the port never imports the
-JAX package.
+``flash_bs``, ``beam`` and ``sieve_bs_mp``, kept here because the port
+never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -144,3 +144,130 @@ def beam(A, B_mat, Pi, y, beam_width: int) -> np.ndarray:
     slots = slots[::-1]
     return np.asarray([states_hist[t][slots[t]] for t in range(T)],
                       dtype=np.int64)
+
+
+def sieve_bs_mp(A, B_mat, Pi, y, beam_width: int) -> np.ndarray:
+    """Mirror of ``algorithms.sieve.sieve_bs_mp_decode`` (beam-pruned
+    fixed-median D&C) in the framework's own fp32 numerics.
+
+    The reference-faithful float64 oracle is the JAX package's
+    ``oracle.sieve_bs.sieve_bs_mp`` (not ported); it and the decoder legitimately diverge on *permuted-path ties* —
+    cyclic paths traversing the same edge multiset in a different order
+    under repeated observation symbols score mathematically equal, the
+    f64 oracle sees an exact tie (first-inserted wins) while the fp32
+    sums round apart — so this mirror is the bit-exact yardstick for the
+    device decoder on arbitrary fixtures.  Returns the flattened in-order
+    pair path, -1 where a segment's pair was never set.
+    """
+    from ..algorithms.sieve import build_tree
+
+    logA, logB, logPi = _tables(A, B_mat, Pi)
+    K = logA.shape[0]
+    y = np.asarray(y, dtype=np.int64)
+    T = len(y)
+    Bw = min(int(beam_width), K)
+    NEG = F32(-np.inf)
+    if T == 1:
+        return np.asarray([int(np.argmax(logPi + logB[:, y[0]]))])
+
+    A_pos = logA > NEG
+    emitQ = np.where(logB > NEG, logB, F32(0.0)).astype(F32)
+    iota = np.arange(K)
+
+    def select_beam(touched, newT1):
+        eff = min(Bw, int(touched.sum()))
+        vals = np.where(touched,
+                        np.where(np.isneginf(newT1), F32(-2.0e38), newT1),
+                        F32(-3.0e38))
+        top_idx = np.argsort(-vals, kind="stable")[:Bw]
+        tokm = np.zeros(K, F32)
+        tokm[top_idx[:eff]] = 1.0
+        return top_idx, eff, tokm
+
+    def run_node(start, length, mask, cur, last_f):
+        th = length // 2
+        T1 = np.where(mask > 0, (logPi + emitQ[:, y[start]]).astype(F32), NEG)
+        src = np.where(cur > 0, T1, NEG)
+        scores = (src[:, None] + logA).astype(F32)
+        val1 = scores.max(axis=0)
+        win1 = scores.argmax(axis=0)
+        touched = ((cur > 0) @ A_pos) & (mask > 0)
+        T1 = np.where(touched, (val1 + emitQ[:, y[start + 1]]).astype(F32), NEG)
+        won1 = touched & (val1 > NEG)
+        if th == 1:
+            px = np.where(won1, win1, -1)
+            py = np.where(won1, iota, -1)
+        else:
+            px = np.full(K, -1)
+            py = np.full(K, -1)
+        tok_idx, eff, tokm = select_beam(touched, T1)
+        mid_beam = tokm if th == 1 else cur
+
+        for j in range(2, length):
+            rows = logA[tok_idx]
+            t1tok = T1[tok_idx].copy()
+            t1tok[eff:] = NEG
+            sc = (t1tok[:, None] + rows).astype(F32)
+            val = sc.max(axis=0)
+            slot = sc.argmax(axis=0)
+            win = tok_idx[slot]
+            touched = ((tokm > 0) @ A_pos) & (mask > 0)
+            newT1 = np.where(touched, (val + emitQ[:, y[start + j]]).astype(F32), NEG)
+            rec = j == th
+            px_rec = win if rec else px[win]
+            py_rec = iota if rec else py[win]
+            won = touched & (val > NEG)
+            px = np.where(won, px_rec, -1)
+            py = np.where(won, py_rec, -1)
+            tok_idx, eff, tokm = select_beam(touched, newT1)
+            if rec:
+                mid_beam = tokm
+            T1 = newT1
+
+        argm = int(np.argmax(np.where(mask > 0, T1, NEG)))
+        last = int(last_f) if last_f > -2 else argm
+        safe = min(max(last, 0), K - 1)
+        x_a = int(px[safe]) if last >= 0 else -1
+        x_b = int(py[safe]) if last >= 0 else -1
+        return x_a, x_b, mid_beam, last
+
+    def bfs_mask(adj, src, hops):
+        visited = np.zeros(K, bool)
+        frontier = np.zeros(K, bool)
+        frontier[src] = True
+        for _ in range(max(hops, 0)):
+            new = (frontier @ adj) & ~visited
+            visited |= new
+            frontier = new
+        out = visited.astype(F32)
+        out[src] = 1.0
+        return out
+
+    nodes = build_tree(T)
+    masks = {0: np.ones(K, F32)}
+    tokens = {0: np.ones(K, F32)}
+    lasts = {0: -2}
+    pairs_x: dict = {}
+    pairs_y: dict = {}
+    for n in sorted(nodes, key=lambda n: n.depth):
+        x_a, x_b, mid_beam, last = run_node(
+            n.start, n.length, masks[n.idx], tokens[n.idx], lasts[n.idx])
+        pairs_x[n.idx], pairs_y[n.idx] = x_a, x_b
+        n_left = n.length // 2
+        n_right = n.length - n_left
+        if n.left >= 0:
+            masks[n.left] = bfs_mask(A_pos.T, max(x_a, 0), n_left - 1)
+            tokens[n.left] = tokens[n.idx]
+            lasts[n.left] = x_a
+        if n.right >= 0:
+            masks[n.right] = bfs_mask(A_pos, max(x_b, 0), n_right - 1)
+            tokens[n.right] = mid_beam
+            lasts[n.right] = last
+
+    by_inorder = sorted(nodes, key=lambda n: n.inorder)
+    xs = [pairs_x[n.idx] for n in by_inorder]
+    ys_ = [pairs_y[n.idx] for n in by_inorder]
+    flat = ([xs[0], ys_[0]] + ys_[1:])[:T]
+    out = np.full(T, -1, dtype=np.int64)
+    out[: len(flat)] = flat
+    return out

@@ -6,13 +6,16 @@
 On the headline problem (K=3965 padded to 3968, M=50, T=256, prob=0.112,
 seed=1), for each of ``flash`` (16 segments), ``checkpoint``, ``fused``,
 ``flash_bs`` (B=64, 8 segments), ``beam`` (B=64), ``flash`` lean (16
-segments, lean_leaf 64 and 0), ``auto`` and the recompute batch
+segments, lean_leaf 64 and 0), ``auto``, ``sieve_mp`` (pruned and not),
+``sieve_bs_mp`` (B=64) and the recompute batch
 (``fused_decode_batch(..., pointers="recompute")`` over the 16 sequences
 ``observations(256, 50, seed=s)``, s = 1..16): the wall time of one decode
 (median of 10 CUDA-event timings of one synchronized decode after a
-warmup), then torch.profiler over 3 decodes: each kernel's device time and
-launches a decode, the device's busy time (the sum of every kernel's) and
-its idle share of the wall time.  For ``flash`` and ``checkpoint``, whose
+warmup), then torch.profiler over 3 decodes (after one profiled decode
+that is thrown away: a session right after one of many thousand kernels
+recorded only some of its own): each kernel's device time and launches a
+decode, the device's busy time (the sum of every kernel's) and its idle
+share of the wall time.  For ``flash`` and ``checkpoint``, whose
 scans share one error word read once a decode, also the wall time in turns
 against the same decode with every scan reading its own word (a host
 synchronisation a scan): shared, per scan, per scan, shared.  Then at
@@ -48,7 +51,8 @@ from flash_viterbi_tpu_torch.ops.cuda.fold import fold_planes_plain  # noqa: E40
 DECODERS = (("flash", {"num_segments": 16}), ("checkpoint", {}), ("fused", {}),
             ("flash_bs", {"beam_width": 64, "num_segments": 8}), ("beam", {"beam_width": 64}),
             ("flash", {"num_segments": 16, "mode": "lean"}),
-            ("flash", {"num_segments": 16, "mode": "lean", "lean_leaf": 0}), ("auto", {}))
+            ("flash", {"num_segments": 16, "mode": "lean", "lean_leaf": 0}), ("auto", {}),
+            ("sieve_mp", {}), ("sieve_mp", {"prune": False}), ("sieve_bs_mp", {"beam_width": 64}))
 LONG_T = 16384
 LONG_DECODERS = (("flash", {"num_segments": 16, "mode": "lean"}), ("fused", {}),
                  ("checkpoint", {}))
@@ -133,10 +137,11 @@ def profile_one(name: str, run) -> None:
     run()
     torch.cuda.synchronize()
     wall = wall_ms(run)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            run()
-        torch.cuda.synchronize()
+    for reps in (1, REPS):  # the first session is thrown away
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]

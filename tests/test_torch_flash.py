@@ -96,11 +96,11 @@ def test_unported_options_and_unknown_names_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfv.decode(hmm, y, "flash", precision="bf16", device="cpu")
     with pytest.raises(KeyError):
-        tfv.decode(hmm, y, "sieve_mp", device="cpu")
+        tfv.decode(hmm, y, "sieve_bs", device="cpu")
     with pytest.raises(ValueError):
         tfv.decode(hmm, y, "flash", device="meta")
     assert tfv.available_algorithms() == ["auto", "beam", "checkpoint", "flash", "flash_bs",
-                                          "fused", "vanilla"]
+                                          "fused", "sieve_bs_mp", "sieve_mp", "vanilla"]
 
 
 def test_cuda_device_raises_without_cuda(monkeypatch):
@@ -127,7 +127,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "flash_viterbi_tpu_torch.utils.io, flash_viterbi_tpu_torch.ops.cuda.fold, "
             "flash_viterbi_tpu_torch.probes.alu, flash_viterbi_tpu_torch.probes.scan, "
             "flash_viterbi_tpu_torch.probes.beam, flash_viterbi_tpu_torch.probes.copy, "
-            "flash_viterbi_tpu_torch.probes.__main__; "
+            "flash_viterbi_tpu_torch.probes.__main__, flash_viterbi_tpu_torch.oracle.sieve, "
+            "flash_viterbi_tpu_torch.algorithms.sieve, flash_viterbi_tpu_torch.models.generate; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flash_viterbi_tpu', 'triton')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -26,7 +26,14 @@ SMALL = dict(K=48, M=8, T=40, prob=0.2, seed=3, device="cpu")
 ROWS = [("vanilla", {}, None), ("flash", {}, None), ("flash", {"mode": "lean"}, None),
         ("flash", {"mode": "lean", "lean_leaf": 0}, None), ("checkpoint", {}, None),
         ("fused", {}, None), ("flash_bs", {}, 16), ("beam", {}, 16), ("auto", {}, None),
-        ("auto", {}, 16), ("auto", {"memory_budget_bytes": 1}, None)]
+        ("auto", {}, 16), ("auto", {"memory_budget_bytes": 1}, None), ("sieve_mp", {}, None),
+        ("sieve_mp", {"prune": False}, None), ("sieve_bs_mp", {}, 16)]
+
+
+def _want_parity(extra: dict):
+    """A row's parity on SMALL: True against its mirror, but an unpruned
+    sieve_mp row (the mirror always prunes) against the port's CPU decode."""
+    return "witness:cpu:True" if extra.get("prune") is False else True
 
 
 def test_csv_fields_match_jax():
@@ -39,7 +46,8 @@ def test_csv_fields_match_jax():
 @pytest.mark.parametrize("alg,extra,bw", ROWS)
 def test_run_one_rows(alg, extra, bw):
     row = th.run_one(th.RunConfig(algorithm=alg, beam_width=bw, extra=dict(extra), **SMALL))
-    assert row["parity"] is True
+    want = _want_parity(extra)
+    assert (row["parity"], type(row["parity"])) == (want, type(want))
     assert set(th.CSV_FIELDS) <= set(row) and len(row["times"]) == th.TIMED_DECODES
     assert row["time"] == np.median(row["times"]) and row["time"] > 0
     assert row["device"] == "cpu" and row["pallas_fallback"] == ""
@@ -53,10 +61,11 @@ def test_run_one_rows(alg, extra, bw):
 def test_sweep_writes_one_header_per_file(tmp_path):
     cfgs = [th.RunConfig(algorithm=a, beam_width=bw, extra=dict(e), **SMALL) for a, e, bw in ROWS]
     rows = th.sweep(cfgs, csv_dir=str(tmp_path), verbose=False)
-    assert [r["parity"] for r in rows] == [True] * len(ROWS)
+    assert [r["parity"] for r in rows] == [_want_parity(e) for _, e, _ in ROWS]
     # and once more: rows append under the one header
     th.sweep(cfgs[:2], csv_dir=str(tmp_path), verbose=False)
-    for name in ("vanilla", "flash", "checkpoint", "fused", "flash_bs", "beam", "auto"):
+    for name in ("vanilla", "flash", "checkpoint", "fused", "flash_bs", "beam", "auto",
+                 "sieve_mp", "sieve_bs_mp"):
         with open(tmp_path / f"{name}.csv") as f:
             lines = list(csv.reader(f))
         assert lines[0] == th.CSV_FIELDS
@@ -79,6 +88,43 @@ def test_witness_above_the_oracle_cells(monkeypatch):
         assert verdict == f"witness:{witness}:True", (alg, verdict)
 
 
+@pytest.mark.parametrize("alg,extra,bw", ROWS[-3:])
+def test_sieve_rows_take_the_cpu_witness_above_the_mirror(alg, extra, bw, monkeypatch):
+    """Above _MIRROR_MAX_K a SIEVE row is held to the port's CPU decode of
+    the same options; a wrong path says so."""
+    monkeypatch.setattr(th, "_MIRROR_MAX_K", {alg: 8})
+    cfg = th.RunConfig(algorithm=alg, beam_width=bw, extra=dict(extra), **SMALL)
+    assert th.run_one(cfg)["parity"] == "witness:cpu:True"
+    hmm, y = tfv.make_sparse_hmm(K=48, M=8, T=40, prob=0.2, seed=3)
+    static = {**extra, **({"beam_width": bw} if bw else {})}
+    dec = tfv.build(alg, **static)
+    lh = hmm.log(device="cpu").padded(128)
+    tables = (lh.logA, lh.logB, lh.logPi, torch.as_tensor(y.astype(np.int64)))
+    path = tfv.decode(hmm, y, alg, device="cpu", **static).path.copy()
+    path[7] = (path[7] + 1) % 48
+    assert th._parity(cfg, hmm, y, path, dec, tables) == "witness:cpu:False"
+
+
+def test_unpruned_sieve_mp_is_not_held_to_the_pruned_oracle(monkeypatch):
+    """Below the mirror's K an unpruned sieve_mp row still takes the CPU
+    witness (the copied oracle prunes), and a wrong path reads False."""
+    from flash_viterbi_tpu_torch.oracle import sieve as osieve
+
+    def pruned(*a, **k):
+        raise AssertionError("the pruned oracle judged an unpruned row")
+
+    monkeypatch.setattr(osieve, "sieve_mp", pruned)
+    cfg = th.RunConfig(algorithm="sieve_mp", extra={"prune": False}, **SMALL)
+    hmm, y = tfv.make_sparse_hmm(K=48, M=8, T=40, prob=0.2, seed=3)
+    dec = tfv.build("sieve_mp", prune=False)
+    lh = hmm.log(device="cpu").padded(128)
+    tables = (lh.logA, lh.logB, lh.logPi, torch.as_tensor(y.astype(np.int64)))
+    path = tfv.decode(hmm, y, "sieve_mp", prune=False, device="cpu").path.copy()
+    assert th._parity(cfg, hmm, y, path, dec, tables) == "witness:cpu:True"
+    path[3] = (path[3] + 1) % 48
+    assert th._parity(cfg, hmm, y, path, dec, tables) == "witness:cpu:False"
+
+
 def test_parity_catches_a_wrong_path():
     hmm, y = tfv.make_sparse_hmm(K=48, M=8, T=40, prob=0.2, seed=3)
     cfg = th.RunConfig(algorithm="fused", **SMALL)
@@ -93,7 +139,7 @@ def test_parity_catches_a_wrong_path():
 
 def test_unported_algorithm_raises():
     with pytest.raises(KeyError):
-        th.run_one(th.RunConfig(algorithm="sieve_mp", **SMALL))
+        th.run_one(th.RunConfig(algorithm="sieve_bs", **SMALL))
 
 
 def test_save_dataset_bytes_match_jax(tmp_path):
