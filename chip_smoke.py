@@ -28,11 +28,19 @@ Phases, each fatal on failure:
    its own plan and under C=2 (chunked folds), and its full beam (B=Kp,
    T'=2), whose state takes the scratch.  The argmax walk is also held at
    the recompute batch's N = 16 and 64 lanes (T'=255, timed) and with
-   out-of-range last states; ``fold_planes`` (lean mode's fold of pointer
-   rows into index planes) at lean phase 1's chunk of the headline (timed),
-   at its largest round's shape at T=16384 (118 planes, a row each), for
-   one step, with every plane propagating or recording, and at K=30000,
-   whose plane pair leaves shared memory; a pointer chase through 60 MiB (the pointer
+   out-of-range last states; ``fold_planes`` (lean mode's and ``sieve_mp``'s
+   fold of pointer rows into index planes, a cluster of G CTAs a plane)
+   against its plain version and a numpy fold with the -1 rule, one launch
+   a call, at lean phase 1's chunk of the headline (timed), at its largest
+   round's shape at T=16384 (118 planes, a row each), at ``sieve_mp``'s top
+   level (one plane, 128 rows), for one step, with every plane propagating
+   or recording, the chunk under clusters forced to G = 1, 2, 8 and 16 and
+   with records on either side of the groups' edges, out-of-range pointers
+   (against the numpy fold alone), and at K=30000, whose maps leave shared
+   memory, under its own plan and a cluster of 4, and the chunk under a plan
+   squeezed into the scratch; the three decode shapes timed (one call, back
+   to back, L2 flushed) beside their bounds, and one dependent pass of the
+   fold (one CTA, 32 against 128 rows); a pointer chase through 60 MiB (the pointer
    walk over a random table) gives the dependent-load latency, and the
    walks' and the beam scan's latency floors from it (T' round trips).
    The three scans are also held on a parity grid, K in (64, 1024, 3965,
@@ -149,9 +157,10 @@ kernel that computes a defined function is held bit-exact against its
 plain version on the card: the add+max chains at R=64 and R=4096; the
 scan ablation on its three shapes, with and without the history, at every
 staged chunk (K=16384 compared at T'=4: the plain version's (K, K)
-temporary is 1 GiB a lane-step); the beam probes ``full``, ``sort``,
-``pick``, ``nosmem`` and ``blockm`` against the plain beam scan and the
-production ``beam_scan`` on the probes' fixture and on a beam scan's rows,
+temporary is 1 GiB a lane-step); the beam probes (instances of the
+production beam scan's cluster kernel) ``full``, ``sort``, ``pick``,
+``nosmem`` and ``blockm`` against the plain beam scan and the production
+``beam_scan`` on the probes' fixture and on a tie fixture,
 p1 and p3 on the TPU probe's fixture and on a beam scan's rows, each under
 the card's plan and under plans of 1 and 3 CTAs (long runs of steps, every
 ring stage's barrier through many phases), p4, p5 on its forced tie.
@@ -162,7 +171,10 @@ sleep of the card, no host read inside a chain: the records' ``ms`` and
 launch cost in it.  Then the probe path, ``probes.run()``, is driven between a
 reset and a read of the launch counters: every probe kernel must launch.
 Each variant's time is printed beside its bound, counted as in
-``compare``; the measured add+max rate gives the scans' operation bound
+``compare``; the beam probes' variants in us a step with their cluster
+size, and ``full``, ``no-pick`` and ``no-fold`` again at B = 1, 16 and 256,
+which split a step into its skeleton, the rows and fold a beam row, and
+the select; the measured add+max rate gives the scans' operation bound
 beside the one at the published fp32 rate.
 
 Launch counters are set to 0 before each phase and read after it; every
@@ -223,6 +235,10 @@ CONFIG5_BATCH = 2
 CONFIG5_MICROBATCH = 2
 CONFIG5_MESH = (1, 1, 4)
 RANK_TIMEOUT_S = 300.0
+# the fold at sieve_mp's top level: the rows after the midpoint of a T=256
+# request; the phase-1 chunk under these forced cluster sizes
+FOLD_TOP_ROWS = 128
+FOLD_FORCED_G = (1, 2, 8, 16)
 # lean mode's kernels at the default leaf, and at lean_leaf=0 (rounds only)
 LEAN_NEEDS = ("maxplus_scan", "maxplus_scan_deltas", "argmax_walk", "fold_planes")
 LEAN_ONLY_ROUNDS = ("maxplus_scan", "fold_planes")
@@ -318,6 +334,9 @@ PROBE_TIMED = {"probe_alu": "vpu_peak", "probe_scan_ablation": "phaseA_hist_KC25
                "probe_beam_parts": "full", "probe_beam_select": "pick",
                "probe_copy_p1": "p1_beam_rows", "probe_copy_p3": "p3_beam_rows",
                "probe_copy_p4": "p4", "probe_copy_p5": "p5"}
+# the beam probes' sweep over the beam width (the TPU probe's B parameter)
+BEAM_SWEEP_B = (1, 16, 64, 256)
+BEAM_SWEEP_VARIANTS = ("full", "no-pick", "no-fold")
 # the scan ablation's plain version is compared at this many steps at K=16384
 PROBE_SCAN_COMPARE_TM = 4
 
@@ -766,8 +785,11 @@ def fold_inputs(lh, y, device):
     """fold_planes' inputs where lean mode's phase 1 gives them at the
     headline (a chunk of LEAN_CHUNK pointer rows of the N=1 scan from step
     c0 + 1, one row a step for all SEGMENTS - 1 anchor planes, the
-    schedule flipping from record to propagate inside it), and at its
-    largest round's shape at T=16384 (118 lanes of t2 planes, a row each)."""
+    schedule flipping from record to propagate inside it), at its largest
+    round's shape at T=16384 (118 lanes of t2 planes, a row each), and where
+    ``sieve_mp``'s top level gives them (the rows after the midpoint of the
+    N=1 scan over the whole request, FOLD_TOP_ROWS of them, folded into one
+    identity plane, every row propagating)."""
     from flash_viterbi_tpu_torch.algorithms.flash import (LEAN_CHUNK, flash_midpoints,
                                                           prop_schedule)
     from flash_viterbi_tpu_torch.ops import cuda as k
@@ -787,31 +809,144 @@ def fold_inputs(lh, y, device):
     rows = torch.as_tensor(rng.integers(0, lh.Kp, (LEAN_CHUNK, S, lh.Kp)), dtype=torch.int32,
                            device=device)
     rprop = torch.as_tensor(rng.random((LEAN_CHUNK, S)) < 0.5, device=device)
-    return (planes, ptrs, prop), (t2, rows, rprop)
+    _, top = k.maxplus_scan(lh.logA, emits[1:].unsqueeze(1), (lh.logPi + emits[0])[None, :])
+    top = top[-FOLD_TOP_ROWS:].contiguous()
+    iota = torch.arange(lh.Kp, dtype=torch.int32, device=device)[None, :].contiguous()
+    ones = torch.ones((FOLD_TOP_ROWS, 1), dtype=torch.bool, device=device)
+    return (planes, ptrs, prop), (t2, rows, rprop), (iota, top, ones)
 
 
-def fold_checks(phase1_in, round_in, device) -> list[dict]:
-    """fold_planes against its plain version beyond the headline shape: the
-    round shape, one step, every plane propagating or recording, and a K
-    whose plane pair leaves a block's shared memory (the global scratch)."""
+def fold_minus_one(planes, rows, prop) -> np.ndarray:
+    """The fold one row at a time in numpy with the card's rule: a pointer
+    outside [0, K) gives -1, and -1 is carried on."""
+    out, rows, prop = (x.cpu().numpy() for x in (planes, rows, prop))
+    K = out.shape[1]
+    for t in range(rows.shape[0]):
+        row = np.broadcast_to(rows[t], out.shape)
+        ok = (row >= 0) & (row < K)
+        moved = np.where(ok, np.take_along_axis(out, np.where(ok, row, 0), 1), -1)
+        out = np.where(prop[t][:, None], moved, row)
+    return out
+
+
+def fold_checks(phase1_in, round_in, top_in, device) -> list[dict]:
+    """fold_planes against its plain version and the numpy fold with the
+    -1 rule beyond the headline shape: the round shape, sieve_mp's top level
+    (one plane, FOLD_TOP_ROWS rows), one step, every plane propagating or
+    recording, the phase-1 chunk under clusters forced to G = 1, 2, 8 and
+    16, records that straddle the groups' edges, out-of-range pointers
+    (against the numpy fold only), K=30000, whose maps leave shared memory
+    (the global scratch), under its own plan and a cluster of 4, and the
+    phase-1 chunk under a plan squeezed into the scratch.  Each call makes
+    one launch."""
+    import functools
+
     from flash_viterbi_tpu_torch.ops import cuda as k
     from flash_viterbi_tpu_torch.ops.cuda import fold as kf
+    from flash_viterbi_tpu_torch.ops.cuda.maxplus import sm_count
 
     planes, ptrs, prop = phase1_in
+    P, Kp = planes.shape
+    c = ptrs.shape[0]
+    sms = sm_count(device)
     rng = np.random.default_rng(12)
-    Kbig, P, c = 30000, 3, 5
-    big = (torch.as_tensor(rng.integers(0, Kbig, (P, Kbig)), dtype=torch.int32, device=device),
-           torch.as_tensor(rng.integers(0, Kbig, (c, 1, Kbig)), dtype=torch.int32,
-                           device=device),
-           torch.as_tensor(rng.random((c, P)) < 0.5, device=device))
-    require(kf._smem(device.index, Kbig) == 0 < kf._smem(device.index, planes.shape[1]),
-            f"fold_planes: K={Kbig} should take the global scratch, K={planes.shape[1]} "
-            f"shared memory")
-    fixtures = [round_in, (planes, ptrs[:1], prop[:1]),
-                (planes, ptrs, torch.ones_like(prop)), (planes, ptrs, torch.zeros_like(prop)),
-                big]
-    return [compare("fold_planes", k.fold_planes, kf.fold_planes_plain, args, device)
-            for args in fixtures]
+
+    def draw(Pn, cn, K, Rn=1):
+        return (torch.as_tensor(rng.integers(0, K, (Pn, K)), dtype=torch.int32, device=device),
+                torch.as_tensor(rng.integers(0, K, (cn, Rn, K)), dtype=torch.int32,
+                                device=device),
+                torch.as_tensor(rng.random((cn, Pn)) < 0.7, device=device))
+
+    def hold(args, plan=None, plain=True) -> dict:
+        kernel = functools.partial(k.fold_planes, plan=plan)
+        before = k.fold_planes.launches
+        want = fold_minus_one(*args)
+        if plain:
+            rec = compare("fold_planes", kernel, kf.fold_planes_plain, args, device)
+            got = kernel(*args)
+        else:
+            got = kernel(*args)
+            rec = {"name": "fold_planes",
+                   "max_abs_err": max_abs_err(got.cpu(), torch.as_tensor(want))}
+        require(np.array_equal(got.cpu().numpy(), want),
+                f"fold_planes differs from the numpy fold (plan {plan})")
+        require(k.fold_planes.launches - before == (2 if plain else 1),
+                f"fold_planes made {k.fold_planes.launches - before} launches for "
+                f"{2 if plain else 1} calls")
+        return rec
+
+    recs = [hold(round_in), hold(top_in), hold((planes, ptrs[:1], prop[:1])),
+            hold((planes, ptrs, torch.ones_like(prop))),
+            hold((planes, ptrs, torch.zeros_like(prop)))]
+    for G in FOLD_FORCED_G:
+        recs.append(hold(phase1_in, kf.fold_plan(P, c, 1, Kp, sms, G=G)))
+    # one record per plane: on a group's first row, the row before it, after
+    # it, on the last row; one plane every 5 rows across every edge
+    straddle = prop.clone()
+    straddle[:] = True
+    edges = kf.fold_plan(P, c, 1, Kp, sms, G=8).row_edges
+    for p, t in enumerate((edges[4], edges[4] - 1, edges[4] + 1, c - 1, 0, edges[1])):
+        straddle[t, p] = False
+    straddle[:, 7] = torch.arange(c, device=device) % 5 != 0
+    for G in (8, 16):
+        recs.append(hold((planes, ptrs, straddle), kf.fold_plan(P, c, 1, Kp, sms, G=G)))
+    # out-of-range pointers: -1, -7, K and K + 5 planted in every row
+    bad = ptrs.clone()
+    at = torch.as_tensor(rng.integers(0, Kp, (c, 3)), device=device)
+    vals = torch.as_tensor(rng.choice([-1, -7, Kp, Kp + 5], (c, 3)), dtype=torch.int32,
+                           device=device)
+    bad[:, 0].scatter_(1, at, vals)
+    for G in (1, 8):
+        recs.append(hold((planes, bad, prop), kf.fold_plan(P, c, 1, Kp, sms, G=G),
+                         plain=False))
+    Kbig = 30000
+    big = draw(3, 16, Kbig)
+    plan_big = kf.fold_plan(3, 16, 1, Kbig, sms)
+    require(not plan_big.maps_smem and kf.fold_plan(P, c, 1, Kp, sms).maps_smem,
+            f"fold_planes: K={Kbig} should take the global scratch, K={Kp} shared memory")
+    squeezed = kf.fold_plan(P, c, 1, Kp, sms, smem_bytes=4 * Kp, G=8)
+    recs += [hold(big), hold(big, kf.fold_plan(3, 16, 1, Kbig, sms, G=4)),
+             hold(draw(3, 5, Kbig)), hold(phase1_in, squeezed)]
+    return recs
+
+
+def fold_times(phase1_in, round_in, top_in, device) -> None:
+    """fold_planes at its three decode shapes (lean phase 1's chunk, the
+    round shape, sieve_mp's top level): the median of 9 CUDA-event runs
+    around one call (the host's launch included), the device time a call
+    back to back (queued) and with L2 flushed, each beside its bound by
+    bytes, with the cluster size of its plan."""
+    import functools
+
+    from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.ops.cuda import fold as kf
+    from flash_viterbi_tpu_torch.ops.cuda.maxplus import sm_count
+
+    fold = shared_word(k.fold_planes, device)
+    for label, args in (("phase-1 chunk", phase1_in), ("round shape", round_in),
+                        ("sieve_mp top level", top_in)):
+        (P, K), (c, R, _) = args[0].shape, args[1].shape
+        plan = kf.fold_plan(P, c, R, K, sm_count(device))
+        timed = elapsed_ms(lambda: fold(*args), device, 9)
+        queued = queued_ms(lambda: fold(*args), device)
+        cold = cold_ms(lambda: fold(*args), device, 9)
+        moved = WORK["fold_planes"](args, (args[0],))[0]
+        print(f"fold_planes at the {label} (P={P}, c={c}, R={R}, K={K}; G={plan.G}, ring "
+              f"{plan.ring}, maps in {'shared memory' if plan.maps_smem else 'the scratch'}): "
+              f"{timed:.4f} ms a timed call, {queued:.4f} ms of device time back to back, "
+              f"{cold:.4f} ms with L2 flushed; bound {bound(moved, 0)[0] * 1e3:.3f} us by bytes "
+              f"({moved} bytes), {-(-c // plan.G) + (plan.G - 1).bit_length()} dependent "
+              f"passes", flush=True)
+    # one dependent pass (a gather of K entries and a barrier): the slope of
+    # one plane's fold on one CTA from 32 to 128 rows
+    iota, top, ones = top_in
+    K, short = iota.shape[1], FOLD_TOP_ROWS // 4
+    one = {c: queued_ms(functools.partial(fold, iota, top[:c], ones[:c],
+                                          plan=kf.fold_plan(1, c, 1, K, sm_count(device), G=1)),
+                        device) for c in (short, FOLD_TOP_ROWS)}
+    print(f"fold_planes: one dependent pass at K={K} (one CTA, {short} to {FOLD_TOP_ROWS} "
+          f"rows) {(one[FOLD_TOP_ROWS] - one[short]) / (FOLD_TOP_ROWS - short) * 1e3:.4f} us",
+          flush=True)
 
 
 def walk_checks(head, y, device) -> tuple[list[dict], dict]:
@@ -1163,10 +1298,11 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
     walk_valid = valid
     eg_in = eg_inputs(head, y, device)
     boundary, lanes16 = step_block_inputs(head, y, device)
-    fold_in, fold_round = fold_inputs(head, y, device)
+    fold_in, fold_round, fold_top = fold_inputs(head, y, device)
     timed = (check_all(scan_in, deltas_in, valid, device, reps=9) + [check_eg(eg_in, 9)]
              + [check_beam(beam_inputs(head, y, device), 9), check_step(boundary, 9),
-                compare("fold_planes", k.fold_planes, fold_plain, fold_in, device, 9)])
+                compare("fold_planes", shared_word(k.fold_planes, device), fold_plain, fold_in,
+                        device, 9)])
     config5_block = step_block_config5_inputs(device)
     shard = step_block_shard_inputs(head, y, device)
     steps = [check_step(lanes16, 9), check_step(config5_block, 9)] + [
@@ -1210,7 +1346,8 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
               f"({r['bytes']} bytes, {r['operations']} operations)", flush=True)
     walk_recs, _ = walk_checks(head, y, device)
     others += (beam_select_checks(device, head, y) + walk_recs + scan_grid_checks(device)
-               + looped_plan_checks(device) + fold_checks(fold_in, fold_round, device))
+               + looped_plan_checks(device) + fold_checks(fold_in, fold_round, fold_top, device))
+    fold_times(fold_in, fold_round, fold_top, device)
     # attribution: at B=1 the fold reads one row a step, so the time is the
     # select and the step's fixed cost
     beam = shared_word(k.beam_scan, device)
@@ -1387,15 +1524,23 @@ def probe_phase(device, probe_recs: dict[str, dict], kernel_recs: dict[str, dict
               f"bound {bound_ms:.6f} ms by {bound_by} ({rec['bytes']} bytes, "
               f"{rec['operations']} operations); {json.dumps(rec)}", flush=True)
     print(f"probes: {time.perf_counter() - t0:.1f} s", flush=True)
-    steps = next(r["Tm"] for r in records if r.get("kernel") == "probe_beam_parts")
+    first = next(r for r in records if r.get("kernel") == "probe_beam_parts")
+    steps, C = first["Tm"], first["C"]
     us = {v: t[0] / steps * 1e3 for k in ("probe_beam_parts", "probe_beam_select")
           for v, t in timed[k].items()}
-    print(f"beam step split, us a step (B=64, K=4096, T'={steps}): whole step {us['full']:.2f}; "
-          f"row reads ~ full - no-dma = {us['full'] - us['no-dma']:.2f}; fold ~ full - no-fold "
-          f"= {us['full'] - us['no-fold']:.2f}; select (sort) ~ full - no-pick = "
-          f"{us['full'] - us['no-pick']:.2f}; selects in place of the sort: "
+    print(f"beam step split, us a step (B=64, K=4096, T'={steps}, a cluster of {C}): "
+          + ", ".join(f"{v} {t:.3f}" for v, t in us.items())
+          + f"; row reads ~ full - no-dma = {us['full'] - us['no-dma']:.2f}; fold ~ full - "
+          f"no-fold = {us['full'] - us['no-fold']:.2f}; select (radix) ~ full - no-pick = "
+          f"{us['full'] - us['no-pick']:.2f}; selects in place of the radix select: "
           + ", ".join(f"{v} {us[v] - us['sort']:+.2f}" for v in
                       ("pick", "nosmem", "blockm", "onereduce")), flush=True)
+    beam_sweep(device, {64: {v: us[v] for v in BEAM_SWEEP_VARIANTS}})
+    floor = kernel_recs["beam_scan"]["latency_floor_ms"]  # the same T' round trips
+    for name in ("probe_beam_parts", "probe_beam_select"):
+        probe_recs[name]["latency_floor_ms"] = floor
+    print(f"beam probes' latency floor: {steps} dependent steps at the chased round trip, "
+          f"{floor:.4f} ms", flush=True)
     for name, variant in PROBE_TIMED.items():
         ms, bound_ms, bound_by = timed[name][variant]
         probe_recs[name].update(ms=ms, bound_ms=bound_ms, bound_by=bound_by, timed=variant)
@@ -1428,6 +1573,30 @@ def probe_phase(device, probe_recs: dict[str, dict], kernel_recs: dict[str, dict
     except (OSError, subprocess.CalledProcessError) as e:
         print(f"probe_alu SASS: not read ({e})", flush=True)
     return launches
+
+
+def beam_sweep(device, known: dict) -> None:
+    """full, no-pick and no-fold at B in BEAM_SWEEP_B (``known`` holds the
+    probes' own B=64), us a step, and the step split from them: the select
+    (full - no-pick), the row reads and the fold a beam row (the slope of
+    no-pick over B) and the skeleton (no-pick at B=1 less one row)."""
+    from flash_viterbi_tpu_torch.probes import beam
+
+    us = dict(known)
+    for Bw in BEAM_SWEEP_B:
+        if Bw in us:
+            continue
+        recs = beam.run_parts(device, Bw=Bw, variants=BEAM_SWEEP_VARIANTS)
+        us[Bw] = {r["variant"]: r["per_step_s"] * 1e6 for r in recs}
+        print(f"beam probe at B={Bw} (a cluster of {recs[0]['C']}): " + ", ".join(
+            f"{v} {t:.3f} us a step" for v, t in us[Bw].items()), flush=True)
+    lo, hi = min(us), max(us)
+    per_row = (us[hi]["no-pick"] - us[lo]["no-pick"]) / (hi - lo)
+    print(f"beam step over B (K=4096, T'=255): select (full - no-pick) " + ", ".join(
+        f"B={b} {us[b]['full'] - us[b]['no-pick']:.3f}" for b in sorted(us))
+        + f" us; row reads and fold {per_row:.4f} us a beam row (no-pick's slope from B={lo} "
+        f"to {hi}); skeleton {us[lo]['no-pick'] - lo * per_row:.3f} us (no-pick at B={lo} "
+        f"less its rows)", flush=True)
 
 
 def nonzero(counts: dict[str, int]) -> dict[str, int]:

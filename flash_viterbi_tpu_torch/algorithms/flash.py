@@ -298,7 +298,7 @@ def phase1_anchors_chunked(logA, logPi, logB, y, mids: torch.Tensor, prop: torch
                                 d[None, :], err=err)
         d = dC[0]
         if P:
-            planes = fold_planes(planes, ptrs, prop[c0:c1])
+            planes = fold_planes(planes, ptrs, prop[c0:c1], err=err)
         del ptrs  # before the next chunk's tables are made
     last = mp.argmax_final(d)
     return last, planes[:, last]
@@ -402,7 +402,7 @@ def _lean_round(logA, logPi, logBT, y, ans, ix: _Indices, calls, err, chunk=LEAN
         for c0 in range(0, call["steps"], chunk):
             c1 = min(c0 + chunk, call["steps"])
             d, ptrs = maxplus_scan(logA, _emissions(logBT, y, pos[c0:c1]), d, err=err)
-            t2 = fold_planes(t2, ptrs, prop[c0:c1])
+            t2 = fold_planes(t2, ptrs, prop[c0:c1], err=err)
             del ptrs  # before the next chunk's tables are made
         ends = ans[ix[call["R"]]].to(torch.int64)
         ans[ix[call["mid"]]] = t2.gather(1, ends[:, None])[:, 0]

@@ -170,7 +170,7 @@ def _plan(nodes: list[_Node], groups: list[list[_Node]], spec, ix: _Indices):
     return windows, sel
 
 
-def _planes_from_ptrs(ptrs: torch.Tensor, mid: int):
+def _planes_from_ptrs(ptrs: torch.Tensor, mid: int, err=None):
     """(plane_x, plane_y) (S, K) int32 from the pointer rows (L-1, S, K):
     record at j == mid, gather-propagate after (reference :338-346).
 
@@ -181,7 +181,7 @@ def _planes_from_ptrs(ptrs: torch.Tensor, mid: int):
     iota = torch.arange(K, dtype=torch.int32, device=ptrs.device).expand(S, K).contiguous()
     rows = ptrs[mid:]
     prop = torch.ones((rows.shape[0], S), dtype=torch.bool, device=ptrs.device)
-    py = fold_planes(iota, rows, prop)
+    py = fold_planes(iota, rows, prop, err=err)
     return ptrs[mid - 1].gather(1, py.long()), py
 
 
@@ -262,7 +262,7 @@ def sieve_mp_decode(logA, logB, logPi, y, A_posF, prune: bool = True) -> torch.T
         emitsN = seg_emits[:, 1:].transpose(0, 1).contiguous()  # (L-1, S, K)
         dfin, ptrs = maxplus_scan(logA, emitsN, d0, err=err)
 
-        px, py = _planes_from_ptrs(ptrs, length // 2)
+        px, py = _planes_from_ptrs(ptrs, length // 2, err)
         last = torch.where(last_f >= 0, last_f,
                            first_argmax(torch.where(mask > 0, dfin, NEG), 1)[1])
         x_a = px.gather(1, last[:, None].long())[:, 0]

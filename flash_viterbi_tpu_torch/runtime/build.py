@@ -42,8 +42,7 @@ _IP = ctypes.POINTER(ctypes.c_int)
 
 # C entry points: every pointer and the stream as c_void_p (a c_int would cut
 # a 64-bit address); each returns the cudaError_t of its launches, but
-# fvt_probe_beam_smem and fvt_fold_planes_smem, which return a size, and
-# fvt_beam_scan_clusters, a count
+# fvt_beam_scan_clusters and fvt_fold_planes_clusters, which return a count
 _SIGNATURES = {
     # logA, emits, delta0, dfin, ptrs, deltas, part_v, part_i, carry, count, err,
     # plan, Tm, N, K, stream, launches
@@ -63,10 +62,11 @@ _SIGNATURES = {
     # plan, Tm, N, K, B, P, stream, launches
     "fvt_beam_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _I, _P,
                       _LL],
-    # planes, rows, prop, out, scratch, c, R, P, K, stream, launches
-    "fvt_fold_planes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _LL],
-    # K -> bytes of shared memory fvt_fold_planes takes (0: global scratch)
-    "fvt_fold_planes_smem": [_I],
+    # planes, rows, prop, out, scratch, err, plan, c, R, P, K, stream, launches
+    "fvt_fold_planes": [_P, _P, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _P, _LL],
+    # plan -> clusters of its size and shared memory the card keeps resident
+    # (negative: a CUDA error)
+    "fvt_fold_planes_clusters": [_IP],
     # plan -> clusters of its size and shared memory the card keeps resident
     # (negative: a CUDA error)
     "fvt_beam_scan_clusters": [_IP],
@@ -77,10 +77,9 @@ _SIGNATURES = {
     "fvt_maxplus_scan_deltas_ablation": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _LL],
     # x, out, n, R, stream, launches
     "fvt_probe_alu": [_P, _P, _I, _I, _P, _LL],
-    # logA, emits, vals0, states0, codes, Tm, K, B, variant, stream, launches
-    "fvt_probe_beam": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _LL],
-    # K, B -> bytes of shared memory fvt_probe_beam needs
-    "fvt_probe_beam_smem": [_I, _I],
+    # logA, emits, vals0, states0, hist, slots, err, plan, Tm, K, B, variant, stream,
+    # launches
+    "fvt_probe_beam": [_P, _P, _P, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _P, _LL],
     # src, dst, plan, Tm, n, B, err, stream, launches
     "fvt_probe_copy_rows": [_P, _P, _IP, _I, _I, _I, _P, _P, _LL],
     # out, Tm, W, err, stream, launches

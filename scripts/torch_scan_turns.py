@@ -29,8 +29,18 @@ checkout's own ``chip_smoke.py`` input helpers, ``beam_scan`` at flash_bs's
 phase-1 shape (N=1, T'=255, B=64, 7 planes) and segment shape (8 ragged
 lanes, T'=32) and at Kp=17000 (B=64, T'=4, values in halves drawn on the
 card), and ``argmax_walk`` at flash's shape (16 ragged lanes, T'=16) and at
-the recompute batch's (16 sequences, T'=255).  Pass the checkouts as A B B
-A to read a change against its parent.
+the recompute batch's (16 sequences, T'=255).  Then ``fold_planes`` at its
+three decode shapes (lean phase 1's chunk and the round shape from the
+checkout's ``chip_smoke.fold_inputs``, and ``sieve_mp``'s top level: the
+last 128 pointer rows of the headline's N=1 scan folded into one identity
+plane) the three ways the step block is timed, with a shared error word
+where the checkout's wrapper takes one; the headline ``flash_bs``
+(beam_width=64, num_segments=8), ``beam`` (beam_width=64), lean
+(num_segments=16) and ``sieve_mp`` decodes and lean mode at T=16384 on the
+headline tables, the median
+of 5 decodes' ``time_s`` each after a warmup; and it prints the registers
+and spills of the beam scan's and the fold's kernels.  Pass the
+checkouts as A B B A to read a change against its parent.
 """
 
 from __future__ import annotations
@@ -53,7 +63,8 @@ def time_checkout(root: str) -> None:
     dev = torch.device("cuda", 0)
     build.kernels()
     fn = None
-    kernels = {"scan_step": {}, "scan_persistent": {}, "step_block_kernel": {}}
+    kernels = {"scan_step": {}, "scan_persistent": {}, "step_block_kernel": {},
+               "beam_cluster_kernel": {}, "fold": {}}
     with open(build.BUILD_LOG) as f:
         for line in f:
             m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
@@ -63,6 +74,8 @@ def time_checkout(root: str) -> None:
             t = re.search(r"scan_stepILi(\d+)ELb(\d)ELNS_4EmitE(\d)E(?:Lb(\d)ELi(\d+)E)?", fn or "")
             q = re.search(r"scan_persistentILi(\d+)ELb(\d)ELNS_4EmitE(\d)E", fn or "")
             b = re.search(r"step_block_kernelILi(\d+)E", fn or "")
+            c = re.search(r"(beam_cluster_kernel|fold_cluster_kernel|fold_kernel)"
+                          r"((?:IL[bi]\d+E(?:L[bi]\d+E)*E)?)", fn or "")
             if t:
                 L, ptr, emit, write_hist, kc = t.groups()
                 name, key = "scan_step", f"<{L},{ptr},{emit},{write_hist or 1},{kc or 256}>"
@@ -70,6 +83,9 @@ def time_checkout(root: str) -> None:
                 name, key = "scan_persistent", "<{},{},{}>".format(*q.groups())
             elif b:
                 name, key = "step_block_kernel", f"<{b.group(1)}>"
+            elif c:
+                name = "beam_cluster_kernel" if c.group(1).startswith("beam") else "fold"
+                key = c.group(1) + "<{}>".format(",".join(re.findall(r"L[bi](\d+)E", c.group(2))))
             else:
                 continue
             r = re.search(r"Used (\d+) registers|(\d+) bytes spill stores", line)
@@ -190,6 +206,44 @@ def time_checkout(root: str) -> None:
     batch_walk = (deltas16, logAT, mp.first_argmax(dfin, 1)[1], None)
     print(f"{root}: argmax_walk flash shape {ms(lambda: k.argmax_walk(*flash_walk)):.4f} ms; "
           f"N=16, T'=255 {ms(lambda: k.argmax_walk(*batch_walk)):.4f} ms", flush=True)
+    del logAT, deltas_in, valid, dfin, deltas, flash_walk, batch_in, deltas16, batch_walk
+
+    import functools
+    import inspect
+
+    from flash_viterbi_tpu_torch.ops.cuda.maxplus import error_word
+
+    fold = k.fold_planes
+    if "err" in inspect.signature(fold).parameters:
+        fold = functools.partial(fold, err=error_word(dev))
+    phase1, rnd = cs.fold_inputs(lh, y, dev)[:2]
+    _, ptrs = k.maxplus_scan(*cs.phase_inputs(lh, y, dev, seed=0)[0])
+    top = (torch.arange(lh.Kp, dtype=torch.int32, device=dev)[None].contiguous(),
+           ptrs[-128:].contiguous(), torch.ones((128, 1), dtype=torch.bool, device=dev))
+    flush = torch.empty(32 * 2**20, device=dev)
+    for label, args in (("phase-1 chunk", phase1), ("round shape", rnd),
+                        ("sieve_mp top level", top)):
+        print(f"{root}: fold_planes {label} (P={args[0].shape[0]}, c={args[1].shape[0]}, "
+              f"R={args[1].shape[1]}) {ms(lambda: fold(*args)):.4f} ms a timed call, "
+              f"{queued(lambda: fold(*args)):.4f} ms of device time back to back (queued), "
+              f"{cold(lambda: fold(*args), flush):.4f} ms with L2 flushed", flush=True)
+    del flush
+
+    import flash_viterbi_tpu_torch as fvt
+    from flash_viterbi_tpu_torch.models.generate import observations
+
+    def decode_ms(yy, algorithm, **static) -> float:
+        fvt.decode(hmm, yy, algorithm, device="cuda", **static)
+        return statistics.median(fvt.decode(hmm, yy, algorithm, device="cuda", warmup=False,
+                                            **static).time_s * 1e3 for _ in range(5))
+
+    long_y = observations(16384, 50, seed=1)
+    print(f"{root}: decodes, median of 5: flash_bs "
+          f"{decode_ms(y, 'flash_bs', beam_width=64, num_segments=8):.3f} ms; beam "
+          f"{decode_ms(y, 'beam', beam_width=64):.3f} ms; lean "
+          f"{decode_ms(y, 'flash', mode='lean', num_segments=16):.3f} ms; sieve_mp "
+          f"{decode_ms(y, 'sieve_mp'):.3f} ms; lean T=16384 "
+          f"{decode_ms(long_y, 'flash', mode='lean', num_segments=16):.3f} ms", flush=True)
 
 
 def main() -> None:

@@ -9,6 +9,7 @@ import importlib.util
 import itertools
 import json
 import os
+import re
 import time
 
 import jax
@@ -271,8 +272,8 @@ def _fake_launches(monkeypatch, modules):
         monkeypatch.setattr(mod, "on_cuda", lambda *t: True)
         monkeypatch.setattr(mod, "launch", fake_launch)
     monkeypatch.setattr(copy, "sm_count", lambda dev: SMS)
-    monkeypatch.setattr(beam.build, "kernels", lambda: type(
-        "Lib", (), {"fvt_probe_beam_smem": staticmethod(lambda K, B: 0)})())
+    monkeypatch.setattr(beam, "plan", lambda Kp, Bw, device: kbeam.beam_plan(Kp, Bw, 1, SMS))
+    monkeypatch.setattr(kbeam, "_clusters", lambda index, plan: 1)
     probes.reset_launches()
     return calls
 
@@ -319,11 +320,36 @@ def test_cuda_branches_launch_and_refuse_non_contiguous_inputs(monkeypatch):
 
 
 def test_beam_probe_refuses_a_select_too_large_for_a_block(monkeypatch):
-    _fake_launches(monkeypatch, (beam,))
-    monkeypatch.setattr(beam.build, "kernels", lambda: type(
-        "Lib", (), {"fvt_probe_beam_smem": staticmethod(lambda K, B: kbeam.SMEM_LIMIT + 1)})())
+    """The probe keeps each CTA's keys and beam in shared memory: a plan that
+    puts them in the global scratch is refused before any launch."""
+    calls = _fake_launches(monkeypatch, (beam,))
+    monkeypatch.setattr(beam, "plan", lambda Kp, Bw, device: kbeam.beam_plan(
+        Kp, Bw, 1, SMS, smem_bytes=1000))
     with pytest.raises(ValueError, match=str(kbeam.SMEM_LIMIT)):
         beam.probe_beam_parts(*beam.inputs(4, 256, 3, device="cpu"))
+    assert calls == []
+
+
+def test_beam_probe_kernel_table_matches_variants_and_production_is_one_instance():
+    """csrc/probe_beam.cu's variant table names the variants of
+    probes/beam.py:VARIANTS in their order, each an instance of the shared
+    cluster kernel, "full" the production one; csrc/beam_scan.cu
+    instantiates that one alone."""
+    csrc = os.path.join(os.path.dirname(SCRIPTS), "flash_viterbi_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "probe_beam.cu")) as f:
+        table = re.findall(r'\{"([a-z-]+)", beam_cluster_kernel<(\w+), (\w+), (SEL_\w+)>\}',
+                           f.read())
+    assert tuple(name for name, *_ in table) == beam.VARIANTS
+    kinds = {name: tuple(args) for name, *args in table}
+    assert kinds["full"] == ("true", "true", "SEL_RADIX")
+    assert len(set(kinds.values())) == len(kinds)
+    exact = {name for name, (read, fold, sel) in kinds.items()
+             if read == fold == "true" and sel in ("SEL_RADIX", "SEL_PICK", "SEL_NOSMEM",
+                                                   "SEL_BLOCKM")}
+    assert exact | {"sort"} == set(beam.EXACT)
+    with open(os.path.join(csrc, "beam_scan.cu")) as f:
+        assert re.findall(r"beam_cluster_kernel<([^>]*)>", f.read()) == [
+            "true, true, SEL_RADIX"]
 
 
 @pytest.mark.parametrize("name", list(probes.PROBES))
