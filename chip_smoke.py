@@ -48,8 +48,11 @@ Phases, each fatal on failure:
    than their column groups (each block walking several tiles, both
    combines).  Times are the median of CUDA-event
    timings, each beside its bound (the bytes the function must move at
-   3.35 TB/s or its operations at 67 TFLOP/s fp32, whichever is larger,
-   counted from this run's inputs); the emission-gather scan is also timed
+   3.35 TB/s, a scan's logA again every step where it exceeds what the
+   card holds on chip, or its operations at the card's issue rate, 128 a
+   clock an SM at its maximum SM clock, whichever is larger, counted from
+   this run's inputs: ``flash_viterbi_tpu_torch/bench/bounds.py``); the
+   emission-gather scan is also timed
    in turns with the pointer scan at the same shape.  After the probes:
    the card's L2 size and persisting limit, the persistent scan's fixed
    cost a step (K=128, T'=255), the rate at which it streams a logA of the
@@ -154,10 +157,12 @@ call.
 Probes (after the kernel phase): the counterparts of the JAX package's
 ``scripts/`` probes (``flash_viterbi_tpu_torch.probes``).  Every probe
 kernel that computes a defined function is held bit-exact against its
-plain version on the card: the add+max chains at R=64 and R=4096; the
-scan ablation on its three shapes, with and without the history, at every
-staged chunk (K=16384 compared at T'=4: the plain version's (K, K)
-temporary is 1 GiB a lane-step); the beam probes (instances of the
+plain version on the card: the add+max chains at R=64 and R=4096, also
+on an odd element count with the clock readout on; the scan ablation's
+``full``, ``no-hist`` and ``all-streamed`` (instances of the production
+persistent scan) on its five shapes, the TPU probe's three and the
+headline decode's two scans (K=16384 compared at T'=4: the plain
+version's (K, K) temporary is 1 GiB a lane-step); the beam probes (instances of the
 production beam scan's cluster kernel) ``full``, ``sort``, ``pick``,
 ``nosmem`` and ``blockm`` against the plain beam scan and the production
 ``beam_scan`` on the probes' fixture and on a tie fixture,
@@ -174,8 +179,11 @@ Each variant's time is printed beside its bound, counted as in
 ``compare``; the beam probes' variants in us a step with their cluster
 size, and ``full``, ``no-pick`` and ``no-fold`` again at B = 1, 16 and 256,
 which split a step into its skeleton, the rows and fold a beam row, and
-the select; the measured add+max rate gives the scans' operation bound
-beside the one at the published fp32 rate.
+the select; each scan-ablation shape's step split (fixed cost, combine,
+streamed rows and their rate, fold, history); ``probe_alu``'s device time,
+cycles a call, cells a clock an SM and implied SM clock beside its two
+targets, and the scans' operation bound at the issue rate and at the
+measured add+max rate.
 
 Launch counters are set to 0 before each phase and read after it; every
 kernel of that phase's path must have launched.  Prints a ``{"kernels":
@@ -197,6 +205,8 @@ import time
 
 import numpy as np
 import torch
+
+from flash_viterbi_tpu_torch.bench.harness import queued_ms
 
 HEADLINE = dict(K=3965, M=50, T=256, prob=0.112, seed=1)
 SEGMENTS = 16
@@ -285,10 +295,6 @@ SHARDED_NEEDS = ("maxplus_step_block", "maxplus_scan", "backtrack_batched",
 # the error word the kernel phase's timed beam scans and walks share
 SHARED_ERR = None
 
-# published peaks of one H100 SXM at its 700 W limit
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
-
 # kernel name -> (CUDA source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
     "maxplus_scan": ("flash_viterbi_tpu_torch/csrc/maxplus_scan.cu",
@@ -330,7 +336,7 @@ PROBE_KERNELS = {
 }
 # the record of probes.run() whose time stands for each probe kernel: the
 # production configuration where there is one, else the beam scan's rows
-PROBE_TIMED = {"probe_alu": "vpu_peak", "probe_scan_ablation": "phaseA_hist_KC256",
+PROBE_TIMED = {"probe_alu": "vpu_peak", "probe_scan_ablation": "phaseA_full",
                "probe_beam_parts": "full", "probe_beam_select": "pick",
                "probe_copy_p1": "p1_beam_rows", "probe_copy_p3": "p3_beam_rows",
                "probe_copy_p4": "p4", "probe_copy_p5": "p5"}
@@ -339,6 +345,13 @@ BEAM_SWEEP_B = (1, 16, 64, 256)
 BEAM_SWEEP_VARIANTS = ("full", "no-pick", "no-fold")
 # the scan ablation's plain version is compared at this many steps at K=16384
 PROBE_SCAN_COMPARE_TM = 4
+# probe_alu is also held on a block of an odd element count, which leaves
+# the resident grid's last pair one element
+PROBE_ALU_RAGGED = (331, 257)
+# probe_alu's targets: at RATE_R rounds this share of the issue limit of 64
+# cells a clock an SM; at R rounds a device time within twice the bound
+PROBE_ALU_RATE_SHARE = 0.9
+PROBE_ALU_R_MS = 0.008
 
 
 def require(cond: bool, msg: str) -> None:
@@ -437,10 +450,12 @@ def nbytes(*tensors) -> int:
 
 
 def work_scan(args, outs):
-    """maxplus_scan / maxplus_scan_deltas: every input and output once;
-    an add and a max per (step, lane, source, destination)."""
+    """maxplus_scan / maxplus_scan_deltas: logA once, or once and then every
+    step the part the card cannot hold on chip (``bounds.table_bytes``),
+    every other input and output once; an add and a max per (step, lane,
+    source, destination)."""
     Tm, N, K = args[1].shape
-    return nbytes(*args, *outs), 2 * Tm * N * K * K
+    return (table_bytes(args[0], Tm) + nbytes(*args[1:], *outs), 2 * Tm * N * K * K)
 
 
 def work_emitgather(args, outs):
@@ -450,7 +465,8 @@ def work_emitgather(args, outs):
     Tm, N = ys.shape
     K = logA.shape[0]
     rows = int(torch.unique(ys).numel())
-    return nbytes(logA, ys, delta0, *outs) + rows * K * 4, 2 * Tm * N * K * K
+    return (table_bytes(logA, Tm) + nbytes(ys, delta0, *outs) + rows * K * 4,
+            2 * Tm * N * K * K)
 
 
 def work_backtrack(args, outs):
@@ -505,18 +521,37 @@ WORK = {"maxplus_scan": work_scan, "maxplus_scan_deltas": work_scan,
         "fold_planes": work_fold}
 
 
+def card():
+    """The bounds' figures of card 0 (``flash_viterbi_tpu_torch.bench.bounds``):
+    its SMs, maximum SM clock and on-chip bytes as it reports them, and the
+    published 3.35 TB/s."""
+    from flash_viterbi_tpu_torch.bench import bounds
+
+    return bounds.card(torch.device("cuda", 0))
+
+
+def table_bytes(logA: torch.Tensor, steps: int) -> int:
+    """Bytes a scan must move of ``logA`` over ``steps`` steps on this card."""
+    from flash_viterbi_tpu_torch.bench import bounds
+
+    return bounds.table_bytes(nbytes(logA), steps, card())
+
+
 def bound(moved: int, ops: int) -> tuple[float, str]:
-    """(ms, what bounds it): the larger of the bytes over the published
-    memory rate and the operations over the published fp32 rate."""
-    by_bytes, by_ops = moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+    """(ms, what bounds it): the larger of the bytes at the published
+    memory rate and the operations at the card's issue rate, 128 an SM a
+    clock at its maximum SM clock (an add, a max or a compare is one; the
+    published 67 TFLOP/s fp32 counts an FMA, which no kernel here does, as
+    two)."""
+    from flash_viterbi_tpu_torch.bench import bounds
+
+    return bounds.bound(moved, ops, card())
 
 
 def compare(name: str, kernel, plain, args, device, reps: int = 0) -> dict:
     """Run a kernel and its plain version on the same inputs; require
-    bit-equal outputs; optionally time both and bound the kernel: the
-    larger of its bytes over the published memory rate and its operations
-    over the published fp32 rate, counted from these inputs."""
+    bit-equal outputs; optionally time both and bound the kernel
+    (:func:`bound`), its bytes and operations counted from these inputs."""
     got, want = kernel(*args), plain(*args)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -1045,27 +1080,6 @@ def cold_ms(fn, device, reps: int) -> float:
     return statistics.median(start.elapsed_time(end) for start, end in events)
 
 
-def queued_ms(fn, device, k: int = 20, reps: int = 5) -> float:
-    """Median milliseconds a call of ``fn`` over chains of ``k`` calls,
-    each chain queued behind a ~20 ms sleep of the card, so the calls run
-    back to back on the device while the host enqueues them: the device's
-    time a call, the host's launch cost hidden."""
-    fn()
-    torch.cuda.synchronize(device)
-    times = []
-    for _ in range(reps):
-        torch.cuda._sleep(40_000_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(k):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / k)
-    return statistics.median(times)
-
-
 def step_block_config5_inputs(device, seed: int = 5):
     """One carry against config-5's K on one of 4 state ranks: a (16384,
     4096) block, 11.2% of it finite (the generator's edge density), drawn
@@ -1132,18 +1146,6 @@ def scan_grid_checks(device) -> list[dict]:
           f"bit-exact at K = {GRID_K} x N = {GRID_N} (T' = {GRID_TM}, {GRID_TM_LARGE} at "
           f"K > 4096); {time.perf_counter() - t0:.1f} s", flush=True)
     return recs
-
-
-def streamed_bytes(plan) -> int:
-    """Bytes of logA the persistent scan streams a step: every tile's rows
-    past those held in shared memory."""
-    total = 0
-    for r in range(plan.R):
-        rows = plan.row_edges[r + 1] - plan.row_edges[r]
-        for c in range(plan.C):
-            cols = plan.col_edges[c + 1] - plan.col_edges[c]
-            total += max(0, rows - plan.rows_smem) * cols * 4
-    return total
 
 
 def looped_plan_checks(device) -> list[dict]:
@@ -1221,21 +1223,21 @@ def scan_floor_phase(hmm, device, recs: dict[str, dict], hbm_gbps: float) -> Non
     from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
     from flash_viterbi_tpu_torch.runtime import build
 
-    l2 = (ctypes.c_int * 2)()
-    build.check(build.kernels().fvt_device_l2(0, l2), "fvt_device_l2")
+    limits = (ctypes.c_int * 6)()
+    build.check(build.kernels().fvt_device_limits(0, limits), "fvt_device_limits")
     sms = km.sm_count(device)
     Kp = -(-hmm.K // 128) * 128
     steps = HEADLINE["T"] - 1
     small = grid_inputs(128, 1, steps, device, seed=3)
     fixed_ms = elapsed_ms(lambda: k.maxplus_scan(*small[:3]), device, 9) / steps
     head = km.scan_plan(Kp, 1, sms)
-    Kl = int((streamed_bytes(head) / 4) ** 0.5) // 4 * 4
+    Kl = int((km.streamed_bytes(head) / 4) ** 0.5) // 4 * 4
     streamed = km.scan_plan(Kl, 1, sms, smem_bytes=km.STATIC_SMEM + 4096)
     require(streamed.rows_smem == 0, f"the L2-rate plan keeps rows in shared memory: {streamed}")
     l2_in = grid_inputs(Kl, 1, steps, device, seed=4)[:3]
     l2_ms = elapsed_ms(lambda: k.maxplus_scan(*l2_in, plan=streamed), device, 9)
     gbps = Kl * Kl * 4 * steps / ((l2_ms - steps * fixed_ms) * 1e-3) / 1e9
-    print(f"L2: {l2[0]} bytes, up to {l2[1]} bytes for persisting accesses; the scan's "
+    print(f"L2: {limits[0]} bytes, up to {limits[1]} bytes for persisting accesses; the scan's "
           f"streaming rate with all of logA in L2 {gbps:.1f} GB/s (pointer scan K={Kl}, "
           f"{Kl * Kl * 4} bytes streamed a step, N=1, T'={steps}: {l2_ms:.4f} ms less the fixed "
           f"cost), HBM {hbm_gbps:.1f} GB/s; the fixed cost a step (K=128, N=1, T'={steps}) "
@@ -1244,7 +1246,7 @@ def scan_floor_phase(hmm, device, recs: dict[str, dict], hbm_gbps: float) -> Non
     for name, N, Tm in (("maxplus_scan", 1, steps), ("maxplus_scan_emitgather", 1, steps),
                         ("maxplus_scan_deltas", SEGMENTS, SEGMENTS)):
         plan = km.scan_plan(Kp, N, sms)
-        moved = streamed_bytes(plan)
+        moved = km.streamed_bytes(plan)
         floor_ms = Tm * (moved / (gbps * 1e9) * 1e3 + fixed_ms)
         recs[name].update(design_floor_ms=floor_ms)
         print(f"{name} (N={N}, T'={Tm}, Kp={Kp}): {recs[name]['ms']:.3f} ms; plan R={plan.R} x "
@@ -1416,26 +1418,37 @@ def probe_check_phase(device) -> dict[str, dict]:
         recs[name]["fixtures"] += 1
 
     x = alu.inputs(device=device)
+    ragged = alu.inputs(*PROBE_ALU_RAGGED, device=device, seed=1)
+    clocks = alu.clock_buffer(device)
     for r in (alu.R, alu.RATE_R):
         hold("probe_alu", alu.probe_alu(x, r), alu.probe_alu_plain(x, r))
+        hold("probe_alu", alu.probe_alu(ragged, r, clocks=clocks), alu.probe_alu_plain(ragged, r))
     recs["probe_alu"]["plain_ms"] = elapsed_ms(lambda: alu.probe_alu_plain(x, alu.R), device, 3)
+    print(f"probe_alu: bit-exact at R = {alu.R}, {alu.RATE_R} on {tuple(x.shape)} and on "
+          f"{PROBE_ALU_RAGGED} ({ragged.numel()} elements, an odd count), the resident grid "
+          f"{clocks.shape[0]} blocks of {alu.THREADS}, the ragged call's clocks recorded on "
+          f"{alu.clock_stats(clocks)['sms']} SMs", flush=True)
 
     cache = {}
+    sms = sm_count(device)
     for shape, (K, N, Tm) in scan.SHAPES.items():
         Tc = min(Tm, PROBE_SCAN_COMPARE_TM) if K > 4096 else Tm
         args = scan.inputs(K, N, Tc, device, cache=cache)
-        dfin, deltas = scan.probe_scan_ablation_plain(*args)
-        for write_hist in (True, False):
-            for kc in scan.KCS:
-                hold("probe_scan_ablation", scan.probe_scan_ablation(*args, write_hist, kc),
-                     (dfin, deltas if write_hist else None))
-        print(f"probe scan ablation {shape} (K={K}, N={N}, T'={Tc}): dfin and the history "
-              f"bit-exact, with and without it, at KC = {scan.KCS}", flush=True)
+        want = scan.probe_scan_ablation_plain(*args)
+        for variant in scan.EXACT:
+            hold("probe_scan_ablation", scan.probe_scan_ablation(*args, variant),
+                 (want[0], None if variant == "no-hist" else want[1]))
+        plans = {v: scan.ablation_plan(K, N, sms, v) for v in ("full", "all-streamed")}
+        print(f"probe scan ablation {shape} (K={K}, N={N}, T'={Tc}): {', '.join(scan.EXACT)} "
+              f"bit-exact (dfin, and the history where written); plan R={plans['full'].R} x "
+              f"C={plans['full'].C}, {plans['full'].rows_smem} tile rows in shared memory "
+              f"(all-streamed {plans['all-streamed'].rows_smem}), "
+              f"{'two-phase' if plans['full'].two_phase else 'on read'}", flush=True)
     K, N, Tm = scan.SHAPES["phaseA"]
     full = scan.inputs(K, N, Tm, device, cache=cache)
     recs["probe_scan_ablation"]["plain_ms"] = elapsed_ms(
         lambda: scan.probe_scan_ablation_plain(*full), device, 1)
-    del cache, full, args, dfin, deltas
+    del cache, full, args, want
 
     ties = [a if a.dtype != torch.float32 else torch.round(a * 2) / 2 + 0.0
             for a in beam.inputs(beam.B, 3968, beam.TM, device, seed=1)]
@@ -1455,7 +1468,6 @@ def probe_check_phase(device) -> dict[str, dict]:
           "a tie fixture (K=3968, values in halves)", flush=True)
 
     rows = copy.beam_rows(device=device)
-    sms = sm_count(device)
     for x in (copy.fixture(device=device), rows):
         for name, fn, B in (("probe_copy_p1", copy.probe_copy_p1, 1),
                             ("probe_copy_p3", copy.probe_copy_p3, copy.P3_B)):
@@ -1517,7 +1529,12 @@ def probe_phase(device, probe_recs: dict[str, dict], kernel_recs: dict[str, dict
         if "skipped" in rec:
             print(f"probe {rec['probe']} {rec['variant']}: no run ({rec['skipped']})")
             continue
-        ms = rec["per_call_s"] * 1e3
+        if "split" in rec:
+            scan_split(rec)
+            continue
+        # the device's time back to back where the record has it (probe_alu),
+        # else the record's own time a call
+        ms = rec.get("back_to_back_s", rec["per_call_s"]) * 1e3
         bound_ms, bound_by = bound(rec["bytes"], rec["operations"])
         timed.setdefault(rec["kernel"], {})[rec["variant"]] = (ms, bound_ms, bound_by)
         print(f"probe {rec['probe']} {rec['variant']} {rec.get('jax', '')}: {ms:.4f} ms a call; "
@@ -1558,21 +1575,60 @@ def probe_phase(device, probe_recs: dict[str, dict], kernel_recs: dict[str, dict
     for rec in (p1, p3):
         rec.update(slope_ms=rec["ms"], ms=rec["queued_ms"])
 
+    alu_targets({r["variant"]: r for r in records if r.get("kernel") == "probe_alu"})
     rate = next(r for r in records if r["variant"] == "vpu_peak_rate")
-    print(f"add+max rate (probe_alu, R={rate['R']}, {rate['shape']}): "
-          f"{rate['cells_per_s']:.6g} cells/s, {rate['ops_per_s']:.6g} operations/s "
-          f"({rate['ops_per_s'] / PEAK_FP32_PER_S * 100:.1f}% of the published "
-          f"{PEAK_FP32_PER_S:.3g} fp32 FLOP/s)", flush=True)
+    on = card()
     for name in ("maxplus_scan", "maxplus_scan_deltas", "maxplus_scan_emitgather"):
         ops = kernel_recs[name]["operations"]
-        print(f"{name}: operation bound {ops / PEAK_FP32_PER_S * 1e3:.5f} ms at the published "
-              f"fp32 rate, {ops / rate['ops_per_s'] * 1e3:.5f} ms at the measured add+max "
-              f"rate ({ops} operations; {kernel_recs[name]['ms']:.3f} ms measured)", flush=True)
+        print(f"{name}: operation bound {ops / on.ops_per_s * 1e3:.5f} ms at the issue rate "
+              f"({on.ops_per_s:.5g} operations/s), {ops / rate['ops_per_s'] * 1e3:.5f} ms at the "
+              f"measured add+max rate ({ops} operations; {kernel_recs[name]['ms']:.3f} ms "
+              f"measured)", flush=True)
     try:
         print(f"probe_alu SASS: {alu.sass_counts()}", flush=True)
     except (OSError, subprocess.CalledProcessError) as e:
         print(f"probe_alu SASS: not read ({e})", flush=True)
     return launches
+
+
+def scan_split(rec: dict) -> None:
+    """Print one shape's scan-ablation step split (``probes.scan.split``)."""
+    sp = rec["split"]
+    us = {k: v * 1e6 for k, v in sp.items() if k.endswith("_step_s")}
+    rate = sp["stream_bytes_per_s"]
+    print(f"scan ablation step split {rec['variant'][:-len('_split')]} (K={rec['K']}, "
+          f"N={rec['N']}, T'={rec['Tm']}), us a step: fixed (barrier-only) "
+          f"{us['fixed_step_s']:.3f}, combine (full - no-combine) {us['combine_step_s']:.3f}, "
+          f"streamed rows (full - no-stream) {us['stream_step_s']:.3f} for "
+          f"{rec['streamed_bytes_a_step']} bytes a lane group ("
+          + (f"{rate / 1e12:.3f} TB/s" if rate else "no rate: no time") +
+          f"), fold (full - no-fold) {us['fold_step_s']:.3f}, history (full - no-hist) "
+          f"{us['hist_step_s']:.3f}", flush=True)
+
+
+def alu_targets(recs: dict) -> None:
+    """probe_alu's two records beside the issue limit and the targets: at
+    RATE_R rounds PROBE_ALU_RATE_SHARE of 64 cells a clock an SM, at R
+    rounds a device time within PROBE_ALU_R_MS (each met or missed)."""
+    from flash_viterbi_tpu_torch.bench import bounds
+
+    on = card()
+    limit = bounds.OPS_PER_CLOCK_SM // 2
+    for variant, rec in recs.items():
+        print(f"probe_alu {variant} (R={rec['R']}, {rec['shape']}): device time back to back "
+              f"{rec['back_to_back_s'] * 1e3:.5f} ms, chain slope {rec['per_call_s'] * 1e3:.5f} ms; "
+              f"{rec['cycles']} cycles a call on the busiest of {rec['sms']} SMs, "
+              f"{rec['cells_per_clock_sm']:.3f} cells a clock an SM "
+              f"({rec['cells_per_clock_sm'] / limit * 100:.1f}% of {limit}), SM clock "
+              f"{rec['sm_clock_hz'] / 1e9:.4f} GHz implied (maximum {on.clock_hz / 1e9:.3f}); "
+              f"{rec['cells_per_s']:.6g} cells/s", flush=True)
+    share = recs["vpu_peak_rate"]["cells_per_clock_sm"] / limit
+    ms = recs["vpu_peak"]["back_to_back_s"] * 1e3
+    print(f"probe_alu targets: R={recs['vpu_peak_rate']['R']} at {share * 100:.1f}% of the "
+          f"issue limit (target {PROBE_ALU_RATE_SHARE * 100:.0f}%: "
+          f"{'met' if share >= PROBE_ALU_RATE_SHARE else 'missed'}); R={recs['vpu_peak']['R']} "
+          f"{ms * 1e3:.3f} us of device time (target {PROBE_ALU_R_MS * 1e3:.1f} us: "
+          f"{'met' if ms <= PROBE_ALU_R_MS else 'missed'})", flush=True)
 
 
 def beam_sweep(device, known: dict) -> None:
@@ -2613,7 +2669,7 @@ def phases(device, witness: Witness, t_start: float) -> None:
     print(f"HBM read {gbps:.1f} GB/s measured; the one-step design's streaming "
           f"floor at K={Kp}: {steps} steps x {Kp * Kp * 4 / 2**20:.0f} MiB = "
           f"{floor_ms:.3f} ms at the measured rate, "
-          f"{steps * Kp * Kp * 4 / PEAK_BYTES_PER_S * 1e3:.3f} ms at the published "
+          f"{steps * Kp * Kp * 4 / card().bytes_per_s * 1e3:.3f} ms at the published "
           f"3.35 TB/s", flush=True)
     t0 = time.perf_counter()
     oracles = [native.vanilla(hmm.A, hmm.B, hmm.Pi, y) for y in requests]

@@ -32,6 +32,9 @@ and the slope is the time per call: launch gaps between calls stay in it,
 the fixed cost of the first launch and the final synchronisation drops
 out.  On the card each chain is timed with CUDA events; on the CPU with
 ``time.perf_counter``.  The device is the one the chain's result lies on.
+:func:`queued_ms` times the device alone: chains queued behind a sleep of
+the card, so the host's launch path, often longer than such a kernel,
+drops out.
 """
 
 from __future__ import annotations
@@ -123,6 +126,36 @@ def marginal_time(make_chain, k1: int = 1, k2: int = 5, reps: int = 3) -> float:
         return statistics.median(times)
 
     return max((run(f2) - run(f1)) / (k2 - k1), 1e-9)
+
+
+def queued_ms(fn, device, k: int = 20, reps: int = 5) -> float:
+    """Median milliseconds a call of ``fn`` over chains of ``k`` calls,
+    each chain queued behind a ~20 ms sleep of the card, so the calls run
+    back to back on the device while the host enqueues them: the device's
+    time a call, the host's launch cost hidden.  On the CPU, the median of
+    ``reps`` chains timed by the host's clock."""
+    dev = torch.device(device)
+    fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    times = []
+    for _ in range(reps):
+        if dev.type != "cuda":
+            t0 = time.perf_counter()
+            for _ in range(k):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / k)
+            continue
+        torch.cuda._sleep(40_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(k):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / k)
+    return statistics.median(times)
 
 
 # Above these trellis cells (K^2 T) the C oracle takes minutes: such rows

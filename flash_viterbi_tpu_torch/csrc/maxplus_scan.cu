@@ -5,7 +5,7 @@
 //     deltas[t][n, :] = d_{t-1}[n, :], the carry before step t   (!WITH_PTR)
 //     emit_t[n, i] = logBT[ys[t, n], i]                  (EMIT_GATHER)
 //
-// Three kernels live here.
+// Two kernels live here.
 //
 // scan_persistent runs the scans: it replaces
 // flash_viterbi_tpu/ops/pallas/maxplus.py: maxplus_scan (_scan_kernel, and
@@ -18,15 +18,17 @@
 // _step_tiles_kernel): one step against a column shard logA[:, lo:lo+Kd]
 // with no emission, one launch over every SM.
 //
-// scan_step is one step a launch; only the scan-ablation probe of
-// scripts/vpu_probe.py (ablation, _abl_kernel) runs it, to measure this
-// per-step design with the history write on or off and the staged chunk at
-// 128, 256 or 512 rows.
+// The scan-ablation probe (scripts/vpu_probe.py: ablation, _abl_kernel)
+// runs instances of scan_persistent with parts of a step cut (PARTS, a bit
+// set of Part; every production instance takes P_ALL), so that the time of
+// a step splits into its fixed cost, the combine, the streamed rows, the
+// fold and the history write (flash_viterbi_tpu_torch/probes/scan.py).
 //
 // ---- scan_persistent ----
 //
-// What bounds a scan.  Its operations are 2 T' N K^2 adds and maxes: 0.27 ms
-// for N=1, T'=255, K=3968 at the card's measured add+max rate.  Its bytes
+// What bounds a scan.  Its operations are 2 T' N K^2 adds and maxes: 0.24 ms
+// for N=1, T'=255, K=3968 at an H100's issue rate (64 add+max cells a clock
+// an SM at 1.98 GHz, flash_viterbi_tpu_torch/bench/bounds.py).  Its bytes
 // depend on where logA lives.  A step needs all of logA (60 MiB at K=3968,
 // above the 50 MB L2), so a design that reads it from device memory every
 // step is held to the memory rate: 255 x 60 MiB is 5.3 ms.  At N=1 a step is
@@ -117,15 +119,7 @@
 // streams logA_blk at 1.7-2.9 TB/s; 16 lanes fold 1.7-2.2 T cells/s, held
 // by the fold's compare-and-select chain, not by its loads (PERF.md).
 //
-// ---- scan_step ----
-//
-// One step a launch over a (K, K) logA: a block owns 32 destination
-// columns for up to 16 lanes, its 16 warps split the source rows, the carry
-// slice of each source chunk is staged in shared memory and read as a
-// warp-wide broadcast.  The source dimension is not split across blocks,
-// and every step streams logA from device memory.
-//
-// Numerics (all three): fp32 add and max only, emission added after the max,
+// Numerics (both): fp32 add and max only, emission added after the max,
 // and the lowest-index tie rule of argmax.cuh; bit-identical to the plain
 // versions.  One kernel serves every K: ragged edges are clamped on read and
 // masked on write, so K need not be a multiple of anything.
@@ -142,154 +136,21 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TI = 32;        // destination columns per block: one per thread of a warp
-constexpr int WK = 16;        // warps per block, splitting the source dimension
-constexpr int KC = 256;       // source rows staged per chunk (the ablation's default)
-constexpr int LMAX = 16;      // lanes per launch; more lanes go in groups of 16
-
 // What a step adds after the max: this step's (nl, K) emission rows, or
 // rows of the (M, K) logBT gathered by ys, this step's nl symbols (the
 // values are fixed: they appear in the kernels' names that ptxas reports)
 enum Emit { EMIT_ROWS = 1, EMIT_GATHER = 2 };
 
-// dcur (nl, K), logA (K, K), dnext / ptr / dhist (nl, K).  WRITE_HIST and
-// KCH (the source rows staged a chunk) exist for the scan-ablation probe
-// (fvt_maxplus_scan_deltas_ablation).
-template <int L, bool WITH_PTR, Emit EMIT, bool WRITE_HIST = true, int KCH = KC>
-__global__ void __launch_bounds__(TI * WK)
-scan_step(const float* __restrict__ logA, const float* __restrict__ dcur,
-          const float* __restrict__ emit, const int* __restrict__ ys,
-          float* __restrict__ dnext, int* __restrict__ ptr,
-          float* __restrict__ dhist, int Ks, int nl) {
-    constexpr int RPW = KCH / WK;  // rows of a chunk each warp takes
-    static_assert(KCH % WK == 0, "chunk must split evenly across warps");
-    const int Kd = Ks;
-    __shared__ float s_d[L][KCH];
-    __shared__ float s_v[WK][TI];
-    __shared__ int s_a[WK][TI];
-
-    const int tx = threadIdx.x;
-    const int w = threadIdx.y;
-    const int tid = w * TI + tx;
-    const int i = blockIdx.x * TI + tx;
-    const int ic = i < Kd ? i : Kd - 1;  // ragged edge: clamp the read, mask the write
-
-    float best[L];
-    int arg[L];
-#pragma unroll
-    for (int n = 0; n < L; ++n) {
-        best[n] = -INFINITY;
-        arg[n] = Ks;
-    }
-
-    for (int k0 = 0; k0 < Ks; k0 += KCH) {
-        __syncthreads();  // every warp is done with the previous chunk
-        for (int j = tid; j < L * KCH; j += TI * WK) {
-            const int n = j / KCH;
-            const int kk = j - n * KCH;
-            const int k = k0 + kk;
-            s_d[n][kk] = (n < nl && k < Ks) ? dcur[(size_t)n * Ks + k] : -INFINITY;
-        }
-        __syncthreads();
-
-        // rows past Ks read as -inf: their candidates never beat a real one
-        // (a lower value, or an equal -inf with a higher index)
-        const int kb = k0 + w * RPW;
-        float a[RPW];
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) {
-            const int k = kb + r;
-            a[r] = k < Ks ? __ldg(logA + (size_t)k * Kd + ic) : -INFINITY;
-        }
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) {
-#pragma unroll
-            for (int n = 0; n < L; ++n) {
-                const float v = s_d[n][w * RPW + r] + a[r];
-                if (WITH_PTR) {
-                    if (fvt_better(v, kb + r, best[n], arg[n])) {
-                        best[n] = v;
-                        arg[n] = kb + r;
-                    }
-                } else {
-                    best[n] = fmaxf(best[n], v);
-                }
-            }
-        }
-    }
-
-    // combine the WK partial results of each lane, one lane at a time
-#pragma unroll
-    for (int n = 0; n < L; ++n) {
-        __syncthreads();
-        s_v[w][tx] = best[n];
-        if (WITH_PTR) s_a[w][tx] = arg[n];
-        __syncthreads();
-        if (w == 0 && n < nl && i < Kd) {
-            float bv = s_v[0][tx];
-            int ba = WITH_PTR ? s_a[0][tx] : 0;
-            for (int ww = 1; ww < WK; ++ww) {
-                const float v = s_v[ww][tx];
-                if (WITH_PTR) {
-                    const int a = s_a[ww][tx];
-                    if (fvt_better(v, a, bv, ba)) {
-                        bv = v;
-                        ba = a;
-                    }
-                } else {
-                    bv = fmaxf(bv, v);
-                }
-            }
-            const size_t o = (size_t)n * Kd + i;
-            dnext[o] = bv + (EMIT == EMIT_GATHER ? emit[(size_t)ys[n] * Kd + i] : emit[o]);
-            if (WITH_PTR) {
-                ptr[o] = ba;
-            } else if (WRITE_HIST) {
-                dhist[o] = dcur[o];
-            }
-        }
-    }
-}
-
-// Tm launches per group of up to 16 lanes, ping-ponging the carry through
-// work (2*N*K floats): step(nl, src, dst, st) launches one step of a group
-// of lanes, reading the carry src and writing dst; st is the step's offset
-// into (Tm, N, K) outputs.
-template <class Step>
-int for_each_step(const float* delta0, float* dfin, float* work, int Tm, int N,
-                  int K, long long* launches, Step step) {
-    const size_t NK = (size_t)N * K;
-    for (int g0 = 0; g0 < N; g0 += LMAX) {
-        const int nl = N - g0 < LMAX ? N - g0 : LMAX;
-        const size_t off = (size_t)g0 * K;
-        for (int t = 0; t < Tm; ++t) {
-            const float* src = t == 0 ? delta0 + off : work + ((t - 1) & 1) * NK + off;
-            float* dst = t == Tm - 1 ? dfin + off : work + (t & 1) * NK + off;
-            step(nl, src, dst, (size_t)t * NK + off);
-            const cudaError_t err = cudaGetLastError();
-            if (err != cudaSuccess) return static_cast<int>(err);
-            ++*launches;
-        }
-    }
-    return 0;
-}
-
-// The deltas scan one step a launch, as the ablation probe runs it: always
-// the 16-lane instantiation, with or without the history write, at KCH
-// source rows a chunk.
-template <bool WRITE_HIST, int KCH>
-int run_ablation(const float* logA, const float* emits, const float* delta0,
-                 float* dfin, float* deltas, float* work, int Tm, int N, int K,
-                 cudaStream_t s, long long* launches) {
-    const dim3 block(TI, WK);
-    const dim3 grid((K + TI - 1) / TI);
-    return for_each_step(delta0, dfin, work, Tm, N, K, launches,
-                         [&](int nl, const float* src, float* dst, size_t st) {
-        scan_step<LMAX, false, EMIT_ROWS, WRITE_HIST, KCH><<<grid, block, 0, s>>>(
-            logA, src, emits + st, nullptr, dst, nullptr,
-            WRITE_HIST ? deltas + st : nullptr, K, nl);
-    });
-}
+// The parts of a scan step, a bit set (the values are fixed: they appear in
+// the kernels' names).  Every production instance takes P_ALL; the
+// scan-ablation probe cuts parts to time them.
+enum Part {
+    P_HIST = 1,     // the carry history written (deltas)
+    P_STREAM = 2,   // the streamed rows' loads
+    P_FOLD = 4,     // each row folded into the partials (its carry read and the add+max)
+    P_COMBINE = 8,  // the partials written and combined into the next carry
+    P_ALL = 15,
+};
 
 // ---- the persistent scan ----
 
@@ -436,6 +297,14 @@ __device__ __forceinline__ void fold(float (&best)[LG][CPT], int (&arg)[LG][CPT]
     }
 }
 
+// Without the fold (the ablation's no-fold): each loaded logA value goes
+// into the partials by one max, so that its load is kept
+template <int LG, int CPT>
+__device__ __forceinline__ void keep(float (&best)[LG][CPT], const float (&a)[CPT]) {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) best[0][j] = fmaxf(best[0][j], a[j]);
+}
+
 // The emission of lane row `row` (t * N + lane) at column k
 template <Emit EMIT>
 __device__ __forceinline__ float emission(const float* __restrict__ emit,
@@ -513,8 +382,15 @@ __device__ __forceinline__ Tile tile_of(int q, int K, int units, const Plan& p) 
 // combine only); count: the barrier's arrival count, zero on entry; err: the
 // error word, set when a barrier times out (and read at every wait, so a
 // scan that shares a word already set stops at its first barrier).  Block b
-// walks tiles b, b + gridDim.x, ... of the plan's R x C.
-template <int LG, bool WITH_PTR, Emit EMIT>
+// walks tiles b, b + gridDim.x, ... of the plan's R x C.  PARTS: the parts
+// of a step that run (P_ALL in production).  Without P_STREAM the first
+// streamed rows, prefetched once a pass, fold again in place of the rest;
+// without P_FOLD every loaded value goes into the partials by one max;
+// without P_COMBINE no partial is written or combined, the carry stays the
+// first one and a sink of the partials keeps the fold alive; with no part
+// a step is its grid barriers alone.  Only P_ALL, and P_ALL less P_HIST
+// for dfin, compute the scan.
+template <int LG, bool WITH_PTR, Emit EMIT, int PARTS>
 __global__ void __launch_bounds__(PT, 1)
 scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
                 const int* __restrict__ ys, const float* __restrict__ delta0,
@@ -523,6 +399,8 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
                 unsigned int* count, unsigned int* err, int Tm, int N, int K, Plan p) {
     constexpr int CPT = cols_per_thread<LG>();
     constexpr int UNROLL = unroll_rows<LG>();
+    constexpr bool HIST = PARTS & P_HIST, STREAM = PARTS & P_STREAM, FOLD = PARTS & P_FOLD,
+                   COMBINE = PARTS & P_COMBINE, WORK = PARTS != 0;
     extern __shared__ __align__(16) float smem[];
 
     const int tid = threadIdx.x;
@@ -537,23 +415,26 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
     // leading rows, once per launch (a plan with rows in shared memory
     // gives every block one tile)
     Tile tl = tile_of(blockIdx.x, K, units, p);
-    if (p.rows_smem > 0) {
-        const int rs = min(p.rows_smem, tl.kr), width = (tl.u1 - tl.u0) * CPT;
-        for (int i = tid; i < rs * width; i += PT) {
-            const int lr = i / width, jc = i - lr * width;
-            cp_async4(s_tile + lr * p.stride + jc,
-                      logA + (size_t)(tl.r0 + lr) * K + min(tl.u0 * CPT + jc, K - 1));
+    if constexpr (WORK) {
+        if (p.rows_smem > 0) {
+            const int rs = min(p.rows_smem, tl.kr), width = (tl.u1 - tl.u0) * CPT;
+            for (int i = tid; i < rs * width; i += PT) {
+                const int lr = i / width, jc = i - lr * width;
+                cp_async4(s_tile + lr * p.stride + jc,
+                          logA + (size_t)(tl.r0 + lr) * K + min(tl.u0 * CPT + jc, K - 1));
+            }
         }
+        asm volatile("cp.async.wait_all;" ::: "memory");
     }
-    asm volatile("cp.async.wait_all;" ::: "memory");
     const size_t part_buf = (size_t)p.R * LG * K;
+    float sink = -INFINITY;  // without P_COMBINE: the max of every partial
 
     unsigned int steps = 0;     // steps done, over every group
     unsigned int arrivals = 0;  // grid barriers passed
     for (int g0 = 0; g0 < N; g0 += LG) {
         const int nl = min(LG, N - g0);
         for (int t = 0; t <= Tm; ++t) {
-            for (int q = blockIdx.x; q < tiles; q += nb) {
+            if constexpr (WORK) for (int q = blockIdx.x; q < tiles; q += nb) {
                 if (tiles > nb) tl = tile_of(q, K, units, p);  // a block of several tiles
                 const int r0 = tl.r0, kr = tl.kr, w0 = tl.w0, w1 = tl.w1;
                 // threads past the group redo its last unit
@@ -597,17 +478,17 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
                             const float v = n < nl ? __ldg(delta0 + (size_t)(g0 + n) * K + k)
                                                    : -INFINITY;
                             s_d[(lr - p0) * LG + n] = v;
-                            if (!WITH_PTR && n < nl && lr >= w0 && lr < w1) {
+                            if (!WITH_PTR && HIST && n < nl && lr >= w0 && lr < w1) {
                                 deltas[(size_t)(g0 + n) * K + k] = v;
                             }
                         }
                     } else if (p.two_phase) {
-                        for (int i = tid; i < np * LG; i += PT) {
+                        if constexpr (COMBINE) for (int i = tid; i < np * LG; i += PT) {
                             const int n = i / np, k = r0 + p0 + i - n * np;
                             s_d[(k - r0 - p0) * LG + n] =
                                 n < nl ? __ldcg(carry + (size_t)n * K + k) : -INFINITY;
                         }
-                    } else {
+                    } else if constexpr (COMBINE) {
                         // the carry before step t (t == Tm: the final carry) of rows
                         // p0..p1: the max of the R partials of step t - 1 (their
                         // lexicographic winner for the entries this block writes
@@ -639,7 +520,7 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
                                     if (WITH_PTR) ptrs[(size_t)(t - 1) * N * K + o] = ba;
                                     if (t == Tm) {
                                         dfin[o] = d;
-                                    } else if (!WITH_PTR) {
+                                    } else if (!WITH_PTR && HIST) {
                                         deltas[(size_t)t * N * K + o] = d;
                                     }
                                 }
@@ -650,10 +531,16 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
                     __syncthreads();  // the carry (and, the first time, the tile) is in place
 
                     for (int lr = p0; lr < sm_end; ++lr) {
-                        float d[LG], a[CPT];
-                        load_carry<LG>(d, s_d + (lr - p0) * LG);
-                        load_tile<CPT>(a, my_tile + lr * p.stride);
-                        fold<LG, CPT, WITH_PTR>(best, arg, d, a, r0 + lr);
+                        if constexpr (FOLD) {
+                            float d[LG], a[CPT];
+                            load_carry<LG>(d, s_d + (lr - p0) * LG);
+                            load_tile<CPT>(a, my_tile + lr * p.stride);
+                            fold<LG, CPT, WITH_PTR>(best, arg, d, a, r0 + lr);
+                        } else {
+                            float a[CPT];
+                            load_tile<CPT>(a, my_tile + lr * p.stride);
+                            keep<LG, CPT>(best, a);
+                        }
                     }
                     for (int lr = st0; lr < p1; lr += UNROLL) {
                         float cur[UNROLL][CPT];
@@ -662,7 +549,7 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
 #pragma unroll
                             for (int j = 0; j < CPT; ++j) cur[u][j] = nxt[u][j];
                         }
-                        if (lr + UNROLL < p1) {
+                        if (STREAM && lr + UNROLL < p1) {
 #pragma unroll
                             for (int u = 0; u < UNROLL; ++u) {
                                 const int k = r0 + min(lr + UNROLL + u, p1 - 1);
@@ -672,14 +559,25 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
 #pragma unroll
                         for (int u = 0; u < UNROLL; ++u) {
                             if (lr + u < p1) {
-                                float d[LG];
-                                load_carry<LG>(d, s_d + (lr + u - p0) * LG);
-                                fold<LG, CPT, WITH_PTR>(best, arg, d, cur[u], r0 + lr + u);
+                                if constexpr (FOLD) {
+                                    float d[LG];
+                                    load_carry<LG>(d, s_d + (lr + u - p0) * LG);
+                                    fold<LG, CPT, WITH_PTR>(best, arg, d, cur[u], r0 + lr + u);
+                                } else {
+                                    keep<LG, CPT>(best, cur[u]);
+                                }
                             }
                         }
                     }
                 }
-                if (t < Tm && active) {
+                if (!COMBINE && t < Tm) {
+#pragma unroll
+                    for (int n = 0; n < LG; ++n) {
+#pragma unroll
+                        for (int j = 0; j < CPT; ++j) sink = fmaxf(sink, best[n][j]);
+                    }
+                }
+                if (COMBINE && t < Tm && active) {
                     float* wv = part_v + (steps & 1) * part_buf + (size_t)tl.r * LG * K;
                     int* wi = part_i + (steps & 1) * part_buf + (size_t)tl.r * LG * K;
 #pragma unroll
@@ -698,36 +596,37 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
             ++steps;
             if (!grid_barrier(count, ++arrivals * nb, err)) return;
             if (!p.two_phase) continue;
-
-            // two-phase combine: this block's share e0..e1 of the carry
-            // entries of step t from their R partials, then the emission;
-            // a second barrier publishes them before the next walk reads
-            // them (and keeps that walk's partials from overtaking the reads)
-            const float* pv = part_v + ((steps - 1) & 1) * part_buf;
-            const int* pi = part_i + ((steps - 1) & 1) * part_buf;
-            const int e0 = (int)((long long)blockIdx.x * nl * K / nb);
-            const int e1 = (int)((long long)(blockIdx.x + 1) * nl * K / nb);
-            const int team = p.team;
-            const int tasks = ((e1 - e0) * team + 31) / 32 * 32;  // whole warps: shuffles
-            for (int i = tid; i < tasks; i += PT) {
-                const int m = i % team;
-                const int e = e0 + i / team;
-                const bool live = e < e1;
-                const int n = live ? e / K : 0, k = live ? e - n * K : 0;
-                const float em = live && m == 0
-                    ? emission<EMIT>(emit, ys, (size_t)t * N + g0 + n, K, k) : 0.0f;
-                float bv;
-                int ba;
-                combine<LG, WITH_PTR>(pv, pi, p.R, K, team, m, n, k, live, true, bv, ba);
-                if (live && m == 0) {
-                    const float d = bv + em;
-                    const size_t o = (size_t)(g0 + n) * K + k;
-                    carry[(size_t)n * K + k] = d;
-                    if (WITH_PTR) ptrs[(size_t)t * N * K + o] = ba;
-                    if (t == Tm - 1) {
-                        dfin[o] = d;
-                    } else if (!WITH_PTR) {
-                        deltas[(size_t)(t + 1) * N * K + o] = d;
+            if constexpr (COMBINE) {
+                // two-phase combine: this block's share e0..e1 of the carry
+                // entries of step t from their R partials, then the emission;
+                // a second barrier publishes them before the next walk reads
+                // them (and keeps that walk's partials from overtaking the reads)
+                const float* pv = part_v + ((steps - 1) & 1) * part_buf;
+                const int* pi = part_i + ((steps - 1) & 1) * part_buf;
+                const int e0 = (int)((long long)blockIdx.x * nl * K / nb);
+                const int e1 = (int)((long long)(blockIdx.x + 1) * nl * K / nb);
+                const int team = p.team;
+                const int tasks = ((e1 - e0) * team + 31) / 32 * 32;  // whole warps: shuffles
+                for (int i = tid; i < tasks; i += PT) {
+                    const int m = i % team;
+                    const int e = e0 + i / team;
+                    const bool live = e < e1;
+                    const int n = live ? e / K : 0, k = live ? e - n * K : 0;
+                    const float em = live && m == 0
+                        ? emission<EMIT>(emit, ys, (size_t)t * N + g0 + n, K, k) : 0.0f;
+                    float bv;
+                    int ba;
+                    combine<LG, WITH_PTR>(pv, pi, p.R, K, team, m, n, k, live, true, bv, ba);
+                    if (live && m == 0) {
+                        const float d = bv + em;
+                        const size_t o = (size_t)(g0 + n) * K + k;
+                        carry[(size_t)n * K + k] = d;
+                        if (WITH_PTR) ptrs[(size_t)t * N * K + o] = ba;
+                        if (t == Tm - 1) {
+                            dfin[o] = d;
+                        } else if (!WITH_PTR && HIST) {
+                            deltas[(size_t)(t + 1) * N * K + o] = d;
+                        }
                     }
                 }
             }
@@ -735,15 +634,17 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
             if (t == Tm - 1) break;  // dfin is out: no final carry to form
         }
     }
+    // no value of the sink is expected: the store keeps the fold it reads
+    if (!COMBINE && WORK && sink == INFINITY) part_v[blockIdx.x] = sink;
 }
 
-template <int LG, bool WITH_PTR, Emit EMIT>
+template <int LG, bool WITH_PTR, Emit EMIT, int PARTS>
 int launch_persistent(const float* logA, const float* emit, const int* ys,
                       const float* delta0, float* dfin, int* ptrs, float* deltas,
                       float* part_v, int* part_i, float* carry, unsigned int* count,
                       unsigned int* err, int Tm, int N, int K, const int* plan,
                       cudaStream_t stream) {
-    const auto kernel = scan_persistent<LG, WITH_PTR, EMIT>;
+    const auto kernel = scan_persistent<LG, WITH_PTR, EMIT, PARTS>;
     const int smem = plan[PF_SMEM];
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
@@ -765,9 +666,9 @@ int run_scan(const float* logA, const float* emit, const int* ys, const float* d
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     int rc;
 #define FVT_SCAN(LG) \
-    rc = launch_persistent<LG, WITH_PTR, EMIT>(logA, emit, ys, delta0, dfin, ptrs, deltas, \
-                                               part_v, part_i, carry, count, err, Tm, N, K, \
-                                               plan, s)
+    rc = launch_persistent<LG, WITH_PTR, EMIT, P_ALL>(logA, emit, ys, delta0, dfin, ptrs, \
+                                                      deltas, part_v, part_i, carry, count, \
+                                                      err, Tm, N, K, plan, s)
     switch (plan[PF_LANES]) {
         case 1: FVT_SCAN(1); break;
         case 2: FVT_SCAN(2); break;
@@ -780,6 +681,50 @@ int run_scan(const float* logA, const float* emit, const int* ys, const float* d
     if (rc != 0) return rc;
     ++*launches;
     return 0;
+}
+
+// The scan-ablation probe's variants, in the order of
+// flash_viterbi_tpu_torch/probes/scan.py:VARIANTS: the deltas scan (EMIT_ROWS) with the parts of a step it keeps.  "full" is the
+// production instance; "all-streamed" runs it under a plan that holds no
+// row in shared memory (the wrapper's choice); the rest cut one part each
+// but "barrier-only", which keeps none.
+struct Ablation {
+    const char* name;
+    int parts;
+};
+constexpr Ablation ABLATION[] = {
+    {"full", P_ALL},
+    {"no-hist", P_ALL & ~P_HIST},
+    {"all-streamed", P_ALL},
+    {"no-stream", P_ALL & ~P_STREAM},
+    {"no-fold", P_ALL & ~P_FOLD},
+    {"no-combine", P_ALL & ~P_COMBINE},
+    {"barrier-only", 0},
+};
+constexpr int N_ABLATION = sizeof(ABLATION) / sizeof(ABLATION[0]);
+
+// One ablation variant at LG lanes a group
+template <int LG>
+int run_ablation(int variant, const float* logA, const float* emits, const float* delta0,
+                 float* dfin, float* deltas, float* part_v, float* carry, unsigned int* count,
+                 unsigned int* err, const int* plan, int Tm, int N, int K, cudaStream_t s) {
+    static_assert(N_ABLATION == 7, "one case a variant");
+#define FVT_ABLATION(V) \
+    case V: \
+        return launch_persistent<LG, false, EMIT_ROWS, ABLATION[V].parts>( \
+            logA, emits, nullptr, delta0, dfin, nullptr, deltas, part_v, nullptr, carry, count, \
+            err, Tm, N, K, plan, s)
+    switch (variant) {
+        FVT_ABLATION(0);
+        FVT_ABLATION(1);
+        FVT_ABLATION(2);
+        FVT_ABLATION(3);
+        FVT_ABLATION(4);
+        FVT_ABLATION(5);
+        FVT_ABLATION(6);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef FVT_ABLATION
 }
 
 // ---- the step block ----
@@ -1076,42 +1021,58 @@ extern "C" int fvt_maxplus_step_block(const float* delta, const float* logA_bloc
 }
 
 // The scan-ablation probe (replaces scripts/vpu_probe.py: ablation,
-// _abl_kernel): the deltas scan one step a launch (scan_step, the design
-// the scans ran before the persistent kernel), with (write_hist != 0,
-// deltas (Tm, N, K)) or without (deltas null) the carry history, staging
-// kc source rows a chunk, kc in {128, 256, 512} (1024 would take 64 KB of
-// static shared memory at 16 lanes, above the 48 KB limit).  work holds
-// 2*N*K floats for the carry ping-pong.  dfin is the same in every mode.
-// Returns the first launch error, or cudaErrorInvalidValue for another kc.
+// _abl_kernel): the deltas scan of fvt_maxplus_scan (its arguments, in its
+// order; ptrs and part_i null, deltas (Tm, N, K) wherever the variant
+// writes the history) as variant `variant` of ABLATION, one cooperative
+// launch.  The plan's lanes are 1 or 16: the ablation instantiates those
+// two (a group of 16 also runs fewer live lanes).  Only "full",
+// "all-streamed" and, for dfin, "no-hist" compute the scan; the others'
+// outputs are undefined.  Returns the launch error, or
+// cudaErrorInvalidValue for another variant, lane count or a null deltas
+// the variant writes.
 extern "C" int fvt_maxplus_scan_deltas_ablation(const float* logA, const float* emits,
-                                                const float* delta0, float* dfin,
-                                                float* deltas, float* work, int Tm,
-                                                int N, int K, int write_hist, int kc,
-                                                void* stream, long long* launches) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FVT_ABLATION(WH, KCH) \
-    return run_ablation<WH, KCH>(logA, emits, delta0, dfin, deltas, work, Tm, N, K, s, launches)
-    if (write_hist) {
-        if (kc == 128) FVT_ABLATION(true, 128);
-        if (kc == 256) FVT_ABLATION(true, 256);
-        if (kc == 512) FVT_ABLATION(true, 512);
-    } else {
-        if (kc == 128) FVT_ABLATION(false, 128);
-        if (kc == 256) FVT_ABLATION(false, 256);
-        if (kc == 512) FVT_ABLATION(false, 512);
+                                                const float* delta0, float* dfin, int* ptrs,
+                                                float* deltas, float* part_v, int* part_i,
+                                                float* carry, unsigned int* count,
+                                                unsigned int* err, const int* plan, int Tm,
+                                                int N, int K, int variant, void* stream,
+                                                long long* launches) {
+    if (variant < 0 || variant >= N_ABLATION || ptrs != nullptr || part_i != nullptr ||
+        (deltas == nullptr && (ABLATION[variant].parts & P_HIST) != 0)) {
+        return static_cast<int>(cudaErrorInvalidValue);
     }
-#undef FVT_ABLATION
-    return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    int rc;
+    switch (plan[PF_LANES]) {
+        case 1:
+            rc = run_ablation<1>(variant, logA, emits, delta0, dfin, deltas, part_v, carry, count,
+                                 err, plan, Tm, N, K, s);
+            break;
+        case 16:
+            rc = run_ablation<16>(variant, logA, emits, delta0, dfin, deltas, part_v, carry,
+                                  count, err, plan, Tm, N, K, s);
+            break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (rc != 0) return rc;
+    ++*launches;
+    return 0;
 }
 
-// The card's L2: out[0] its bytes, out[1] the most it can set aside for
-// persisting accesses (cudaDevAttrMaxPersistingL2CacheSize).  Returns the
-// first error.
-extern "C" int fvt_device_l2(int device, int* out) {
-    cudaError_t e = cudaDeviceGetAttribute(out, cudaDevAttrL2CacheSize, device);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaDeviceGetAttribute(out + 1, cudaDevAttrMaxPersistingL2CacheSize, device);
-    return static_cast<int>(e);
+// The card's limits: out[0] its L2 bytes, out[1] the most of it that can be
+// set aside for persisting accesses, out[2] the SM clock's maximum in kHz,
+// out[3] its SMs, out[4] the shared memory and out[5] the 32-bit registers
+// of one SM.  Returns the first error.
+extern "C" int fvt_device_limits(int device, int* out) {
+    const cudaDeviceAttr attrs[] = {
+        cudaDevAttrL2CacheSize, cudaDevAttrMaxPersistingL2CacheSize, cudaDevAttrClockRate,
+        cudaDevAttrMultiProcessorCount, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+        cudaDevAttrMaxRegistersPerMultiprocessor};
+    for (int i = 0; i < 6; ++i) {
+        const cudaError_t e = cudaDeviceGetAttribute(out + i, attrs[i], device);
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    return 0;
 }
 
 extern "C" const char* fvt_error_string(int code) {

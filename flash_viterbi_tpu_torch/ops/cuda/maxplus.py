@@ -156,6 +156,18 @@ def scan_plan(K: int, N: int, sm_count: int, smem_bytes: int = SMEM_LIMIT,
                     two_phase=two_phase, smem=carry + rows_smem * stride * 4)
 
 
+def streamed_bytes(plan: ScanPlan) -> int:
+    """Bytes of logA the persistent scan streams a step under ``plan``:
+    every tile's rows past those held in shared memory."""
+    total = 0
+    for r in range(plan.R):
+        rows = plan.row_edges[r + 1] - plan.row_edges[r]
+        for c in range(plan.C):
+            cols = plan.col_edges[c + 1] - plan.col_edges[c]
+            total += max(0, rows - plan.rows_smem) * cols * 4
+    return total
+
+
 class StepPlan(NamedTuple):
     """How the step block tiles a (Ks, Kd) ``logA_blk`` for N lanes.
 
@@ -364,6 +376,20 @@ def _scan_cuda(fn_name: str, counter, inputs: dict, delta0, Tm: int,
     elif plan.row_edges[-1] != K or plan.col_edges[-1] != K or plan.lanes != plan_lanes(N):
         raise ValueError(f"the plan is for K={plan.row_edges[-1]} at {plan.lanes} lanes, "
                          f"not for K={K}, N={N}")
+    return launch_scan(fn_name, counter, inputs, delta0, hist, plan, err)
+
+
+def launch_scan(fn_name: str, counter, inputs: dict, delta0, hist, plan: ScanPlan,
+                err: torch.Tensor | None, *extra):
+    """Launch ``fn_name`` (``fvt_maxplus_scan``'s arguments, then ``extra``)
+    under ``plan``, whose shape the caller has checked, with the scratch it
+    needs; the history ``hist`` (T', N, K) holds pointers (int32) or
+    carries (float32).  ``err`` as in :func:`maxplus_scan`.  Returns (dfin,
+    hist)."""
+    N, K = delta0.shape
+    Tm = hist.shape[0]
+    with_ptr = hist.dtype == torch.int32
+    dev = delta0.device
     if err is not None:
         expect("err", err, torch.int32, (1,))
         if err.device != dev:
@@ -385,7 +411,7 @@ def _scan_cuda(fn_name: str, counter, inputs: dict, delta0, Tm: int,
            None if with_ptr else hist.data_ptr(),
            part_v.data_ptr(), None if part_i is None else part_i.data_ptr(),
            None if carry is None else carry.data_ptr(), sync.data_ptr(), err_ptr,
-           plan.c_args(), Tm, N, K)
+           plan.c_args(), Tm, N, K, *extra)
     if err is None:
         raise_on_error(sync[SYNC_ERR:], fn_name)
     return dfin, hist

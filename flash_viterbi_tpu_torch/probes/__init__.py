@@ -16,8 +16,10 @@ Each probe runs on the card unless asked for the CPU, where the kernels'
 plain versions run (slowly at these shapes) and the variants that have no
 plain version are skipped.  Each returns one record a variant, named as
 the JAX script names it where it has a counterpart, with its time per call
-(``bench.harness.marginal_time``) and the bytes and operations a call must
-move and do, from which a bound follows.  No probe writes a file.
+(``bench.harness.marginal_time``; the scan ablation's and ``probe_alu``'s
+device time back to back, ``bench.harness.queued_ms``) and the bytes and
+operations a call must move and do, from which ``bench/bounds.py`` makes a
+bound.  No probe writes a file.
 """
 
 from . import alu, beam, copy, scan

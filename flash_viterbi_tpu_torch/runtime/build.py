@@ -42,7 +42,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 
 # C entry points: every pointer and the stream as c_void_p (a c_int would cut
 # a 64-bit address); each returns the cudaError_t of its launches, but
-# fvt_beam_scan_clusters and fvt_fold_planes_clusters, which return a count
+# fvt_beam_scan_clusters, fvt_fold_planes_clusters and
+# fvt_probe_alu_blocks_per_sm, which return a count
 _SIGNATURES = {
     # logA, emits, delta0, dfin, ptrs, deltas, part_v, part_i, carry, count, err,
     # plan, Tm, N, K, stream, launches
@@ -70,13 +71,17 @@ _SIGNATURES = {
     # plan -> clusters of its size and shared memory the card keeps resident
     # (negative: a CUDA error)
     "fvt_beam_scan_clusters": [_IP],
-    # device, out[2] -> L2 bytes and the most it can keep for persisting accesses
-    "fvt_device_l2": [_I, _IP],
+    # device, out[6] -> L2 bytes, the most of it for persisting accesses, the SM
+    # clock's maximum in kHz, SMs, shared memory and registers of an SM
+    "fvt_device_limits": [_I, _IP],
     # the probes (flash_viterbi_tpu_torch/probes/)
-    # logA, emits, delta0, dfin, deltas, work, Tm, N, K, write_hist, kc, stream, launches
-    "fvt_maxplus_scan_deltas_ablation": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _LL],
-    # x, out, n, R, stream, launches
-    "fvt_probe_alu": [_P, _P, _I, _I, _P, _LL],
+    # fvt_maxplus_scan's arguments, then the variant
+    "fvt_maxplus_scan_deltas_ablation": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _IP, _I,
+                                         _I, _I, _I, _P, _LL],
+    # x, out, n, half, R, blocks, clocks, stream, launches
+    "fvt_probe_alu": [_P, _P, _I, _I, _I, _I, _P, _P, _LL],
+    # -> blocks of the add+max kernel an SM keeps resident (negative: a CUDA error)
+    "fvt_probe_alu_blocks_per_sm": [],
     # logA, emits, vals0, states0, hist, slots, err, plan, Tm, K, B, variant, stream,
     # launches
     "fvt_probe_beam": [_P, _P, _P, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _P, _LL],

@@ -2,17 +2,19 @@
 """Time the port's scan kernels of one checkout on the GPU, to compare two
 checkouts in turns on one card.
 
-    python3 scripts/torch_scan_turns.py CHECKOUT [CHECKOUT ...]
+    python3 scripts/torch_scan_turns.py [--scans-only] CHECKOUT [CHECKOUT ...]
 
 It prints the card's name and power limit first.  For each CHECKOUT (a
 directory holding ``flash_viterbi_tpu_torch``), in the order given, a fresh
 process builds that checkout's kernels, prints each kernel whose ``ptxas``
-report shows a spill, the registers and spill stores of every ``scan_step``
-instantiation (as ``<L, WITH_PTR, EMIT, WRITE_HIST, KC>``, the last two at
-their defaults 1, 256 where a checkout predates them; since the step block
-left it, the scan-ablation probe's alone), of every ``scan_persistent``
-one (as ``<LG, WITH_PTR, EMIT>``) and of every ``step_block_kernel`` one
-(as ``<LG>``), where the checkout has those kernels.  It times
+report shows a spill, the registers and spill stores of every
+``scan_persistent`` instantiation (as ``<LG, WITH_PTR, EMIT, PARTS>``,
+PARTS 15, every part, where a checkout predates it: the production
+instances and the scan-ablation probe's) and the length of its SASS
+(``cuobjdump -sass`` instructions), and of every ``step_block_kernel`` one
+(as ``<LG>``), where the checkout has those kernels.  With
+``--scans-only`` it then times the scans and the headline ``flash``,
+``checkpoint`` and ``fused`` decodes alone (below).  Else it times
 ``maxplus_step_block`` at the sharded decode's shapes ((N, Ks, Kd) = (1,
 3968, 3968), (16, 3968, 992), (1, 16384, 4096), and the (1, 1, 2) and (1,
 2, 2) meshes' (1, 3968, 1984), (16, 3968, 1984), (8, 3968, 1984);
@@ -21,10 +23,14 @@ CUDA-event runs around one call each (the host's launch cost included),
 the device time a call of chains of 20 queued behind a sleep of the card
 (back to back, as a decode calls it), and the device time with L2 flushed
 before each call.  Then the median of 9 CUDA-event runs of
-``maxplus_scan`` (N=1, T'=255) and
+``maxplus_scan`` (N=1, T'=255),
+``maxplus_scan_emitgather`` (N=1, T'=255, the headline symbols) and
 ``maxplus_scan_deltas`` (N=16, T'=16) on the headline tables (K=3965
-padded to 3968, M=50, prob=0.112, seed=1), and of both at K=16384 (N=1 and
-N=16, T'=32, standard normal tables drawn on the card); then, with the
+padded to 3968, M=50, prob=0.112, seed=1), and of the scan and the deltas
+scan at K=16384 (N=1 and N=16, T'=32, standard normal tables drawn on the
+card), and the headline ``flash`` (num_segments=16), ``checkpoint`` and
+``fused`` decodes, the median of 5 decodes' ``time_s`` each after a
+warmup; then, with the
 checkout's own ``chip_smoke.py`` input helpers, ``beam_scan`` at flash_bs's
 phase-1 shape (N=1, T'=255, B=64, 7 planes) and segment shape (8 ragged
 lanes, T'=32) and at Kp=17000 (B=64, T'=4, values in halves drawn on the
@@ -47,12 +53,36 @@ from __future__ import annotations
 
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 
 
-def time_checkout(root: str) -> None:
+SCAN = re.compile(r"scan_persistentILi(\d+)ELb(\d)ELNS_4EmitE(\d)E(?:Li(\d+)E)?")
+
+
+def scan_key(fn: str) -> str | None:
+    """``<LG,WITH_PTR,EMIT,PARTS>`` of a mangled scan_persistent name."""
+    q = SCAN.search(fn)
+    return "<{},{},{},{}>".format(*q.groups()[:3], q.group(4) or 15) if q else None
+
+
+def sass_lengths(lib: str) -> dict[str, int]:
+    """Instructions of each scan_persistent instance in ``lib``'s SASS."""
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], check=True, capture_output=True,
+                          text=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        key = scan_key(part.split(None, 1)[0])
+        if key:
+            out[key] = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", part))
+    return out
+
+
+def time_checkout(root: str, scans_only: bool = False) -> None:
     sys.path.insert(0, root)
     import torch
 
@@ -63,24 +93,20 @@ def time_checkout(root: str) -> None:
     dev = torch.device("cuda", 0)
     build.kernels()
     fn = None
-    kernels = {"scan_step": {}, "scan_persistent": {}, "step_block_kernel": {},
-               "beam_cluster_kernel": {}, "fold": {}}
+    kernels = {"scan_persistent": {}, "step_block_kernel": {}, "beam_cluster_kernel": {},
+               "fold": {}}
     with open(build.BUILD_LOG) as f:
         for line in f:
             m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
             fn = m.group(1) if m else fn
             if "spill stores" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                 print(f"  spill in {fn}: {line.strip().split('ptxas info    : ')[-1]}")
-            t = re.search(r"scan_stepILi(\d+)ELb(\d)ELNS_4EmitE(\d)E(?:Lb(\d)ELi(\d+)E)?", fn or "")
-            q = re.search(r"scan_persistentILi(\d+)ELb(\d)ELNS_4EmitE(\d)E", fn or "")
+            q = scan_key(fn or "")
             b = re.search(r"step_block_kernelILi(\d+)E", fn or "")
             c = re.search(r"(beam_cluster_kernel|fold_cluster_kernel|fold_kernel)"
                           r"((?:IL[bi]\d+E(?:L[bi]\d+E)*E)?)", fn or "")
-            if t:
-                L, ptr, emit, write_hist, kc = t.groups()
-                name, key = "scan_step", f"<{L},{ptr},{emit},{write_hist or 1},{kc or 256}>"
-            elif q:
-                name, key = "scan_persistent", "<{},{},{}>".format(*q.groups())
+            if q:
+                name, key = "scan_persistent", q
             elif b:
                 name, key = "step_block_kernel", f"<{b.group(1)}>"
             elif c:
@@ -96,12 +122,18 @@ def time_checkout(root: str) -> None:
         if found:
             print(f"  ptxas {name} " + "; ".join(f"{k}: {v[0]} registers, {v[1]} B spilled"
                                                  for k, v in sorted(found.items())))
+    print("  SASS scan_persistent " + "; ".join(
+        f"{k}: {n} instructions" for k, n in sorted(sass_lengths(build.KERNELS_SO).items())),
+        flush=True)
     hmm, y = make_sparse_hmm(K=3965, M=50, T=256, prob=0.112, seed=1)
     lh = hmm.log(device=dev).padded(128)
     e = lh.logB.t()[torch.as_tensor(y, dtype=torch.int64, device=dev)].contiguous()
     scan_in = (lh.logA, e[1:].unsqueeze(1), (lh.logPi + e[0])[None].contiguous())
     d16 = (lh.logA[torch.arange(16, device=dev) * 200] + e[0]).contiguous()
     deltas_in = (lh.logA, e[1:17].unsqueeze(1).expand(16, 16, -1).contiguous(), d16)
+    eg_in = (lh.logA, lh.logB.t().contiguous(),
+             torch.as_tensor(y[1:], dtype=torch.int32, device=dev)[:, None].contiguous(),
+             scan_in[2])
 
     def ms(fn, reps: int = 9) -> float:
         fn()
@@ -115,6 +147,13 @@ def time_checkout(root: str) -> None:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return statistics.median(times)
+
+    import flash_viterbi_tpu_torch as fvt
+
+    def decode_ms(yy, algorithm, **static) -> float:
+        fvt.decode(hmm, yy, algorithm, device="cuda", **static)
+        return statistics.median(fvt.decode(hmm, yy, algorithm, device="cuda", warmup=False,
+                                            **static).time_s * 1e3 for _ in range(5))
 
     def cold(fn, flush, reps: int = 9) -> float:
         """Device time of a call after ``flush`` is overwritten, the runs
@@ -151,6 +190,29 @@ def time_checkout(root: str) -> None:
             times.append(a.elapsed_time(b) / k)
         return statistics.median(times)
 
+    print(f"{root}: maxplus_scan N=1 T'=255 {ms(lambda: k.maxplus_scan(*scan_in)):.4f} ms; "
+          f"maxplus_scan_emitgather N=1 T'=255 "
+          f"{ms(lambda: k.maxplus_scan_emitgather(*eg_in)):.4f} ms; "
+          f"maxplus_scan_deltas N=16 T'=16 {ms(lambda: k.maxplus_scan_deltas(*deltas_in)):.4f} ms",
+          flush=True)
+    del e, scan_in, d16, deltas_in, eg_in
+    g = torch.Generator(device=dev).manual_seed(16384)
+    K, Tm = 16384, 32
+    logA = torch.randn((K, K), generator=g, device=dev)
+    big = {N: (logA, torch.randn((Tm, N, K), generator=g, device=dev),
+               torch.randn((N, K), generator=g, device=dev)) for N in (1, 16)}
+    print(f"{root}: K={K}, T'={Tm}: maxplus_scan N=1 "
+          f"{ms(lambda: k.maxplus_scan(*big[1]), 5):.4f} ms; maxplus_scan_deltas N=1 "
+          f"{ms(lambda: k.maxplus_scan_deltas(*big[1]), 5):.4f} ms; N=16 "
+          f"{ms(lambda: k.maxplus_scan_deltas(*big[16]), 5):.4f} ms", flush=True)
+    del logA, big
+    torch.cuda.empty_cache()
+    print(f"{root}: decodes, median of 5: flash {decode_ms(y, 'flash', num_segments=16):.3f} ms; "
+          f"checkpoint {decode_ms(y, 'checkpoint'):.3f} ms; fused {decode_ms(y, 'fused'):.3f} ms",
+          flush=True)
+    if scans_only:
+        return
+
     flush = torch.empty(32 * 2**20, device=dev)  # 128 MiB, more than the 50 MB L2
     gs = torch.Generator(device=dev).manual_seed(992)
     for N, Ks, Kd in ((1, 3968, 3968), (16, 3968, 992), (1, 16384, 4096), (1, 3968, 1984),
@@ -163,22 +225,7 @@ def time_checkout(root: str) -> None:
         print(f"{root}: maxplus_step_block ({N}, {Ks}, {Kd}) {timed:.4f} ms a timed call, "
               f"{warm:.4f} ms of device time back to back (queued), {flushed:.4f} ms with L2 "
               f"flushed", flush=True)
-    del flush, step_in
-    print(f"{root}: maxplus_scan N=1 T'=255 {ms(lambda: k.maxplus_scan(*scan_in)):.4f} ms; "
-          f"maxplus_scan_deltas N=16 T'=16 {ms(lambda: k.maxplus_scan_deltas(*deltas_in)):.4f} ms",
-          flush=True)
-    del lh, e, scan_in, d16, deltas_in
-    g = torch.Generator(device=dev).manual_seed(16384)
-    K, Tm = 16384, 32
-    logA = torch.randn((K, K), generator=g, device=dev)
-    big = {N: (logA, torch.randn((Tm, N, K), generator=g, device=dev),
-               torch.randn((N, K), generator=g, device=dev)) for N in (1, 16)}
-    print(f"{root}: K={K}, T'={Tm}: maxplus_scan N=1 "
-          f"{ms(lambda: k.maxplus_scan(*big[1]), 5):.4f} ms; maxplus_scan_deltas N=1 "
-          f"{ms(lambda: k.maxplus_scan_deltas(*big[1]), 5):.4f} ms; N=16 "
-          f"{ms(lambda: k.maxplus_scan_deltas(*big[16]), 5):.4f} ms", flush=True)
-    del logA, big
-    torch.cuda.empty_cache()
+    del flush, step_in, lh
 
     import chip_smoke as cs
     from flash_viterbi_tpu_torch.ops import maxplus as mp
@@ -229,13 +276,7 @@ def time_checkout(root: str) -> None:
               f"{cold(lambda: fold(*args), flush):.4f} ms with L2 flushed", flush=True)
     del flush
 
-    import flash_viterbi_tpu_torch as fvt
     from flash_viterbi_tpu_torch.models.generate import observations
-
-    def decode_ms(yy, algorithm, **static) -> float:
-        fvt.decode(hmm, yy, algorithm, device="cuda", **static)
-        return statistics.median(fvt.decode(hmm, yy, algorithm, device="cuda", warmup=False,
-                                            **static).time_s * 1e3 for _ in range(5))
 
     long_y = observations(16384, 50, seed=1)
     print(f"{root}: decodes, median of 5: flash_bs "
@@ -247,13 +288,17 @@ def time_checkout(root: str) -> None:
 
 
 def main() -> None:
-    if len(sys.argv) > 2 and sys.argv[1] == "--one":
-        time_checkout(os.path.abspath(sys.argv[2]))
+    args = sys.argv[1:]
+    scans_only = "--scans-only" in args
+    args = [a for a in args if a != "--scans-only"]
+    if len(args) > 1 and args[0] == "--one":
+        time_checkout(os.path.abspath(args[1]), scans_only)
         return
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    for root in sys.argv[1:]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root], check=True)
+    for root in args:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root]
+                       + (["--scans-only"] if scans_only else []), check=True)
 
 
 if __name__ == "__main__":

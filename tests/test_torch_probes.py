@@ -21,8 +21,10 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from flash_viterbi_tpu_torch import probes
+from flash_viterbi_tpu_torch.bench import bounds
 from flash_viterbi_tpu_torch.bench.harness import marginal_time
 from flash_viterbi_tpu_torch.ops.cuda import beam as kbeam
+from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
 from flash_viterbi_tpu_torch.probes import alu, beam, copy, scan
 from flash_viterbi_tpu_torch.probes.__main__ import main as probes_main
 
@@ -42,16 +44,61 @@ def _script(name: str):
     return mod
 
 
+@pytest.mark.parametrize("shape", [(16, 128), (7, 131)])
 @pytest.mark.parametrize("rounds", [0, 1, 4])
-def test_alu_matches_vpu_kernel(rounds):
+def test_alu_matches_vpu_kernel(rounds, shape):
+    """On the probe's block and on an odd element count, whose last pair of
+    the resident grid is one element."""
     vp = _script("vpu_probe")
-    x = alu.inputs(16, 128, device="cpu")
+    x = alu.inputs(*shape, device="cpu")
     want = pl.pallas_call(functools.partial(vp._vpu_kernel, R=rounds),
-                          out_shape=jax.ShapeDtypeStruct((16, 128), jnp.float32),
+                          out_shape=jax.ShapeDtypeStruct(shape, jnp.float32),
                           interpret=True)(jnp.asarray(x.numpy()))
     got = alu.probe_alu(x, rounds)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert alu.operations(x.numel(), rounds) == 2 * alu.cells(x.numel(), rounds) + 7 * x.numel()
+
+
+@pytest.mark.parametrize("blocks_per_sm,sms", [(1, 1), (3, 2), (8, 5)])
+def test_alu_resident_grid_takes_every_element_once(blocks_per_sm, sms):
+    """The kernel's walk (``thread_elements``) over the resident grid: every
+    element once, two a pair but an odd count's last pair, the grid
+    striding where the elements outnumber its threads twice over."""
+    for n in (1, 2, 3, 63, 64, 65, 2 * alu.THREADS * blocks_per_sm * sms + 1, 9001):
+        plan = alu.alu_plan(n, blocks_per_sm, sms)
+        assert plan.blocks == blocks_per_sm * sms and plan.half == (n + 1) // 2
+        got = [e for b in range(plan.blocks) for t in range(alu.THREADS)
+               for e in alu.thread_elements(plan, n, b, t)]
+        assert sorted(got) == list(range(n))
+        one = [t for b in range(plan.blocks) for t in range(alu.THREADS)
+               if len(alu.thread_elements(plan, n, b, t)) % 2]
+        assert len(one) == n % 2
+    with pytest.raises(ValueError, match="n, blocks_per_sm"):
+        alu.alu_plan(0, blocks_per_sm, sms)
+
+
+def test_bounds_count_the_issue_rate_and_logA_beyond_the_chip():
+    """An add or a max issues at 128 a clock an SM, half the published 67
+    TFLOP/s (an FMA counted as two): probe_alu at R=64 is bound at 4.01 us
+    of cells, 4.07 with its scalings and sums.  A logA larger than what the
+    card holds on chip is read again every step less that: at phaseA ~9.2
+    ms by bytes; the headline's 63 MB logA fits and counts once."""
+    h100 = bounds.H100
+    assert 2 * h100.ops_per_s == pytest.approx(67e12, rel=0.002)
+    assert h100.on_chip_bytes == pytest.approx(116e6, rel=0.02)
+    n = alu.ROWS * alu.COLS
+    assert alu.cells(n, alu.R) / (h100.ops_per_s / 2) * 1e6 == pytest.approx(4.012, abs=1e-3)
+    ms, by = bounds.bound(2 * n * 4, alu.operations(n, alu.R))
+    assert by == "operations" and ms * 1e3 == pytest.approx(4.067, abs=1e-3)
+    K, N, Tm = scan.SHAPES["phaseA"]
+    moved, ops = scan.work(K, N, Tm, True)
+    ms, by = bounds.bound(moved, ops)
+    assert by == "bytes" and ms == pytest.approx(9.19, abs=0.01)
+    assert bounds.bound(0, ops)[0] == pytest.approx(8.217, abs=1e-3)
+    assert moved > Tm * (K * K * 4 - h100.on_chip_bytes)
+    assert bounds.table_bytes(3968 * 3968 * 4, 255) == 3968 * 3968 * 4
+    assert bounds.table_bytes(K * K * 4, 1) == K * K * 4
+    assert bounds.card("cpu") == h100
 
 
 def _ablation_pallas(vp, logA, emits, delta0, write_hist, BK=128, BI=128):
@@ -74,18 +121,50 @@ def _ablation_pallas(vp, logA, emits, delta0, write_hist, BK=128, BI=128):
     )(jnp.asarray(delta0), jnp.asarray(logA), jnp.asarray(emits))
 
 
-@pytest.mark.parametrize("write_hist", [True, False])
-def test_scan_ablation_matches_abl_kernel(write_hist):
-    vp = _script("vpu_probe")
+@functools.lru_cache(maxsize=None)
+def _ablation_want(write_hist: bool):
     logA, emits, delta0 = scan.inputs(256, 2, 3, device="cpu")
-    jdfin, jhist = _ablation_pallas(vp, logA.numpy(), emits.numpy(), delta0.numpy(), write_hist)
-    for kc in scan.KCS:
-        dfin, deltas = scan.probe_scan_ablation(logA, emits, delta0, write_hist, kc)
-        np.testing.assert_array_equal(dfin.numpy(), np.asarray(jdfin))
-        if write_hist:
-            np.testing.assert_array_equal(deltas.numpy(), np.asarray(jhist))
-        else:
-            assert deltas is None
+    return tuple(np.asarray(a) for a in _ablation_pallas(
+        _script("vpu_probe"), logA.numpy(), emits.numpy(), delta0.numpy(), write_hist))
+
+
+@pytest.mark.parametrize("variant", scan.EXACT)
+@pytest.mark.parametrize("write_hist", [True, False])
+def test_scan_ablation_matches_abl_kernel(write_hist, variant):
+    """The variants that compute the scan against ``_abl_kernel`` with and
+    without its history: dfin always, the history wherever both write it."""
+    jdfin, jhist = _ablation_want(write_hist)
+    dfin, deltas = scan.probe_scan_ablation(*scan.inputs(256, 2, 3, device="cpu"), variant)
+    np.testing.assert_array_equal(dfin.numpy(), jdfin)
+    assert (deltas is None) == (variant == "no-hist")
+    if write_hist and deltas is not None:
+        np.testing.assert_array_equal(deltas.numpy(), jhist)
+
+
+@pytest.mark.parametrize("variant", [v for v in scan.VARIANTS if v not in scan.EXACT])
+def test_scan_ablation_attribution_variants_have_no_plain_version(variant):
+    args = scan.inputs(64, 2, 3, device="cpu")
+    with pytest.raises(ValueError, match="cost attribution"):
+        scan.probe_scan_ablation(*args, variant)
+    with pytest.raises(ValueError, match="cost attribution"):
+        scan.probe_scan_ablation_plain(*args, variant)
+
+
+def test_scan_ablation_plans_are_the_production_plans():
+    """Each variant runs under the production plan of 1 lane or 16 a
+    group; all-streamed under that plan with no row in shared memory and
+    the same carry passes; the split reads a step's parts."""
+    for K, N in ((3968, 1), (3968, 16), (4096, 64), (16384, 16), (300, 5)):
+        full = scan.ablation_plan(K, N, SMS)
+        assert full == km.scan_plan(K, N if N in (1, 16, 64) else 16, SMS)
+        streamed = scan.ablation_plan(K, N, SMS, "all-streamed")
+        assert streamed.rows_smem == 0 and streamed.carry_rows == full.carry_rows
+        assert streamed.smem == full.smem - full.rows_smem * full.stride * 4
+        assert km.streamed_bytes(streamed) == K * K * 4 >= km.streamed_bytes(full)
+    sp = scan.split({"full": 10.0, "no-hist": 9.0, "all-streamed": 12.0, "no-stream": 6.0,
+                     "no-fold": 7.0, "no-combine": 8.0, "barrier-only": 1.0}, 5, 2, 100)
+    assert sp == {"fixed_step_s": 0.2, "combine_step_s": 0.4, "stream_step_s": 0.8,
+                  "stream_bytes_per_s": 250.0, "fold_step_s": 0.6, "hist_step_s": 0.2}
 
 
 def test_scan_inputs_share_one_logA_draw_per_K():
@@ -96,8 +175,8 @@ def test_scan_inputs_share_one_logA_draw_per_K():
     assert b[0] is a[0]
     for x, y in zip(b, fresh):
         assert torch.equal(x, y)
-    with pytest.raises(ValueError, match="kc"):
-        scan.probe_scan_ablation(*a, kc=1024)
+    with pytest.raises(ValueError, match="unknown variant"):
+        scan.probe_scan_ablation(*a, "KC256")
 
 
 def _beam_pallas(kern, logA, emits, vals0, states0):
@@ -270,8 +349,11 @@ def _fake_launches(monkeypatch, modules):
 
     for mod in modules:
         monkeypatch.setattr(mod, "on_cuda", lambda *t: True)
+    for mod in (alu, beam, copy, km):  # km: the scan ablation launches through launch_scan
         monkeypatch.setattr(mod, "launch", fake_launch)
-    monkeypatch.setattr(copy, "sm_count", lambda dev: SMS)
+    for mod in (copy, scan, alu):
+        monkeypatch.setattr(mod, "sm_count", lambda dev: SMS)
+    monkeypatch.setattr(alu, "_blocks_per_sm", lambda: 8)
     monkeypatch.setattr(beam, "plan", lambda Kp, Bw, device: kbeam.beam_plan(Kp, Bw, 1, SMS))
     monkeypatch.setattr(kbeam, "_clusters", lambda index, plan: 1)
     probes.reset_launches()
@@ -296,7 +378,7 @@ def test_cuda_branches_launch_and_refuse_non_contiguous_inputs(monkeypatch):
             fn(*args)
     assert calls == []
     alu.probe_alu(x, 4)
-    scan.probe_scan_ablation(*sargs, write_hist=False, kc=512)
+    scan.probe_scan_ablation(*sargs, "no-fold")
     beam.probe_beam_parts(*bargs, "no-dma")
     beam.probe_beam_select(*bargs, "blockm")
     beam.probe_beam_select(*bargs, "sort")
@@ -308,8 +390,11 @@ def test_cuda_branches_launch_and_refuse_non_contiguous_inputs(monkeypatch):
     assert names == ["fvt_probe_alu", "fvt_maxplus_scan_deltas_ablation", "fvt_probe_beam",
                      "fvt_probe_beam", "fvt_probe_beam", "fvt_probe_copy_rows",
                      "fvt_probe_copy_rows", "fvt_probe_copy_p4", "fvt_probe_copy_p5"]
-    assert calls[0][1][-2:] == (x.numel(), 4)
-    assert calls[1][1][4] is None and calls[1][1][-5:] == (3, 2, 64, 0, 512)
+    assert calls[0][1][2:] == (x.numel(), x.numel() // 2, 4, 8 * SMS, None)
+    a = calls[1][1]
+    assert a[4] is None and a[5] is not None and a[7] is None  # deltas, no pointers
+    assert a[-4:] == (3, 2, 64, scan.VARIANTS.index("no-fold"))
+    assert list(a[-5]) == list(km.scan_plan(64, 16, SMS).c_args())  # 2 lanes in a group of 16
     assert [a[-1] for _, a in calls[2:5]] == [beam.VARIANTS.index("no-dma"),
                                              beam.VARIANTS.index("blockm"), 0]
     assert calls[5][1][-4:-1] == (4, 256, 1) and calls[6][1][-4:-1] == (4, 256, copy.P3_B)
@@ -352,6 +437,33 @@ def test_beam_probe_kernel_table_matches_variants_and_production_is_one_instance
             "true, true, SEL_RADIX"]
 
 
+def test_scan_ablation_table_matches_variants_and_production_passes_all_parts():
+    """csrc/maxplus_scan.cu's ablation table names probes/scan.py:VARIANTS
+    in their order, each with the parts of a step it keeps, "full" and
+    "all-streamed" (a plan, not a template) the production P_ALL; the
+    variants that keep every part the scan's result needs are EXACT; every
+    production launch of scan_persistent passes P_ALL."""
+    path = os.path.join(os.path.dirname(SCRIPTS), "flash_viterbi_tpu_torch", "csrc",
+                        "maxplus_scan.cu")
+    with open(path) as f:
+        src = f.read()
+    table = re.findall(r'\{"([a-z-]+)", (P_ALL(?: & ~P_[A-Z]+)?|0)\}', src)
+    assert tuple(name for name, _ in table) == scan.VARIANTS
+    parts = dict(table)
+    assert parts["full"] == parts["all-streamed"] == "P_ALL"
+    assert parts["barrier-only"] == "0"
+    cut = {name: p.split("~")[-1] for name, p in parts.items() if "~" in p}
+    assert cut == {"no-hist": "P_HIST", "no-stream": "P_STREAM", "no-fold": "P_FOLD",
+                   "no-combine": "P_COMBINE"}
+    assert {name for name, p in parts.items() if p in ("P_ALL", "P_ALL & ~P_HIST")} == set(
+        scan.EXACT)
+    launches = re.findall(r"launch_persistent<([^>]*)>\(", src)
+    assert sorted(launches) == ["LG, WITH_PTR, EMIT, P_ALL", "LG, false, EMIT_ROWS, ABLATION[V].parts"]
+    assert re.findall(r"run_scan<(\w+), (\w+)>\(", src) == [
+        ("true", "EMIT_ROWS"), ("false", "EMIT_ROWS"), ("true", "EMIT_GATHER")]
+    assert "scan_step" not in src and "for_each_step" not in src
+
+
 @pytest.mark.parametrize("name", list(probes.PROBES))
 def test_probe_runs_hand_their_kernels_contiguous_inputs(name, monkeypatch):
     """Each probe's run, at a small size on the CPU, calls its wrappers on
@@ -371,7 +483,7 @@ def test_probe_runs_hand_their_kernels_contiguous_inputs(name, monkeypatch):
         monkeypatch.setattr(mod, attr, wrapped)
 
     small = {"alu": dict(rows=16, cols=128, rounds=2, rate_rounds=4),
-             "scan": dict(shapes={"tiny": (128, 3, 2)}, kcs=(128, 512)),
+             "scan": dict(shapes={"tiny": (128, 3, 2)}),
              "beam_profile": dict(Bw=4, Kp=256, Tm=3),
              "beam_profile2": dict(Bw=4, Kp=256, Tm=3),
              "copy": dict(beam_tm=3, beam_k=128)}[name]
@@ -388,7 +500,7 @@ def test_probe_runs_hand_their_kernels_contiguous_inputs(name, monkeypatch):
     assert timed and all(r["device"] == "cpu" and r["per_call_s"] > 0 and r["bytes"] > 0
                          for r in timed)
     if name == "scan":
-        assert len(timed) == 4 and {r["variant"] for r in records} >= set(scan.NO_RUN)
+        assert len(timed) == len(scan.EXACT) and {r["variant"] for r in records} >= set(scan.NO_RUN)
 
 
 def test_main_prints_one_json_line_a_variant(capsys):
