@@ -124,7 +124,16 @@ Phases, each fatal on failure:
    fixture (``make_tie_hmm``: uniform rows, an all -inf column, K=300,
    T=64) equals the CPU decode and the oracles.  The scan at every lane count 1..128 a headline
    level gives and at 8192 lanes (T=16384's deepest level) equals its
-   plain version, all -inf columns pointing at 0.  The harness's ``sweep``
+   plain version, all -inf columns pointing at 0.  ``decode(...,
+   "sieve_bs", beam_width=64)`` (no hand kernel: none may launch) on
+   request 0 equals the port's CPU decode bit for bit, ``memory:`` its
+   analytic value; its time, device busy time, idle share and kernel
+   launches (torch.profiler), peak allocation beside ``memory:``, the
+   tree's nodes and levels, the b-hop searches' hops and the host BFS's
+   time are printed; at K=512 it equals the float64 SIEVE-BS oracle, and
+   with a beam of 2 at K=61, M=6, T=24, prob=0.19, seed 1 (a node whose
+   every median candidate the beam prunes) the fp32 framework mirror, its
+   ``(-1, -1)`` pair included.  The harness's ``sweep``
    at the mirror fixtures: parity True, headers ``CSV_FIELDS``.
 9. Sharded, one rank: ``decode_batch(hmm, requests, mesh=make_mesh(1, 1,
    1), num_segments=16, device="cuda")`` on the four headline requests;
@@ -168,7 +177,14 @@ production beam scan's cluster kernel) ``full``, ``sort``, ``pick``,
 ``beam_scan`` on the probes' fixture and on a tie fixture,
 p1 and p3 on the TPU probe's fixture and on a beam scan's rows, each under
 the card's plan and under plans of 1 and 3 CTAs (long runs of steps, every
-ring stage's barrier through many phases), p4, p5 on its forced tie.
+ring stage's barrier through many phases), p4, p5 on its forced tie; p4 as
+a cluster at (Tm, W, C) = (4, 8, 1), (255, 32, 1), (255, 512, 16), (255,
+512, 8) and (255, 16, 16) by both publishes (``st.async`` onto each
+CTA's mbarrier, one ``cluster.sync()`` a step), a value per step and
+slot, and p5 as a cluster at (n, C) = (256, 1), (3968, 1), (3968, 16) on
+a tie won in the first CTA's shard and on one won in the last, each with
+CTA 0's clock read back, and p5's cluster on the TPU fixture against the
+old p5.
 p1's and p3's time at both shapes is printed beside ``Tensor.copy_``'s,
 timed alike: the device's time a call back to back (chains queued behind a
 sleep of the card, no host read inside a chain: the records' ``ms`` and
@@ -183,17 +199,26 @@ the select; each scan-ablation shape's step split (fixed cost, combine,
 streamed rows and their rate, fold, history); ``probe_alu``'s device time,
 cycles a call, cells a clock an SM and implied SM clock beside its two
 targets, and the scans' operation bound at the issue rate and at the
-measured add+max rate.
+measured add+max rate; the chases' cycles a dependent step (shared memory,
+a peer CTA's shared memory, a shuffle, a winner's compare), an empty
+kernel's device time back to back (the launch floor), each cluster probe's
+device time back to back, CTA 0's cycles a step or a call, its
+dependent-chain floor (``bench/bounds.py``) and share, and at C=16 the
+cycles of a ``cluster.sync()`` publish against a remote-mbarrier one,
+times the beam step's five barriers, against the beam probes' step.
 
 Launch counters are set to 0 before each phase and read after it; every
 kernel of that phase's path must have launched.  Prints a ``{"kernels":
 [...]}`` JSON line (launches summed over the decode phases of this
-process, and the probe kernels' over the probe path), then, last, the
+process, and the probe kernels' over the probe path; ``latency_floor_ms``
+the dependent-chain floor where a kernel's row states one, else null),
+then, last, the
 ``{"ok": true, "device": {...}}`` line.  Imports no JAX.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -266,9 +291,15 @@ ORACLE_MAX_CELLS = 2e10
 HARNESS_OK = (True, "mirror-exact", "tie-equivalent")
 # the SIEVE decoders' kernels, and their oracles' largest K (the harness's
 # _MIRROR_MAX_K): the mirror fixtures are the headline's M, prob, seed and T
-SIEVE_NEEDS = {"sieve_mp": ("maxplus_scan", "fold_planes"), "sieve_bs_mp": ("maxplus_scan",)}
-SIEVE_MIRROR_K = {"sieve_mp": 1024, "sieve_bs_mp": 512}
-SIEVE_STATIC = {"sieve_mp": {}, "sieve_bs_mp": {"beam_width": BEAM_WIDTH}}
+SIEVE_NEEDS = {"sieve_mp": ("maxplus_scan", "fold_planes"), "sieve_bs_mp": ("maxplus_scan",),
+               "sieve_bs": ()}
+SIEVE_MIRROR_K = {"sieve_mp": 1024, "sieve_bs_mp": 512, "sieve_bs": 512}
+SIEVE_STATIC = {"sieve_mp": {}, "sieve_bs_mp": {"beam_width": BEAM_WIDTH},
+                "sieve_bs": {"beam_width": BEAM_WIDTH}}
+# sieve_bs with a beam of 2 on a fixture where it prunes every median
+# candidate of a node (the reference crashes there; the decoder emits
+# (-1, -1)): held to the fp32 framework mirror
+SIEVE_BS_SENTINEL = (dict(K=61, M=6, T=24, prob=0.19, seed=1), 2)
 # the port's CPU decodes that the card's headline paths are held to bit for
 # bit, and the SIEVE mirror fixtures' oracles (request None), made by
 # worker processes (``witness_main``) while the card's phases run: (tag,
@@ -280,7 +311,7 @@ WITNESS_JOBS = (
     tuple((f"flash{i}", "flash", i, {"num_segments": SEGMENTS})
           for i in range(1 + len(EXTRA_SEEDS)))
     + tuple((f"mirror_{name}", name, None, SIEVE_STATIC[name]) for name in SIEVE_MIRROR_K),
-    (("sieve_mp", "sieve_mp", 0, {}),),
+    (("sieve_mp", "sieve_mp", 0, {}), ("sieve_bs", "sieve_bs", 0, SIEVE_STATIC["sieve_bs"])),
     (("sieve_bs_mp", "sieve_bs_mp", 0, SIEVE_STATIC["sieve_bs_mp"]),
      ("sieve_mp_unpruned", "sieve_mp", 0, {"prune": False})))
 WITNESS_THREADS = 2
@@ -333,13 +364,23 @@ PROBE_KERNELS = {
                       "scripts/beam_dma_probe.py:126"),
     "probe_copy_p5": ("flash_viterbi_tpu_torch/csrc/probe_copy.cu",
                       "scripts/beam_dma_probe.py:154"),
+    "probe_copy_p4_cluster": ("flash_viterbi_tpu_torch/csrc/probe_copy.cu",
+                              "scripts/beam_dma_probe.py:126"),
+    "probe_copy_p5_cluster": ("flash_viterbi_tpu_torch/csrc/probe_copy.cu",
+                              "scripts/beam_dma_probe.py:154"),
 }
 # the record of probes.run() whose time stands for each probe kernel: the
 # production configuration where there is one, else the beam scan's rows
 PROBE_TIMED = {"probe_alu": "vpu_peak", "probe_scan_ablation": "phaseA_full",
                "probe_beam_parts": "full", "probe_beam_select": "pick",
                "probe_copy_p1": "p1_beam_rows", "probe_copy_p3": "p3_beam_rows",
-               "probe_copy_p4": "p4", "probe_copy_p5": "p5"}
+               "probe_copy_p4": "p4", "probe_copy_p5": "p5",
+               "probe_copy_p4_cluster": "p4c_beam_c16_mbarrier",
+               "probe_copy_p5_cluster": "p5c_carry_row_c16"}
+# the beam step's cluster barriers a step (beam_cluster.cuh's radix select:
+# up to five): the cluster publishes at C=16 times these are set against the
+# beam probes' full step at one lane
+BEAM_STEP_BARRIERS = 5
 # the beam probes' sweep over the beam width (the TPU probe's B parameter)
 BEAM_SWEEP_B = (1, 16, 64, 256)
 BEAM_SWEEP_VARIANTS = ("full", "no-pick", "no-fold")
@@ -1510,7 +1551,49 @@ def probe_check_phase(device) -> dict[str, dict]:
     print("probe copies: p1 and p3 on the TPU probe's fixture and on 255 rows of 3968 floats "
           "under the card's plan and plans of 1 and 3 CTAs, p4 at (4, 8) and (255, 32), p5 on "
           "its forced tie: bit-exact, no mbarrier wait timed out", flush=True)
+    cluster_checks(device, recs, hold)
     return recs
+
+
+def cluster_checks(device, recs: dict[str, dict], hold) -> None:
+    """p4 and p5 as clusters against their plain versions, bit for bit: p4 at
+    every shape of ``P4_CLUSTER_SHAPES`` by both publishes (a value per
+    step and slot), p5 at every shape of ``P5_CLUSTER_SHAPES`` on both
+    forced ties (the winner in the first CTA's shard, and in the last with
+    its tied partner in a lower one), and p5 on the TPU probe's fixture
+    against the old p5; each call's CTA 0 clock read back; the plain
+    versions' time at the timed shapes."""
+    from flash_viterbi_tpu_torch.probes import copy
+
+    clocks = copy.clock_buffer(device)
+    for shape, (Tm, W, C) in copy.P4_CLUSTER_SHAPES.items():
+        want = copy.probe_copy_p4_cluster_plain(Tm, W, C, device)
+        for pub in copy.PUBS:
+            hold("probe_copy_p4_cluster",
+                 copy.probe_copy_p4_cluster(Tm, W, C, pub, device, clocks=clocks), want)
+            require(copy.cycles(clocks) > 0, f"p4 cluster {shape} {pub}: no clock readout")
+    for (shape, (n, C)), late in itertools.product(copy.P5_CLUSTER_SHAPES.items(),
+                                                   (False, True)):
+        v, c = copy.p5_row(n, device, late=late)
+        want = copy.probe_copy_p5_cluster_plain(v, c)
+        best = min(zip(-v.cpu().numpy(), c.cpu().numpy()))
+        require(int(want[1][0, 0]) == best[1], "p5 cluster: the plain version is not the winner")
+        hold("probe_copy_p5_cluster", copy.probe_copy_p5_cluster(v, c, C, clocks=clocks), want)
+        require(copy.cycles(clocks) > 0, f"p5 cluster {shape} late={late}: no clock readout")
+    v, c = copy.p5_fixture(device=device)
+    hold("probe_copy_p5_cluster", copy.probe_copy_p5_cluster(v.reshape(-1), c.reshape(-1), 1),
+         copy.probe_copy_p5(v, c))
+    Tm, W, C = copy.P4_CLUSTER_SHAPES["beam_c16"]
+    recs["probe_copy_p4_cluster"]["plain_ms"] = elapsed_ms(
+        lambda: copy.probe_copy_p4_cluster_plain(Tm, W, C, device), device, 9)
+    n, C = copy.P5_CLUSTER_SHAPES["carry_row_c16"]
+    v, c = copy.p5_row(n, device)
+    recs["probe_copy_p5_cluster"]["plain_ms"] = elapsed_ms(
+        lambda: copy.probe_copy_p5_cluster_plain(v, c), device, 9)
+    print(f"probe clusters: p4 at {dict(copy.P4_CLUSTER_SHAPES)} (Tm, W, C) by {copy.PUBS}, "
+          f"p5 at {dict(copy.P5_CLUSTER_SHAPES)} (n, C) on its early and late ties, and p5 on "
+          f"the TPU fixture against the old p5: bit-exact, every clock read back, no mbarrier "
+          f"wait timed out", flush=True)
 
 
 def probe_phase(device, probe_recs: dict[str, dict], kernel_recs: dict[str, dict]) -> dict:
@@ -1575,6 +1658,8 @@ def probe_phase(device, probe_recs: dict[str, dict], kernel_recs: dict[str, dict
     for rec in (p1, p3):
         rec.update(slope_ms=rec["ms"], ms=rec["queued_ms"])
 
+    cluster_floors(device, records, us["full"], C, probe_recs)
+
     alu_targets({r["variant"]: r for r in records if r.get("kernel") == "probe_alu"})
     rate = next(r for r in records if r["variant"] == "vpu_peak_rate")
     on = card()
@@ -1589,6 +1674,62 @@ def probe_phase(device, probe_recs: dict[str, dict], kernel_recs: dict[str, dict
     except (OSError, subprocess.CalledProcessError) as e:
         print(f"probe_alu SASS: not read ({e})", flush=True)
     return launches
+
+
+def cluster_floors(device, records: list[dict], beam_step_us: float, beam_C: int,
+                   probe_recs: dict[str, dict]) -> None:
+    """The cluster probes beside their dependent-chain floors: the chases'
+    cycles a dependent step (shared memory, a peer CTA's, a shuffle, a
+    winner's compare) and an empty kernel's device time back to back (the
+    launch floor, information); each p4 and p5 cluster record's device time
+    back to back, CTA 0's cycles a step (p4) or a call (p5), its floor and
+    share, and its chain slope; at C=16, a cluster.sync() publish against a
+    remote-mbarrier publish, times the beam step's barriers, against the
+    beam probes' step.  Latencies convert at the card's maximum SM clock.
+    The floor at each cluster kernel's timed shape (``PROBE_TIMED``) is its
+    ``latency_floor_ms`` in ``probe_recs``."""
+    from flash_viterbi_tpu_torch.bench import bounds
+    from flash_viterbi_tpu_torch.probes import copy
+
+    on = card()
+    lat_cyc = copy.latencies(device)
+    lat_s = {k: c / on.clock_hz for k, c in lat_cyc.items()}
+    empty_ms = queued_ms(lambda: copy.probe_empty(device), device)
+    print(f"chases, cycles a dependent step ({copy.CHASE_HOPS} steps less {copy.CHASE_HOPS // 2}"
+          f"): " + ", ".join(f"{k} {c:.2f} ({lat_s[k] * 1e9:.2f} ns)" for k, c in lat_cyc.items())
+          + f" at {on.clock_hz / 1e9:.3f} GHz; empty kernel {empty_ms * 1e3:.3f} us of device "
+          f"time back to back (the launch floor every one-launch probe pays)", flush=True)
+    per_step = {}
+    for rec in records:
+        if rec.get("kernel") not in ("probe_copy_p4_cluster", "probe_copy_p5_cluster"):
+            continue
+        ms = rec["back_to_back_s"] * 1e3
+        if rec["kernel"] == "probe_copy_p4_cluster":
+            Tm, W, C = rec["shape"]
+            floor = bounds.p4_floor_s(Tm, C, lat_s) * 1e3
+            per_step[rec["variant"]] = rec["cycles"] / Tm
+            cyc = f"{rec['cycles'] / Tm:.1f} cycles a step ({rec['cycles']} a call)"
+        else:
+            n, C = rec["shape"]
+            floor = bounds.p5_floor_s(n, C, lat_s) * 1e3
+            cyc = f"{rec['cycles']} cycles a call"
+        if PROBE_TIMED[rec["kernel"]] == rec["variant"]:
+            probe_recs[rec["kernel"]]["latency_floor_ms"] = floor
+        print(f"cluster probe {rec['variant']} {rec['shape']}: {ms * 1e3:.3f} us of device time "
+              f"back to back, {cyc}; chain floor {floor * 1e3:.3f} us ({floor / ms * 100:.1f}% "
+              f"of it), with the launch floor {(floor + empty_ms) * 1e3:.3f} us; chain slope "
+              f"{rec['per_call_s'] * 1e6:.3f} us", flush=True)
+    for shape in ("barrier_c16", "beam_c16"):
+        sync, mbar = per_step[f"p4c_{shape}_sync"], per_step[f"p4c_{shape}_mbarrier"]
+        us = {k: c / on.clock_hz * 1e6 for k, c in (("sync", sync), ("mbarrier", mbar))}
+        print(f"C=16 publish ({shape}, {copy.P4_CLUSTER_SHAPES[shape]}): cluster.sync() "
+              f"{sync:.1f} cycles ({us['sync']:.3f} us) a step, remote mbarrier {mbar:.1f} cycles "
+              f"({us['mbarrier']:.3f} us); x{BEAM_STEP_BARRIERS} barriers: "
+              f"{BEAM_STEP_BARRIERS * us['sync']:.3f} us against "
+              f"{BEAM_STEP_BARRIERS * us['mbarrier']:.3f} us, of a {beam_step_us:.3f} us beam "
+              f"step (C={beam_C}): {BEAM_STEP_BARRIERS * us['sync'] / beam_step_us * 100:.1f}% "
+              f"against {BEAM_STEP_BARRIERS * us['mbarrier'] / beam_step_us * 100:.1f}%",
+              flush=True)
 
 
 def scan_split(rec: dict) -> None:
@@ -2420,12 +2561,20 @@ def lean_auto_harness_phase(hmm, requests, oracles, device, cpu_device) -> list[
 
 def sieve_mirror(name: str, hmm, y) -> np.ndarray:
     """The copied oracle of SIEVE decoder ``name`` at SIEVE_STATIC's
-    options: SIEVE-Mp in fp32 numerics, or the fp32 SIEVE-BS-Mp mirror."""
+    options: SIEVE-Mp in fp32 numerics, the fp32 SIEVE-BS-Mp mirror, or
+    the float64 SIEVE-BS oracle (for a uniform Pi, as the headline's),
+    its pairs laid out as the decoder's path."""
+    from flash_viterbi_tpu_torch.algorithms.sieve_bs import _flatten_pairs
     from flash_viterbi_tpu_torch.oracle import framework
+    from flash_viterbi_tpu_torch.oracle import sieve_bs as osbs
     from flash_viterbi_tpu_torch.oracle.sieve import sieve_mp
 
     if name == "sieve_mp":
         return sieve_mp(hmm.A, hmm.B, hmm.Pi, y, numerics="f32")
+    if name == "sieve_bs":
+        require(bool(np.all(hmm.Pi == hmm.Pi[0])), "the SIEVE-BS oracle needs a uniform Pi")
+        return _flatten_pairs(osbs.sieve_bs(hmm.A, hmm.B, hmm.Pi, y, **SIEVE_STATIC[name]),
+                              len(y))
     return framework.sieve_bs_mp(hmm.A, hmm.B, hmm.Pi, y, **SIEVE_STATIC[name])
 
 
@@ -2499,6 +2648,107 @@ def sieve_headline(hmm, requests, oracles, device, witness, name, static):
     return launches, results[0].path
 
 
+def device_profile(run, device) -> tuple[float, int, list]:
+    """Device busy ms and kernel launches of one ``run()`` by torch.profiler,
+    after one profiled run thrown away (a session right after many thousand
+    kernels records only part of its own), and the four largest kernels
+    (name, ms, launches): (busy, launches, largest).  Host work timed after
+    a profiler session has run ~2.3x slower on the H100 machine, so time
+    first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize(device)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    require(bool(kernels), "the profiler recorded no device time")
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    largest = [(e.key[:60], e.self_device_time_total / 1e3, e.count)
+               for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]]
+    return busy, sum(e.count for e in kernels), largest
+
+
+def sieve_bs_checks(hmm, y, device, witness) -> list[dict[str, int]]:
+    """``sieve_bs`` (B=64) on the card: the headline's request 0 against the
+    port's CPU decode (from ``witness``), ``memory:`` its analytic value;
+    its time, device busy and idle share and launches (torch.profiler), its
+    peak allocation beside ``memory:``, the tree's nodes and levels, the
+    b-hop searches' hops and the host's BFS time; the K=512 mirror fixture
+    against the float64 oracle; the beam-of-2 sentinel fixture against the
+    fp32 framework mirror.  The decoder has no hand kernel: every phase must
+    launch none.  Returns the launches."""
+    from flash_viterbi_tpu_torch import build, decode
+    from flash_viterbi_tpu_torch.algorithms import sieve_bs as tbs
+    from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm
+    from flash_viterbi_tpu_torch.oracle import framework
+
+    name, static, out = "sieve_bs", SIEVE_STATIC["sieve_bs"], []
+    t0 = time.perf_counter()
+    r, launches = drive(f"{name} {static}, request 0", SIEVE_NEEDS[name],
+                        lambda: decode(hmm, y, name, device=device, **static))
+    only(launches, SIEVE_NEEDS[name])
+    out.append(launches)
+    cpu_path, cpu_s = witness.get(name)
+    require(np.array_equal(r.path, cpu_path), f"{name} request 0: the card's path differs "
+            "from the CPU decode")
+    dec = build(name, **static)
+    want_mem = dec.analytic_memory(K=hmm.K, T=len(y))
+    require(r.memory_bytes == want_mem, f"{name}: memory {r.memory_bytes} != {want_mem}")
+    require(bool(((r.path >= -1) & (r.path < hmm.K)).all()), f"{name}: path out of range")
+    lh = tables(hmm, 128, device)
+    args = (lh.logA, lh.logB, lh.logPi, torch.as_tensor(y.astype(np.int64), device=device))
+    _, ms, peak = peak_run(dec, args, device)
+    stats = {}
+    t1 = time.perf_counter()
+    pairs = tbs.sieve_bs_decode(*args[:3], y, static["beam_width"], stats=stats)
+    torch.cuda.synchronize(device)
+    stats_s = time.perf_counter() - t1
+    require(np.array_equal(tbs._flatten_pairs(pairs, len(y)), r.path),
+            f"{name}: the counted decode's path differs")
+    busy, kernels, largest = device_profile(lambda: dec(*args), device)
+    wall = r.time_s * 1e3
+    print(f"{name} {static} request 0: time_s {r.time_s:.6f} (the peak's run {ms:.3f} ms by "
+          f"CUDA events), equal to the CPU decode ({cpu_s:.1f} s in the "
+          f"witness); device busy {busy:.3f} ms, idle {wall - busy:.3f} ms of time_s "
+          f"({(wall - busy) / wall * 100:.1f}%), {kernels} kernel launches (torch.profiler; "
+          f"no hand kernel); peak +{peak} bytes above the tables against memory: {want_mem}; "
+          f"{stats['nodes']} nodes, {stats['levels']} levels, {stats['forward_lanes']} "
+          f"forward lanes; b-hop searches stopped after {stats['bhop_hops']} hops (ancestors, "
+          f"descendants) of {stats['bhop_limit']}; host BFS "
+          f"{stats['host_bfs_s'] * 1e3:.1f} ms of a {stats_s * 1e3:.1f} ms decode; -1 positions {int((r.path == -1).sum())}; largest "
+          f"device items: " + "; ".join(f"{k} {t:.3f} ms ({n})" for k, t, n in largest),
+          flush=True)
+
+    K = SIEVE_MIRROR_K[name]
+    mhmm, my = make_sparse_hmm(**dict(HEADLINE, K=K))
+    r, launches = drive(f"{name} K={K} T={len(my)}", SIEVE_NEEDS[name],
+                        lambda: decode(mhmm, my, name, device=device, **static))
+    only(launches, SIEVE_NEEDS[name])
+    out.append(launches)
+    want, oracle_s = witness.get(f"mirror_{name}")
+    require(np.array_equal(r.path, want), f"{name} K={K}: path differs from the float64 oracle")
+    print(f"{name} K={K} T={len(my)}: {r.time_s * 1e3:.3f} ms, equal to the float64 SIEVE-BS "
+          f"oracle ({oracle_s:.1f} s in the witness)", flush=True)
+
+    fix, bw = SIEVE_BS_SENTINEL
+    shmm, sy = make_sparse_hmm(**fix)
+    r, launches = drive(f"{name} beam_width={bw} sentinel fixture", SIEVE_NEEDS[name],
+                        lambda: decode(shmm, sy, name, device=device, beam_width=bw))
+    only(launches, SIEVE_NEEDS[name])
+    out.append(launches)
+    pairs = framework.sieve_bs(shmm.A, shmm.B, shmm.Pi, sy, beam_width=bw)
+    require((-1, -1) in [tuple(int(v) for v in p) for p in pairs],
+            f"{name} sentinel fixture: no (-1, -1) pair")
+    require(np.array_equal(r.path, tbs._flatten_pairs(pairs, len(sy))),
+            f"{name} sentinel fixture: path differs from the framework mirror")
+    print(f"{name} beam_width={bw} {fix}: equal to the fp32 framework mirror, "
+          f"{sum(p == (-1, -1) for p in pairs)} (-1, -1) of {len(pairs)} pairs; sieve_bs "
+          f"checks {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def sieve_phase(hmm, requests, oracles, device, cpu_device, witness) -> list[dict[str, int]]:
     """The SIEVE decoders: the headline requests (``sieve_mp`` pruned and,
     request 0 only, not; ``sieve_bs_mp`` at B=64), the mirror fixtures
@@ -2514,8 +2764,8 @@ def sieve_phase(hmm, requests, oracles, device, cpu_device, witness) -> list[dic
     t_phase = time.perf_counter()
     print(f"sieve phase: {spin_up(device)}", flush=True)
     (mp_launches, pruned), (bs_launches, _) = (
-        sieve_headline(hmm, requests, oracles, device, witness, name, static)
-        for name, static in SIEVE_STATIC.items())
+        sieve_headline(hmm, requests, oracles, device, witness, name, SIEVE_STATIC[name])
+        for name in ("sieve_mp", "sieve_bs_mp"))
     all_launches = [mp_launches, bs_launches]
     r, launches = drive("sieve_mp prune=False, request 0", SIEVE_NEEDS["sieve_mp"],
                         lambda: decode(hmm, requests[0], "sieve_mp", prune=False,
@@ -2530,8 +2780,8 @@ def sieve_phase(hmm, requests, oracles, device, cpu_device, witness) -> list[dic
 
     configs = []
     tie_hmm, tie_y = make_tie_hmm(K=300, M=3, T=64, prob=8 / 300, seed=11)
-    for name, K in SIEVE_MIRROR_K.items():
-        static = SIEVE_STATIC[name]
+    for name in ("sieve_mp", "sieve_bs_mp"):
+        K, static = SIEVE_MIRROR_K[name], SIEVE_STATIC[name]
         fix = dict(HEADLINE, K=K)
         prob, y = make_sparse_hmm(**fix)
         r, launches = drive(f"{name} K={K} T={len(y)}", SIEVE_NEEDS[name],
@@ -2554,6 +2804,7 @@ def sieve_phase(hmm, requests, oracles, device, cpu_device, witness) -> list[dic
         print(f"{name} tie fixture (K={tie_hmm.K}, T={len(tie_y)}): equal to the CPU decode "
               f"and the oracle", flush=True)
     sieve_lane_checks(device)
+    all_launches += sieve_bs_checks(hmm, requests[0], device, witness)
     with tempfile.TemporaryDirectory() as csv_dir:
         rows, launches = drive("sieve harness sweep", ("maxplus_scan", "fold_planes"),
                                lambda: sweep(configs, csv_dir=csv_dir))
@@ -2696,7 +2947,8 @@ def phases(device, witness: Witness, t_start: float) -> None:
         {"name": name, "route": "cuda", "source": table[name][0],
          "replaces": table[name][1], "launches": total[name],
          **{key: recs[name][key] for key in ("max_abs_err", "ms", "plain_ms",
-                                            "bound_ms", "bound_by", "library_ms")}}
+                                            "bound_ms", "bound_by", "library_ms")},
+         "latency_floor_ms": recs[name].get("latency_floor_ms")}
         for name in table]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

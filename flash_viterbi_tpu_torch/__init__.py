@@ -32,6 +32,7 @@ from .algorithms import flash as _flash  # noqa: F401
 from .algorithms import flash_bs as _flash_bs  # noqa: F401
 from .algorithms import fused as _fused  # noqa: F401
 from .algorithms import sieve as _sieve  # noqa: F401
+from .algorithms import sieve_bs as _sieve_bs  # noqa: F401
 from .algorithms import vanilla as _vanilla  # noqa: F401
 from .algorithms.base import DecodeResult, available_algorithms, build, decode
 from .models.generate import make_sparse_hmm

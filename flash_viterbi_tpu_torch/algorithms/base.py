@@ -50,13 +50,16 @@ class DecodeResult:
 
 class Decoder:
     """A configured decoder: ``fn(logA, logB, logPi, y)`` on tensors of
-    one device returns the (T,) int32 path on that device."""
+    one device returns the (T,) int32 path on that device; ``batch_fn``,
+    where a decoder has one, the (Bs, T) paths of a (Bs, T) batch."""
 
-    def __init__(self, name: str, fn: Callable, static: dict, memory_fn: Callable):
+    def __init__(self, name: str, fn: Callable, static: dict, memory_fn: Callable,
+                 batch_fn: Callable | None = None):
         self.name = name
         self._fn = fn
         self.static = static
         self._memory_fn = memory_fn
+        self.batch_fn = batch_fn
 
     def __call__(self, logA, logB, logPi, y) -> torch.Tensor:
         return self._fn(logA, logB, logPi, y)

@@ -15,6 +15,11 @@ fp32 of an H100 is that issue rate with a fused multiply-add counted as two
 operations; no kernel of the port does one (a max-plus cell is an FADD and
 an FMNMX), so their peak is half of it: 64 add+max cells a clock an SM,
 16.7 T cells/s at 132 SMs and the 1.98 GHz maximum SM clock.
+
+Some kernels are held by neither: a one-launch probe whose steps each wait
+for the last is bound by its chain of dependent latencies
+(:func:`p4_floor_s`, :func:`p5_floor_s`, from latencies chased on the
+card by ``probes/copy.py:latencies``).
 """
 
 from __future__ import annotations
@@ -80,3 +85,26 @@ def bound(moved: int, ops: int, on: Card = H100) -> tuple[float, str]:
     rate and ``ops`` operations at the issue rate."""
     by_bytes, by_ops = moved / on.bytes_per_s * 1e3, ops / on.ops_per_s * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+# a p5 thread's shuffle rounds: five within each warp, five across the warps
+P5_SHUFFLE_ROUNDS = 10
+
+
+def p4_floor_s(Tm: int, C: int, lat_s: dict[str, float]) -> float:
+    """The dependent-chain floor of p4 as a cluster of C CTAs: Tm publish
+    round trips, each one dependent load of the memory it publishes
+    through, shared memory at C = 1 and a peer CTA's at C > 1 (``lat_s``:
+    seconds a dependent step, keyed as ``probes.copy.CHASES``)."""
+    return Tm * lat_s["dsmem" if C > 1 else "smem"]
+
+
+def p5_floor_s(n: int, C: int, lat_s: dict[str, float], threads: int = 256,
+               on: Card = H100) -> float:
+    """The floor of p5 as a cluster of C CTAs of ``threads``: the larger of
+    its chain, a thread's ceil(n / (C * threads)) dependent compares, the
+    shuffle rounds and (C > 1) one round trip through a peer's shared
+    memory, and its 8n bytes at the memory rate."""
+    chain = (-(-n // (C * threads)) * lat_s["better"] + P5_SHUFFLE_ROUNDS * lat_s["shfl"]
+             + (lat_s["dsmem"] if C > 1 else 0.0))
+    return max(chain, 8 * n / on.bytes_per_s)

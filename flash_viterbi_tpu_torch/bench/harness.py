@@ -22,7 +22,10 @@ for a ``fused`` row), bit for bit, with the FLASH family's paths within
 ``dp_divergence_tolerance_f64`` of its f64 score labelled
 ``witness:fused:tie-equivalent``.  ``sieve_mp`` rows are held to the
 SIEVE-Mp oracle in fp32 numerics, ``sieve_bs_mp`` rows to their numpy
-mirror, up to ``_MIRROR_MAX_K`` states; above it, and for an unpruned
+mirror, ``sieve_bs`` rows to the float64 SIEVE-BS oracle for a uniform Pi
+(the oracle threads ``Baseline.py``'s uniform root Pi) and to their numpy
+mirror for another Pi or where the oracle is undefined (the decoder's
+``(-1, -1)`` sentinel), up to ``_MIRROR_MAX_K`` states; above it, and for an unpruned
 ``sieve_mp`` row (the oracle prunes), to the port's decode of the same
 options on the CPU, labelled ``witness:cpu:True`` or ``False``.
 
@@ -245,6 +248,23 @@ def _parity(cfg: RunConfig, hmm, y, path, dec, tables):
             # permuted-path ties where the f64 reference differs
             want = fw.sieve_bs_mp(hmm.A, hmm.B, hmm.Pi, y, beam_width=bw)
         return bool(np.array_equal(path, np.asarray(want)[: cfg.T]))
+    if routed == "sieve_bs":
+        if cfg.K > _MIRROR_MAX_K[routed]:
+            return _cpu_witness(cfg, path, routed, kw, tables)
+        from ..algorithms.sieve_bs import _flatten_pairs
+
+        from ..oracle import sieve_bs as osbs
+
+        b_hops = kw.get("b_hops")
+        pairs = None
+        if np.allclose(hmm.Pi, 1.0 / len(hmm.Pi), rtol=0, atol=0):
+            try:
+                pairs = osbs.sieve_bs(hmm.A, hmm.B, hmm.Pi, y, beam_width=bw, b_hops=b_hops)
+            except osbs.ReferenceUndefined:
+                pass  # the decoder's totality sentinel: only the mirror has it
+        if pairs is None:
+            pairs = fw.sieve_bs(hmm.A, hmm.B, hmm.Pi, y, beam_width=bw, b_hops=b_hops)
+        return bool(np.array_equal(path, _flatten_pairs(pairs, cfg.T)))
     raise KeyError(f"no yardstick for {routed!r}")
 
 

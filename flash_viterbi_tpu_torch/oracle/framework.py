@@ -3,8 +3,8 @@
 Identical fp32 operations in identical order and the lowest-index tie
 rule, so a decoder's path must equal this one exactly.  Copies of
 ``flash_viterbi_tpu/oracle/framework.py``'s ``vanilla``, ``topk``,
-``flash_bs``, ``beam`` and ``sieve_bs_mp``, kept here because the port
-never imports the JAX package.
+``flash_bs``, ``beam``, ``sieve_bs_mp`` and ``sieve_bs``, kept here
+because the port never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -150,8 +150,8 @@ def sieve_bs_mp(A, B_mat, Pi, y, beam_width: int) -> np.ndarray:
     """Mirror of ``algorithms.sieve.sieve_bs_mp_decode`` (beam-pruned
     fixed-median D&C) in the framework's own fp32 numerics.
 
-    The reference-faithful float64 oracle is the JAX package's
-    ``oracle.sieve_bs.sieve_bs_mp`` (not ported); it and the decoder legitimately diverge on *permuted-path ties* —
+    The reference-faithful float64 oracle is ``oracle.sieve_bs.sieve_bs_mp``;
+    it and the decoder legitimately diverge on *permuted-path ties* —
     cyclic paths traversing the same edge multiset in a different order
     under repeated observation symbols score mathematically equal, the
     f64 oracle sees an exact tie (first-inserted wins) while the fp32
@@ -271,3 +271,149 @@ def sieve_bs_mp(A, B_mat, Pi, y, beam_width: int) -> np.ndarray:
     out = np.full(T, -1, dtype=np.int64)
     out[: len(flat)] = flat
     return out
+
+
+def sieve_bs(A, B_mat, Pi, y, beam_width: int, b_hops=None) -> list:
+    """Mirror of ``algorithms.sieve_bs.sieve_bs_decode`` (dynamic-median
+    beam D&C) in the framework's own fp32 numerics; returns the in-order
+    median-pair list.  Copied from ``flash_viterbi_tpu/oracle/framework.py``.
+
+    Bit-exact with the device decoder on arbitrary fixtures — including
+    NaN-row models and the permuted-path ties where the float64 oracle
+    (``oracle.sieve_bs.sieve_bs``) legitimately differs or refuses
+    (``ReferenceUndefined``); the decoder's totality extension (sentinel
+    pair, skipped impossible recursion) is mirrored too.
+    """
+    from ..algorithms.sieve_bs import _host_reach
+
+    logA, logB, logPi = _tables(A, B_mat, Pi)
+    K = logA.shape[0]
+    y = np.asarray(y, dtype=np.int64)
+    T = len(y)
+    Bw = min(int(beam_width), K)
+    NEG = F32(-np.inf)
+    A_pos = logA > NEG
+    emitQ = np.where(logB > NEG, logB, F32(0.0)).astype(F32)
+    # same liveness rule as the decoder (padded states are dead everywhere)
+    real = (np.isfinite(logA).any(axis=1) | np.isfinite(logB).any(axis=1)
+            | np.isfinite(logPi))
+    iota = np.arange(K)
+    b = T if b_hops is None else int(b_hops)
+    hops = min(max(b - 1, 0), K)
+
+    def bfs_counts(adj):
+        visited = np.zeros((K, K), bool)
+        frontier = np.eye(K, dtype=bool)
+        for _ in range(hops):
+            new = (frontier @ adj) & ~visited
+            if not new.any():  # graph saturated — identical output
+                break
+            visited |= new
+            frontier = new
+        return visited.sum(axis=1).astype(F32)
+
+    desc_cnt = bfs_counts(A_pos)
+    anc_cnt = bfs_counts(A_pos.T)
+
+    def beam_vals(T1, touched):
+        return np.where(touched,
+                        np.where(np.isneginf(T1), F32(-2.0e38), T1),
+                        F32(-3.0e38))
+
+    def select(T1, touched):
+        bidx = np.argsort(-beam_vals(T1, touched), kind="stable")[:Bw]
+        eff = min(Bw, int(touched.sum()))
+        tokm = np.zeros(K, bool)
+        tokm[bidx[:eff]] = True
+        return bidx, eff, tokm
+
+    def node_forward(mask, y_seg, tokens0, last_forced):
+        L = len(y_seg)
+        Thalf = F32(L) / F32(2.0)
+        # model Pi at every node (SIEVE-BS.c:367), like the device decoder
+        T1_0 = np.where(mask, (logPi + emitQ[:, y_seg[0]]).astype(F32), NEG)
+        src = np.where(tokens0, T1_0, NEG)
+        cand = np.where(A_pos, (src[:, None] + logA).astype(F32), NEG)
+        cand = (cand + emitQ[:, y_seg[1]][None, :]).astype(F32)
+        cand = np.where(mask[None, :], cand, NEG)
+        t1 = cand.max(axis=0)
+        winner = cand.argmax(axis=0)
+        touched = (tokens0 @ A_pos) & mask
+        won = touched & (t1 > NEG)
+        pair1 = np.maximum(anc_cnt[winner], desc_cnt)
+        mx = np.where(won, winner, -1)
+        my = np.where(won, iota, -1)
+        mn = np.where(won, 1, 0)
+        mval = np.where(won, pair1, np.inf).astype(F32)
+        T1 = np.where(touched, t1, NEG)
+
+        bidx, eff, tokm = select(T1, touched)
+        beams = np.zeros((L, K), bool)
+        beams[1] = tokm
+
+        for j in range(2, L):
+            emit_row = emitQ[:, y_seg[j]]
+            nT1 = np.full(K, NEG)
+            nmx = np.full(K, -1)
+            nmy = np.full(K, -1)
+            nmn = np.zeros(K, dtype=np.int64)
+            nmval = np.full(K, np.inf, F32)
+            for c in range(Bw):
+                node = int(bidx[c])
+                validc = c < eff
+                cand = ((T1[node] + logA[node]).astype(F32) + emit_row).astype(F32)
+                edge = A_pos[node] & mask & validc
+                win = edge & (cand > nT1)
+                pair = np.maximum(anc_cnt[node], desc_cnt)
+                pv = mval[node]
+                closer = abs(F32(j) - Thalf) < abs(F32(mn[node]) - Thalf)
+                take_new = (pair < pv) | ((pair == pv) & closer)
+                take_inh = (~take_new) & (mx[node] != -1)
+                wn = win & take_new
+                wi = win & take_inh
+                nmx = np.where(wn, node, np.where(wi, mx[node], nmx))
+                nmy = np.where(wn, iota, np.where(wi, my[node], nmy))
+                nmn = np.where(wn, j, np.where(wi, mn[node], nmn))
+                nmval = np.where(wn, pair, np.where(wi, pv, nmval)).astype(F32)
+                nT1 = np.where(win, cand, nT1)
+            ntouched = (tokm @ A_pos) & mask
+            nbidx, neff, ntok = select(nT1, ntouched)
+            beams[j] = ntok
+            nT1 = np.where(ntouched, nT1, NEG)
+            T1, mx, my, mn, mval = nT1, nmx, nmy, nmn, nmval
+            bidx, eff, tokm, touched = nbidx, neff, ntok, ntouched
+
+        if last_forced >= 0:
+            last = int(last_forced)
+        else:
+            last = int(np.argmax(beam_vals(T1, touched)))
+        x_a = int(mx[last])
+        x_b = int(my[last])
+        n_left = int(mn[last])
+        tokens_right = beams[n_left] if x_a != -1 else np.zeros(K, bool)
+        return x_a, x_b, n_left, tokens_right, last
+
+    path: list = []
+
+    def rec(mask, y_seg, last, tokens):
+        L = len(y_seg)
+        if mask.sum() <= 1:
+            return
+        if L == 1:
+            path.append((-1, -1))
+            return
+        tokens0 = mask if tokens is None else tokens
+        x_a, x_b, n_left, tokens_right, last_r = node_forward(
+            mask, y_seg, tokens0, -1 if last is None else int(last))
+        if n_left > 1 and x_a >= 0:
+            lm = _host_reach(A_pos, x_a, n_left, out=False).copy()
+            lm[x_a] = True
+            rec(lm, y_seg[:n_left], x_a, tokens)
+        path.append((x_a, x_b))
+        n_right = L - n_left
+        if n_right > 1 and x_b >= 0:
+            rm = _host_reach(A_pos, x_b, n_right, out=True).copy()
+            rm[x_b] = True
+            rec(rm, y_seg[-n_right:], last_r, tokens_right)
+    rec(np.asarray(real, bool), y, None, None)
+    return path

@@ -2,8 +2,10 @@
 
 Counterpart of ``flash_viterbi_tpu/parallel/batch.py``.  ``"fused"`` stacks
 the batch as lanes of the scan kernels (``fused_decode_batch``), so one
-read of ``logA`` per step serves up to 16 sequences; any other registered
-algorithm decodes the sequences one by one.  A ``mesh`` from
+read of ``logA`` per step serves up to 16 sequences; a decoder with a
+``batch_fn`` (``sieve_bs``: one level queue for the whole batch) takes the
+batch at once; any other registered algorithm decodes the sequences one by
+one.  A ``mesh`` from
 ``parallel.sharded.make_mesh`` routes to the multi-device FLASH decode
 (``flash_decode_sharded``), which every rank of the mesh calls.
 """
@@ -67,6 +69,9 @@ def decode_batch(
     elif algorithm == "fused":
         def run():
             return fused_decode_batch(*tables, yd, pointers=dec.static["pointers"])
+    elif dec.batch_fn is not None:
+        def run():
+            return dec.batch_fn(*tables, yd)
     else:
         def run():
             return torch.stack([dec(*tables, yd[b]) for b in range(Bs)])

@@ -10,6 +10,7 @@ probe               TPU probe                                kernel
 ``beam_profile``    ``beam_profile.py:run_variant``          ``csrc/probe_beam.cu``
 ``beam_profile2``   ``beam_profile2.py:run_variant``         ``csrc/probe_beam.cu``
 ``copy``            ``beam_dma_probe.py:p1, p3, p4, p5``     ``csrc/probe_copy.cu``
+                    (p4, p5 also as clusters)
 ==================  =======================================  ========================
 
 Each probe runs on the card unless asked for the CPU, where the kernels'
@@ -26,7 +27,8 @@ from . import alu, beam, copy, scan
 
 WRAPPERS = (alu.probe_alu, scan.probe_scan_ablation, beam.probe_beam_parts,
             beam.probe_beam_select, copy.probe_copy_p1, copy.probe_copy_p3,
-            copy.probe_copy_p4, copy.probe_copy_p5)
+            copy.probe_copy_p4, copy.probe_copy_p5, copy.probe_copy_p4_cluster,
+            copy.probe_copy_p5_cluster)
 
 PROBES = {"alu": alu.run, "scan": scan.run, "beam_profile": beam.run_parts,
           "beam_profile2": beam.run_select, "copy": copy.run}

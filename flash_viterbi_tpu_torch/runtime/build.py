@@ -91,6 +91,14 @@ _SIGNATURES = {
     "fvt_probe_copy_p4": [_P, _I, _I, _P, _P, _LL],
     # v, c, n, outv, outc, width, stream, launches
     "fvt_probe_copy_p5": [_P, _P, _I, _P, _P, _I, _P, _LL],
+    # out, Tm, W, C, pub, clocks, err, stream, launches
+    "fvt_probe_copy_p4_cluster": [_P, _I, _I, _I, _I, _P, _P, _P, _LL],
+    # v, c, n, outv, outc, width, C, clocks, err, stream, launches
+    "fvt_probe_copy_p5_cluster": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _LL],
+    # table, n, hops, mode, out, clocks, stream, launches
+    "fvt_probe_chase": [_P, _I, _I, _I, _P, _P, _P, _LL],
+    # stream, launches
+    "fvt_probe_empty": [_P, _LL],
 }
 
 

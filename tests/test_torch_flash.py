@@ -96,11 +96,12 @@ def test_unported_options_and_unknown_names_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfv.decode(hmm, y, "flash", precision="bf16", device="cpu")
     with pytest.raises(KeyError):
-        tfv.decode(hmm, y, "sieve_bs", device="cpu")
+        tfv.decode(hmm, y, "sieve", device="cpu")
     with pytest.raises(ValueError):
         tfv.decode(hmm, y, "flash", device="meta")
     assert tfv.available_algorithms() == ["auto", "beam", "checkpoint", "flash", "flash_bs",
-                                          "fused", "sieve_bs_mp", "sieve_mp", "vanilla"]
+                                          "fused", "sieve_bs", "sieve_bs_mp", "sieve_mp",
+                                          "vanilla"]
 
 
 def test_cuda_device_raises_without_cuda(monkeypatch):
@@ -128,7 +129,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "flash_viterbi_tpu_torch.probes.alu, flash_viterbi_tpu_torch.probes.scan, "
             "flash_viterbi_tpu_torch.probes.beam, flash_viterbi_tpu_torch.probes.copy, "
             "flash_viterbi_tpu_torch.probes.__main__, flash_viterbi_tpu_torch.oracle.sieve, "
-            "flash_viterbi_tpu_torch.algorithms.sieve, flash_viterbi_tpu_torch.models.generate; "
+            "flash_viterbi_tpu_torch.algorithms.sieve, flash_viterbi_tpu_torch.models.generate, "
+            "flash_viterbi_tpu_torch.algorithms.sieve_bs, flash_viterbi_tpu_torch.oracle.sieve_bs, "
+            "flash_viterbi_tpu_torch.bench.bounds; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flash_viterbi_tpu', 'triton')); "
             "print(bad); sys.exit(1 if bad else 0)")

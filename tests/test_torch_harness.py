@@ -139,7 +139,53 @@ def test_parity_catches_a_wrong_path():
 
 def test_unported_algorithm_raises():
     with pytest.raises(KeyError):
-        th.run_one(th.RunConfig(algorithm="sieve_bs", **SMALL))
+        th.run_one(th.RunConfig(algorithm="sieve", **SMALL))
+
+
+@pytest.mark.parametrize("mirror_k,bw", [(512, 16), (512, 8), (8, 16)])
+def test_sieve_bs_rows(mirror_k, bw, monkeypatch):
+    """A sieve_bs row on SMALL (a uniform Pi) is held to the float64
+    oracle (at B=16; at B=8 the oracle is undefined, a beam prunes every
+    median candidate, and the row takes the fp32 mirror), above
+    _MIRROR_MAX_K to the port's CPU decode; a wrong path says so."""
+    from flash_viterbi_tpu_torch.oracle import sieve_bs as osbs
+
+    monkeypatch.setattr(th, "_MIRROR_MAX_K", {"sieve_bs": mirror_k})
+    cfg = th.RunConfig(algorithm="sieve_bs", beam_width=bw, **SMALL)
+    hmm, y = tfv.make_sparse_hmm(K=48, M=8, T=40, prob=0.2, seed=3)
+    if bw == 8:
+        with pytest.raises(osbs.ReferenceUndefined):
+            osbs.sieve_bs(hmm.A, hmm.B, hmm.Pi, y, beam_width=bw)
+    row = th.run_one(cfg)
+    want = True if mirror_k == 512 else "witness:cpu:True"
+    assert (row["parity"], type(row["parity"])) == (want, type(want))
+    assert row["memory"] == jfv.build("sieve_bs", beam_width=bw).analytic_memory(K=48, T=40)
+    dec = tfv.build("sieve_bs", beam_width=bw)
+    lh = hmm.log(device="cpu").padded(128)
+    tables = (lh.logA, lh.logB, lh.logPi, torch.as_tensor(y.astype(np.int64)))
+    path = tfv.decode(hmm, y, "sieve_bs", beam_width=bw, device="cpu").path.copy()
+    path[7] = (path[7] + 1) % 48
+    assert th._parity(cfg, hmm, y, path, dec, tables) in (False, "witness:cpu:False")
+
+
+def test_sieve_bs_row_with_a_nonuniform_pi_takes_the_framework_mirror(monkeypatch):
+    """The float64 oracle threads a uniform root Pi: a non-uniform Pi is
+    held to the fp32 framework mirror instead."""
+    from flash_viterbi_tpu_torch.oracle import sieve_bs as osbs
+
+    def uniform_only(*a, **k):
+        raise AssertionError("the uniform-Pi oracle judged a non-uniform Pi")
+
+    monkeypatch.setattr(osbs, "sieve_bs", uniform_only)
+    hmm, y = tfv.make_sparse_hmm(K=48, M=8, T=40, prob=0.2, seed=3)
+    pi = np.random.RandomState(9).uniform(0.05, 1.0, 48)
+    hmm = tfv.HMM(hmm.A, hmm.B, pi / pi.sum())
+    cfg = th.RunConfig(algorithm="sieve_bs", beam_width=8, **SMALL)
+    dec = tfv.build("sieve_bs", beam_width=8)
+    lh = hmm.log(device="cpu").padded(128)
+    tables = (lh.logA, lh.logB, lh.logPi, torch.as_tensor(y.astype(np.int64)))
+    path = tfv.decode(hmm, y, "sieve_bs", beam_width=8, device="cpu").path
+    assert th._parity(cfg, hmm, y, path, dec, tables) is True
 
 
 def test_save_dataset_bytes_match_jax(tmp_path):

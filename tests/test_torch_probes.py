@@ -269,6 +269,127 @@ def test_p5_plain_is_the_numpy_winner_with_its_forced_tie():
     assert best[1] == 5 * 256 + 3 and v[1, 7] == v[0, 5]  # the tie went to the lower code
 
 
+@pytest.mark.parametrize("shape", list(copy.P4_CLUSTER_SHAPES))
+def test_p4_cluster_plain_at_every_shape(shape):
+    """Every CTA reads every result of every step, result j of step t being
+    t * W + j: one value per step and slot, so that no read of a wrong CTA,
+    slot or parity buffer can agree with it; at C = 1 and one result, the
+    old p4's output (t + 1) with its CTA axis."""
+    Tm, W, C = copy.P4_CLUSTER_SHAPES[shape]
+    for pub in copy.PUBS:
+        got = copy.probe_copy_p4_cluster(Tm, W, C, pub, device="cpu")
+        assert got.shape == (Tm, C, W) and got.dtype == torch.int32
+        want = np.arange(Tm)[:, None, None] * W + np.arange(W)[None, None, :] + 1
+        np.testing.assert_array_equal(got.numpy(), np.broadcast_to(want, (Tm, C, W)))
+        assert len(np.unique(got.numpy()[:, 0])) == Tm * W
+    assert torch.equal(copy.probe_copy_p4_cluster(Tm, 1, 1, device="cpu"),
+                       copy.probe_copy_p4(Tm, 1, device="cpu"))
+
+
+@pytest.mark.parametrize("shape", list(copy.P5_CLUSTER_SHAPES))
+def test_p5_cluster_plain_is_the_numpy_winner(shape):
+    n, C = copy.P5_CLUSTER_SHAPES[shape]
+    v, c = copy.p5_row(n, device="cpu")
+    assert v[5] == v[n // 2 + 7] == v.max()  # the forced tie
+    outv, outc = copy.probe_copy_p5_cluster(v, c, C)
+    best = min(zip(-v.numpy(), c.numpy()))  # beam_dma_probe.py:162
+    assert tuple(outv.shape) == tuple(outc.shape) == (1, copy.P5_WIDTH)
+    assert (outv.numpy() == -best[0]).all() and (outc.numpy() == best[1]).all()
+    assert best[1] == 5 * 256 + 3
+    if n == copy.S * 128:  # the TPU fixture: the old p5's answer
+        v2, c2 = copy.p5_fixture(device="cpu")
+        old = copy.probe_copy_p5(v2, c2)
+        new = copy.probe_copy_p5_cluster(v2.reshape(-1), c2.reshape(-1), C)
+        assert torch.equal(old[0], new[0]) and torch.equal(old[1], new[1])
+
+
+@pytest.mark.parametrize("shape", list(copy.P5_CLUSTER_SHAPES))
+def test_p5_cluster_plain_wins_in_the_last_shard(shape):
+    """The late tie: the winner in the last CTA's shard, its tied partner of
+    a larger code in a lower CTA's, so the CTAs' winners must meet and
+    keep the tie rule across them."""
+    n, C = copy.P5_CLUSTER_SHAPES[shape]
+    v, c = copy.p5_row(n, device="cpu", late=True)
+    assert v[n - 3] == v[n // 3] == v.max() and c[n // 3] > c[n - 3]
+    shard = [(r * n // C, (r + 1) * n // C) for r in range(C)]  # the kernel's shards
+    win = next(r for r, (lo, hi) in enumerate(shard) if lo <= n - 3 < hi)
+    partner = next(r for r, (lo, hi) in enumerate(shard) if lo <= n // 3 < hi)
+    assert win == C - 1 and (C == 1 or partner < win)
+    outv, outc = copy.probe_copy_p5_cluster(v, c, C)
+    best = min(zip(-v.numpy(), c.numpy()))
+    assert (outv.numpy() == -best[0]).all() and (outc.numpy() == best[1]).all()
+    assert best[1] == 2 * 256 + 3
+
+
+def test_cluster_shapes_fit_the_kernels():
+    """Every shape: C a power of two up to 16, W a multiple of C, at most 256
+    results a CTA (one a thread) and 1024 in all; the beam shape's C is
+    beam_plan's cluster at Kp = 3968, one lane."""
+    for Tm, W, C in copy.P4_CLUSTER_SHAPES.values():
+        copy.check_cluster(W, C)
+        assert W // C <= copy.P4C_MAX_OWN and W % C == 0 and C & (C - 1) == 0
+    for n, C in copy.P5_CLUSTER_SHAPES.values():
+        copy.check_cluster(C, C)
+    assert copy.P4_CLUSTER_SHAPES["beam_c16"][2] == kbeam.beam_plan(3968, 64, 1, SMS).C == 16
+    assert copy.P4_CLUSTER_SHAPES["beam_c16"][1] == 16 * 32
+    for W, C in ((8, 3), (8, 32), (12, 8), (2048, 16), (4, 8)):
+        with pytest.raises(ValueError):
+            copy.check_cluster(W, C)
+    with pytest.raises(ValueError, match="publish"):
+        copy.probe_copy_p4_cluster(4, 8, 1, "ring", device="cpu")
+    with pytest.raises(ValueError, match="cluster"):
+        copy.probe_copy_p5_cluster(*copy.p5_row(64, device="cpu"), 3)
+
+
+@pytest.mark.parametrize("mode", copy.CHASES)
+def test_chase_plain_versions(mode):
+    """The chase table is one cycle through every entry; each chase's plain
+    version follows its definition."""
+    table = copy.chase_table(64, device="cpu", seed=3)
+    t = table.numpy()
+    x, seen = 0, set()
+    for _ in range(64):
+        seen.add(x)
+        x = int(t[x])
+    assert x == 0 and seen == set(range(64))
+    got = copy.probe_chase(table, 100, mode, torch.zeros(2, dtype=torch.int64))
+    if mode in ("smem", "dsmem"):
+        x = 0
+        for _ in range(100):
+            x = int(t[x])
+        assert got == x
+        assert copy.probe_chase(table, 64, mode, None) == 0
+        assert copy.probe_chase(table, 3, mode, None) == int(t[t[t[0]]])
+    elif mode == "shfl":
+        lanes = np.arange(32)
+        for _ in range(100):
+            lanes = np.array([lanes[(lanes[l] + 1) % 32] for l in range(32)])
+        assert got == lanes[0]
+    else:
+        vals = t.view(np.float32)
+        order = sorted(range(100), key=lambda h: (-vals[h % 64], h))
+        assert got == order[0]
+    with pytest.raises(ValueError, match="power-of-two"):
+        copy.probe_chase(copy.chase_table(48, device="cpu"), 4, mode, None)
+    with pytest.raises(ValueError, match="unknown chase"):
+        copy.probe_chase(table, 4, "global", None)
+
+
+def test_chain_floors():
+    """p4: Tm round trips through the memory it publishes by; p5: the larger
+    of its compare, shuffle and peer chain and its bytes."""
+    lat = {"smem": 30e-9, "dsmem": 200e-9, "shfl": 25e-9, "better": 10e-9}
+    assert bounds.p4_floor_s(255, 1, lat) == 255 * 30e-9
+    assert bounds.p4_floor_s(255, 16, lat) == 255 * 200e-9
+    assert bounds.p5_floor_s(256, 1, lat) == 1 * 10e-9 + 10 * 25e-9
+    assert bounds.p5_floor_s(3968, 1, lat) == pytest.approx(16 * 10e-9 + 10 * 25e-9)
+    assert bounds.p5_floor_s(3968, 16, lat) == pytest.approx(1 * 10e-9 + 10 * 25e-9 + 200e-9)
+    # compares far quicker than a byte's share of the memory rate: the bytes bound it
+    fast = {**lat, "better": 1e-12}
+    assert bounds.p5_floor_s(10**9, 16, fast) == 8e9 / bounds.HBM_BYTES_PER_S
+    assert bounds.P5_SHUFFLE_ROUNDS == 2 * 5  # log2(32) within a warp, then across 8 warps
+
+
 def test_copy_rows_checks():
     with pytest.raises(ValueError, match="16 bytes"):
         copy.probe_copy_p1(torch.zeros((4, 3)))
@@ -386,10 +507,20 @@ def test_cuda_branches_launch_and_refuse_non_contiguous_inputs(monkeypatch):
     copy.probe_copy_p3(rows)
     copy.probe_copy_p4(device="cpu")
     copy.probe_copy_p5(v, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        copy.probe_copy_p5_cluster(v.t(), c.t(), 2)
+    clocks = torch.zeros(2, dtype=torch.int64)
+    copy.probe_copy_p4_cluster(255, 512, 16, "sync", device="cpu", clocks=clocks)
+    copy.probe_copy_p5_cluster(v, c, 16, clocks=clocks)
     names = [name for name, _ in calls]
     assert names == ["fvt_probe_alu", "fvt_maxplus_scan_deltas_ablation", "fvt_probe_beam",
                      "fvt_probe_beam", "fvt_probe_beam", "fvt_probe_copy_rows",
-                     "fvt_probe_copy_rows", "fvt_probe_copy_p4", "fvt_probe_copy_p5"]
+                     "fvt_probe_copy_rows", "fvt_probe_copy_p4", "fvt_probe_copy_p5",
+                     "fvt_probe_copy_p4_cluster", "fvt_probe_copy_p5_cluster"]
+    assert calls[9][1][1:4] == (255, 512, 16) and calls[9][1][4] == copy.PUBS.index("sync")
+    assert calls[9][1][5] == clocks.data_ptr()
+    assert calls[10][1][2] == v.numel() and calls[10][1][5:8] == (copy.P5_WIDTH, 16,
+                                                                  clocks.data_ptr())
     assert calls[0][1][2:] == (x.numel(), x.numel() // 2, 4, 8 * SMS, None)
     a = calls[1][1]
     assert a[4] is None and a[5] is not None and a[7] is None  # deltas, no pointers
@@ -401,7 +532,8 @@ def test_cuda_branches_launch_and_refuse_non_contiguous_inputs(monkeypatch):
     assert probes.launch_counts() == {"probe_alu": 1, "probe_scan_ablation": 1,
                                       "probe_beam_parts": 1, "probe_beam_select": 2,
                                       "probe_copy_p1": 1, "probe_copy_p3": 1,
-                                      "probe_copy_p4": 1, "probe_copy_p5": 1}
+                                      "probe_copy_p4": 1, "probe_copy_p5": 1,
+                                      "probe_copy_p4_cluster": 1, "probe_copy_p5_cluster": 1}
 
 
 def test_beam_probe_refuses_a_select_too_large_for_a_block(monkeypatch):
@@ -507,6 +639,12 @@ def test_main_prints_one_json_line_a_variant(capsys):
     probes_main(["copy", "--device", "cpu"])
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert [r["variant"] for r in lines] == ["p1", "p1_beam_rows", "p3", "p3_beam_rows", "p4",
-                                             "p5"]
+                                             "p5"] + [c[0] for c in copy.cluster_cases("cpu")]
+    assert [r["variant"] for r in lines[6:]] == [
+        "p4c_fixture_mbarrier", "p4c_fixture_sync", "p4c_warp_mbarrier", "p4c_warp_sync",
+        "p4c_beam_c16_mbarrier", "p4c_beam_c16_sync", "p4c_beam_c8_mbarrier", "p4c_beam_c8_sync",
+        "p4c_barrier_c16_mbarrier", "p4c_barrier_c16_sync", "p5c_fixture", "p5c_carry_row_c1",
+        "p5c_carry_row_c16"]
+    assert all(r["back_to_back_s"] > 0 and "cycles" not in r for r in lines[6:])
     with pytest.raises(ValueError, match="unknown probes"):
         probes.run(["vpu"], device="cpu")
