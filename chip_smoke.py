@@ -8,10 +8,11 @@ Phases, each fatal on failure:
 
 1. Device: the ``nvidia-smi`` name and power limit, and the torch device.
 2. Build: compile the port's CUDA sources with ``nvcc``, one process per
-   source, all at once.  Then three worker processes start (this script
+   source, all at once.  Then four worker processes start (this script
    with ``--cpu-witness``, no card visible, 2 threads each) that make the
-   port's CPU decodes phases 4 and 8c hold the card's paths to, and the
-   SIEVE mirror fixtures' oracles, while the card's phases run.
+   port's CPU decodes phases 4, 8c and 8d hold the card's paths to, the
+   SIEVE mirror fixtures' oracles and phase 8d's DAG tables, while the
+   card's phases run.
 3. Kernels: each of the eight kernels against its plain PyTorch version on
    the card, bit-exact (tolerance 0: the kernels use only correctly
    rounded fp32 adds, maxes and compares), at the headline shapes, at an
@@ -135,6 +136,23 @@ Phases, each fatal on failure:
    every median candidate the beam prunes) the fp32 framework mirror, its
    ``(-1, -1)`` pair included.  The harness's ``sweep``
    at the mirror fixtures: parity True, headers ``CSV_FIELDS``.
+8d. Dynamic SIEVE (its wall time printed; no hand kernel may launch):
+   ``decode(..., "sieve")`` on request 0 (one decode, no warmup) and
+   ``decode(..., "sieve_dag")`` on a K=4096, T=64 DAG (``make_dag_hmm``,
+   seed 1), each held by invariants (every pair an edge of A, the path
+   the pairs' layout, ``memory:`` its analytic value, a second run equal),
+   with its time, peak above the tables beside ``memory:``, nodes, levels,
+   node-steps and the device ms of its counts and children's searches
+   printed; request 0's first 32 symbols against the port's CPU decode,
+   ``sieve`` at K=512, T=96 against the float64 oracle, ``sieve_dag`` at
+   K=2048, T=64 against the CPU decode and at K=1024, T=32 against the
+   float64 oracle; last, the device busy time, idle share and launches
+   (torch.profiler) of the 32-symbol decode and of the K=4096 one.
+8e. ``flash_long``: the four requests through ``decode(..., "flash_long",
+   num_segments=4)``, each equal to ``flash`` pointer mode at 4 segments
+   on the card and the C oracle under phase 4's rule, ``memory:`` flash's;
+   T=16384 on the headline tables at ``group_steps`` 1024, 4096 and
+   16384, each equal to flash pointer mode's path, with its time and peak.
 9. Sharded, one rank: ``decode_batch(hmm, requests, mesh=make_mesh(1, 1,
    1), num_segments=16, device="cuda")`` on the four headline requests;
    every row must equal the C oracle under the rule of phase 4, request 0
@@ -150,6 +168,9 @@ Phases, each fatal on failure:
    keep the run short; mesh (1, 1, 1) in this process, then (1, 1, 4) as 4 ranks on the
    card, each memory-mapping the tables from ``.npy`` files and uploading
    only its 256 MiB column shard.  Equal paths, in range, finite scores.
+   Between the two, ``decode_batch(..., "flash_long", num_segments=16)``
+   (the batched pipeline) on the same tables equals ``decode_batch(...,
+   "flash")``; its time and peak above the tables are printed.
 
 The kernel phase also holds ``maxplus_step_block`` bit-exact on nine
 fixtures: the (1, 1, 1) boundary step (N=1, Ks=Kd=3968), 16 phase-2 lanes
@@ -300,20 +321,42 @@ SIEVE_STATIC = {"sieve_mp": {}, "sieve_bs_mp": {"beam_width": BEAM_WIDTH},
 # candidate of a node (the reference crashes there; the decoder emits
 # (-1, -1)): held to the fp32 framework mirror
 SIEVE_BS_SENTINEL = (dict(K=61, M=6, T=24, prob=0.19, seed=1), 2)
+# the dynamic-median SIEVE decoders (no hand kernel): the headline request's
+# prefix held to the port's CPU decode (and profiled: the whole request
+# makes ~1.1M kernels, more events than torch.profiler processes in
+# minutes); DYN_FIXTURES: (decoder, problem, what the card's path is held
+# to: "cpu" the port's CPU decode, "oracle" the float64 oracle, None
+# nothing, a problem held by invariants), whose tables and paths the
+# witness workers make (a K=4096 DAG takes ~2 min of the host without
+# networkx), each held path's host work under a minute
+SIEVE_DYN_PREFIX = 32
+DYN_FIXTURES = {"sieve_oracle": ("sieve", dict(HEADLINE, K=512, T=96), "oracle"),
+                "dag_large": ("sieve_dag", dict(K=4096, M=50, T=64, seed=1), None),
+                "dag_cpu": ("sieve_dag", dict(K=2048, M=50, T=64, seed=1), "cpu"),
+                "dag_oracle": ("sieve_dag", dict(K=1024, M=50, T=32, seed=1), "oracle")}
+# flash_long: its segments at the headline and at long T, the group sizes
+# the long-T row sweeps, and its kernels alone and batched
+LONG_SEGMENTS = 4
+LONG_GROUPS = (1024, 4096, 16384)
+LONG_NEEDS = ("maxplus_scan", "maxplus_scan_deltas", "backtrack_batched", "argmax_walk")
+LONG_BATCH_NEEDS = ("maxplus_scan_deltas", "argmax_walk")
 # the port's CPU decodes that the card's headline paths are held to bit for
 # bit, and the SIEVE mirror fixtures' oracles (request None), made by
 # worker processes (``witness_main``) while the card's phases run: (tag,
 # decoder, request, static keywords) a worker, in the order the phases read
 # them.  The CPU decodes gain little from more threads (the plain scan goes
-# a lane at a time): three workers of 2 threads each, to finish before the
+# a lane at a time): four workers of 2 threads each, to finish before the
 # phases that read them
 WITNESS_JOBS = (
     tuple((f"flash{i}", "flash", i, {"num_segments": SEGMENTS})
           for i in range(1 + len(EXTRA_SEEDS)))
     + tuple((f"mirror_{name}", name, None, SIEVE_STATIC[name]) for name in SIEVE_MIRROR_K),
-    (("sieve_mp", "sieve_mp", 0, {}), ("sieve_bs", "sieve_bs", 0, SIEVE_STATIC["sieve_bs"])),
+    (("sieve_mp", "sieve_mp", 0, {}), ("sieve_bs", "sieve_bs", 0, SIEVE_STATIC["sieve_bs"]),
+     ("sieve_prefix", "sieve", "prefix", {})),
     (("sieve_bs_mp", "sieve_bs_mp", 0, SIEVE_STATIC["sieve_bs_mp"]),
-     ("sieve_mp_unpruned", "sieve_mp", 0, {"prune": False})))
+     ("sieve_mp_unpruned", "sieve_mp", 0, {"prune": False}),
+     ("sieve_oracle", "sieve", "sieve_oracle", {})),
+    tuple((key, DYN_FIXTURES[key][0], key, {}) for key in ("dag_large", "dag_cpu", "dag_oracle")))
 WITNESS_THREADS = 2
 WITNESS_TIMEOUT_S = 600.0
 # PR 6's first request of each decode phase read ~2x the others, after
@@ -2185,6 +2228,15 @@ class Witness:
             secs = json.load(f)["s"]
         return np.load(os.path.join(self.dir, f"{tag}.npy")), secs
 
+    def problem(self, key: str) -> tuple:
+        """(HMM, observations) of DYN_FIXTURES[key], as its worker saved
+        them (waiting for the worker's record)."""
+        from flash_viterbi_tpu_torch.models.hmm import HMM
+
+        self.get(key)
+        with np.load(os.path.join(self.dir, f"{key}_tables.npz")) as f:
+            return HMM(f["A"], f["B"], f["Pi"]), f["y"]
+
     def stop(self) -> None:
         for proc, log in zip(self.procs, self.logs):
             if proc.poll() is None:
@@ -2196,9 +2248,11 @@ class Witness:
 
 def witness_main(outdir: str, k: str) -> None:
     """``Witness`` worker ``k``: its WITNESS_JOBS, each the port's CPU
-    decode of a headline request or (request None) the SIEVE decoder's
-    oracle at its mirror fixture; each path saved as ``<tag>.npy`` and its
-    seconds as ``<tag>.json``, which is renamed into place last."""
+    decode of a headline request (or, "prefix", of request 0's first
+    SIEVE_DYN_PREFIX symbols), the SIEVE decoder's oracle at its mirror
+    fixture (request None), or a DYN_FIXTURES entry's path (request its
+    key); each path saved as ``<tag>.npy`` and its seconds as
+    ``<tag>.json``, which is renamed into place last."""
     from flash_viterbi_tpu_torch import decode
     from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm
 
@@ -2208,6 +2262,11 @@ def witness_main(outdir: str, k: str) -> None:
         t0 = time.perf_counter()
         if i is None:
             path = sieve_mirror(name, *make_sparse_hmm(**dict(HEADLINE, K=SIEVE_MIRROR_K[name])))
+        elif i == "prefix":
+            path = decode(hmm, requests[0][:SIEVE_DYN_PREFIX], name, device="cpu",
+                          warmup=False).path
+        elif isinstance(i, str):
+            path = dyn_reference(i, outdir)
         else:
             path = decode(hmm, requests[i], name, device="cpu", warmup=False, **static).path
         secs = time.perf_counter() - t0
@@ -2243,11 +2302,16 @@ def multi_rank_phase(want: np.ndarray) -> None:
         check_ranks(f"sharded {shape}", recs, want, wall)
 
 
-def config5_phase(device) -> dict[str, int]:
+def config5_phase(device) -> list[dict[str, int]]:
     """Config-5's K (T cut to 4096, 2 sequences): the (1, 1, 1) mesh in this
-    process, then CONFIG5_MESH as ranks on the card, each uploading only its
+    process, then ``decode_batch(..., "flash_long", num_segments=16)``
+    (the batched pipeline) against ``decode_batch(..., "flash")`` on the same
+    tables, its time and peak above the tables printed beside ``memory:``,
+    then CONFIG5_MESH as ranks on the card, each uploading only its
     column shard of the tables, memory-mapped from .npy files.  Equal paths,
-    in range, finite fp32 scores.  Returns the (1, 1, 1) run's launches."""
+    in range, finite fp32 scores.  Returns the launches of the (1, 1, 1) run
+    and of the flash_long batch."""
+    from flash_viterbi_tpu_torch import LogHMM, decode_batch
     from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm, observations
     from flash_viterbi_tpu_torch.ops import maxplus as mp
     from flash_viterbi_tpu_torch.parallel.sharded import flash_decode_sharded, make_mesh
@@ -2291,13 +2355,34 @@ def config5_phase(device) -> dict[str, int]:
               f"({K * K * T * len(ys) / ms / 1e6:.2f} G updates/s), fp32 scores {scores}; "
               f"tables made in {gen_s:.1f} s", flush=True)
         want = paths.cpu().numpy()
-        del logA, logB, logPi, paths
+        del paths
+        dev_tables = LogHMM(logA, logB, logPi, K)
+        torch.cuda.synchronize(device)
+        before = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        r, long_launches = drive(
+            f"config-5 flash_long batch K={K}, T={T}", LONG_BATCH_NEEDS,
+            lambda: decode_batch(dev_tables, ys, "flash_long", num_segments=SEGMENTS,
+                                 device=device))
+        peak = torch.cuda.max_memory_allocated(device) - before
+        only(long_launches, LONG_BATCH_NEEDS)
+        flash = decode_batch(dev_tables, ys, "flash", num_segments=SEGMENTS, device=device,
+                             warmup=False)
+        require(np.array_equal(r.path, flash.path),
+                "config-5: the flash_long batch differs from flash's decode_batch")
+        print(f"config-5 flash_long batch of {len(ys)}, {SEGMENTS} segments: time_s "
+              f"{r.time_s:.6f} ({K * K * T * len(ys) / r.time_s / 1e9:.2f} G updates/s; flash's "
+              f"decode_batch {flash.time_s:.6f} s, no warmup), peak +{peak} bytes "
+              f"({peak / 2**30:.2f} GiB) above the tables against memory: {r.memory_bytes}; "
+              f"equal to flash's decode_batch, launches {nonzero(r.extra['launches'])}",
+              flush=True)
+        del logA, logB, logPi, dev_tables
         torch.cuda.empty_cache()
         recs, wall = run_ranks({"mesh": CONFIG5_MESH, "problem": tables,
                                 "segments": SEGMENTS, "microbatch": CONFIG5_MICROBATCH,
                                 "warmup": False})
     check_ranks(f"config-5 {CONFIG5_MESH}, no warmup", recs, want, wall)
-    return launches
+    return [launches, long_launches]
 
 
 def peak_run(dec, args, device):
@@ -2820,6 +2905,191 @@ def sieve_phase(hmm, requests, oracles, device, cpu_device, witness) -> list[dic
     return all_launches
 
 
+def dyn_reference(key: str, outdir: str) -> np.ndarray:
+    """Make DYN_FIXTURES[key]'s problem, save its tables and observations as
+    ``<key>_tables.npz`` in ``outdir`` and return the path the card's is
+    held to: the port's CPU decode, the float64 SIEVE / SIEVE-DAG oracle's
+    pairs laid out as the decoder's path, or (None) an empty array."""
+    from flash_viterbi_tpu_torch import decode
+    from flash_viterbi_tpu_torch.algorithms.sieve_bs import _flatten_pairs
+    from flash_viterbi_tpu_torch.models.generate import make_dag_hmm, make_sparse_hmm
+    from flash_viterbi_tpu_torch.oracle.sieve import sieve_dag, sieve_dynamic
+
+    name, problem, kind = DYN_FIXTURES[key]
+    if name == "sieve_dag":
+        hmm, y = make_dag_hmm(**problem, sanitize=True)
+    else:
+        hmm, y = make_sparse_hmm(**problem)
+    np.savez(os.path.join(outdir, f"{key}_tables.npz"), A=hmm.A, B=hmm.B, Pi=hmm.Pi, y=y)
+    if kind == "cpu":
+        return decode(hmm, y, name, device="cpu", warmup=False).path
+    if kind == "oracle":
+        oracle = sieve_dag if name == "sieve_dag" else sieve_dynamic
+        return _flatten_pairs(oracle(hmm.A, hmm.B, hmm.Pi, y), len(y))
+    return np.zeros(0, dtype=np.int32)
+
+
+def sieve_dyn_checks(name: str, hmm, y, device, warmup: bool) -> tuple:
+    """``name`` (``sieve`` or ``sieve_dag``, no hand kernel: none may launch)
+    on ``(hmm, y)`` on the card, held by invariants: every pair an edge of
+    A, the path the pairs' layout, ``memory:`` its analytic value, and a
+    second run on the card equal to the first.  Prints the decode's time,
+    its peak allocation above the tables beside ``memory:``, the tree's
+    nodes, levels, forward lanes and node-steps, and the device ms of the
+    counts and of the children's searches.  Returns (the launches, the
+    decode's result)."""
+    from flash_viterbi_tpu_torch import build, decode
+    from flash_viterbi_tpu_torch.algorithms import sieve_dyn
+
+    T = len(y)
+    r, launches = drive(f"{name} K={hmm.K} T={T}", (),
+                        lambda: decode(hmm, y, name, device=device, warmup=warmup))
+    only(launches, ())
+    want_mem = build(name).analytic_memory(K=hmm.K, T=T)
+    require(r.memory_bytes == want_mem, f"{name}: memory {r.memory_bytes} != {want_mem}")
+    lh = tables(hmm, 128, device)
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    stats = {}
+    t0 = time.perf_counter()
+    pairs = sieve_dyn.sieve_dynamic_decode(lh.logA, lh.logB, lh.logPi, y,
+                                           dag=name == "sieve_dag", stats=stats)
+    counted_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) - before
+    path = sieve_dyn._flatten_pairs(pairs, T)
+    require(np.array_equal(path, r.path), f"{name}: two runs on the card differ")
+    require(bool(pairs) and len(pairs) < T, f"{name}: {len(pairs)} pairs for T={T}")
+    require(all(hmm.A[a, b] > 0 for a, b in pairs), f"{name}: a pair is not an edge of A")
+    n = len(pairs) + 1
+    require(bool(((path[:n] >= 0) & (path[:n] < hmm.K)).all()) and bool((path[n:] == -1).all()),
+            f"{name}: the path is not its pairs' layout")
+    print(f"{name} K={hmm.K} (Kp {lh.Kp}) T={T}: time_s {r.time_s:.6f} "
+          f"({'after a warmup' if warmup else 'no warmup'}), a second run equal "
+          f"({counted_s:.3f} s with its counters); peak +{peak} bytes above the tables against "
+          f"memory: {want_mem}; {stats['nodes']} nodes, {stats['levels']} levels, "
+          f"{stats['forward_lanes']} forward lanes, {stats['node_steps']} node-steps; counts "
+          f"{stats['count_ms']:.3f} ms (b-hop searches {stats['bhop_hops']} hops), children's "
+          f"searches {stats['bfs_ms']:.3f} ms on the device; {len(pairs)} pairs, each an edge "
+          f"of A", flush=True)
+    return launches, r
+
+
+def profile_line(label: str, name: str, hmm, y, wall_ms: float, device) -> None:
+    """Print the device busy ms, idle share of ``wall_ms`` and kernel
+    launches of one decode of ``name`` on ``(hmm, y)`` (torch.profiler)."""
+    from flash_viterbi_tpu_torch import build
+
+    lh = tables(hmm, 128, device)
+    args = (lh.logA, lh.logB, lh.logPi, torch.as_tensor(y.astype(np.int64), device=device))
+    busy, kernels, largest = device_profile(lambda: build(name)(*args), device)
+    print(f"{label}: device busy {busy:.3f} ms, idle {wall_ms - busy:.3f} ms of {wall_ms:.3f} "
+          f"({(wall_ms - busy) / wall_ms * 100:.1f}%), {kernels} kernel launches "
+          f"(torch.profiler; no hand kernel); largest device items: "
+          + "; ".join(f"{k} {t:.3f} ms ({c})" for k, t, c in largest), flush=True)
+
+
+def sieve_dyn_phase(hmm, requests, device, witness) -> list[dict[str, int]]:
+    """``sieve`` on the headline's request 0 (held by invariants; one
+    decode, no warmup: ~15 s), its first SIEVE_DYN_PREFIX symbols against
+    the port's CPU decode, and DYN_FIXTURES' sieve fixture against the
+    float64 oracle; ``sieve_dag`` on DYN_FIXTURES' K=4096 DAG (held by
+    invariants) and its smaller DAGs against the CPU decode and the float64
+    oracle.  Last, the profiles of the prefix and of the K=4096 decode.
+    Prints the phase's wall time; returns the launches."""
+    from flash_viterbi_tpu_torch import decode
+
+    t_phase = time.perf_counter()
+    print(f"dynamic SIEVE phase: {spin_up(device)}", flush=True)
+    launches, _ = sieve_dyn_checks("sieve", hmm, requests[0], device, warmup=False)
+    out = [launches]
+    y = requests[0][:SIEVE_DYN_PREFIX]
+    prefix, launches = drive(f"sieve T={len(y)}", (),
+                             lambda: decode(hmm, y, "sieve", device=device))
+    only(launches, ())
+    out.append(launches)
+    want, secs = witness.get("sieve_prefix")
+    require(np.array_equal(prefix.path, want),
+            f"sieve T={len(y)}: path differs from the CPU decode")
+    print(f"sieve K={hmm.K} T={len(y)} (request 0's first symbols): {prefix.time_s * 1e3:.3f} "
+          f"ms, equal to the CPU decode ({secs:.1f} s in the witness)", flush=True)
+    dag_hmm, dag_y = witness.problem("dag_large")
+    launches, dag = sieve_dyn_checks("sieve_dag", dag_hmm, dag_y, device, warmup=True)
+    out.append(launches)
+    for key, (name, problem, kind) in DYN_FIXTURES.items():
+        if kind is None:
+            continue
+        fhmm, fy = witness.problem(key)
+        r, launches = drive(f"{name} {problem}", (),
+                            lambda: decode(fhmm, fy, name, device=device, warmup=False))
+        only(launches, ())
+        out.append(launches)
+        want, secs = witness.get(key)
+        what = "CPU decode" if kind == "cpu" else "float64 oracle"
+        require(np.array_equal(r.path, want), f"{name} {problem}: path differs from the {what}")
+        print(f"{name} K={problem['K']} T={problem['T']}: {r.time_s * 1e3:.3f} ms (no warmup), "
+              f"equal to the {what} ({secs:.1f} s in the witness)", flush=True)
+    profile_line(f"sieve K={hmm.K} T={len(y)}", "sieve", hmm, y, prefix.time_s * 1e3, device)
+    profile_line(f"sieve_dag K={dag_hmm.K} T={len(dag_y)}", "sieve_dag", dag_hmm, dag_y,
+                 dag.time_s * 1e3, device)
+    print(f"dynamic SIEVE phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def flash_long_phase(hmm, requests, oracles, device) -> list[dict[str, int]]:
+    """The four requests through ``decode(..., "flash_long", num_segments=4)``:
+    each path equals flash pointer mode's at 4 segments on the card and the C
+    oracle under phase 4's rule; ``memory:`` flash's at 4 segments.  Then
+    T=16384 on the headline tables at every group size of LONG_GROUPS:
+    equal to flash pointer mode's path, each one's time and peak above the
+    tables printed.  Returns the launches."""
+    from flash_viterbi_tpu_torch import build, decode
+    from flash_viterbi_tpu_torch.algorithms.flash import _memory
+    from flash_viterbi_tpu_torch.models.generate import observations
+
+    K, T = hmm.K, len(requests[0])
+    results, launches = drive(
+        f"flash_long num_segments={LONG_SEGMENTS}, {len(requests)} decodes", LONG_NEEDS,
+        lambda: [decode(hmm, y, "flash_long", num_segments=LONG_SEGMENTS, device=device)
+                 for y in requests])
+    only(launches, LONG_NEEDS)
+    want_mem = _memory(K=K, T=T, num_segments=LONG_SEGMENTS)
+    for i, (y, r, oracle) in enumerate(zip(requests, results, oracles)):
+        flash = decode(hmm, y, "flash", num_segments=LONG_SEGMENTS, device=device)
+        require(np.array_equal(r.path, flash.path),
+                f"flash_long request {i}: path differs from flash pointer mode")
+        require(r.memory_bytes == want_mem, f"flash_long request {i}: memory {r.memory_bytes}")
+        verdict = oracle_verdict(hmm, y, r.path, oracle, exact=i == 0)
+        print(f"flash_long request {i}: {r.time_s * 1e3:.3f} ms (flash at {LONG_SEGMENTS} "
+              f"segments {flash.time_s * 1e3:.3f} ms), equal to flash pointer mode, oracle "
+              f"{verdict}, memory {r.memory_bytes}, launches {nonzero(r.extra['launches'])}",
+              flush=True)
+
+    lh = tables(hmm, 128, device)
+    y = observations(LONG_T, HEADLINE["M"], seed=1)
+    args = (lh.logA, lh.logB, lh.logPi, torch.as_tensor(y.astype(np.int64), device=device))
+    want, flash_ms, flash_peak = peak_run(build("flash", num_segments=LONG_SEGMENTS), args,
+                                          device)
+    rows = {}
+
+    def run():
+        for g in LONG_GROUPS:
+            rows[g] = peak_run(build("flash_long", num_segments=LONG_SEGMENTS, group_steps=g),
+                               args, device)
+
+    _, long_launches = drive(f"flash_long T={LONG_T}", LONG_NEEDS, run)
+    only(long_launches, LONG_NEEDS)
+    for g, (path, ms, peak) in rows.items():
+        require(torch.equal(path, want), f"flash_long T={LONG_T} group_steps={g}: path "
+                "differs from flash pointer mode")
+    print(f"flash_long T={LONG_T}, Kp={lh.Kp}, {LONG_SEGMENTS} segments, equal to flash "
+          f"pointer mode ({flash_ms:.3f} ms, peak +{flash_peak} bytes) at every group size: "
+          + "; ".join(f"group_steps={g} {ms:.3f} ms, peak +{peak} bytes "
+                      f"({peak / 2**20:.1f} MiB)" for g, (_, ms, peak) in rows.items()),
+          flush=True)
+    return [launches, long_launches]
+
+
 def headline() -> tuple:
     """(HMM, the four requests: the seed-1 sequence and
     ``observations(T, M, seed=s)`` for s in EXTRA_SEEDS)."""
@@ -2934,10 +3204,12 @@ def phases(device, witness: Witness, t_start: float) -> None:
                 + batch_phase(hmm, device))
     launches += lean_auto_harness_phase(hmm, requests, oracles, device, cpu)
     launches += sieve_phase(hmm, requests, oracles, device, cpu, witness)
+    launches += sieve_dyn_phase(hmm, requests, device, witness)
     print(f"CPU witness: the phases waited {witness.waited:.1f} s for it in all", flush=True)
+    launches += flash_long_phase(hmm, requests, oracles, device)
     sharded_paths, sharded_launches = sharded_phase(hmm, requests, oracles, device, cpu)
     multi_rank_phase(sharded_paths)
-    launches += [sharded_launches, config5_phase(device), probe_launches]
+    launches += [sharded_launches, *config5_phase(device), probe_launches]
     recs.update(probe_recs)
     table = {**KERNELS, **PROBE_KERNELS}
     total = {name: sum(run[name] for run in launches) for name in table}

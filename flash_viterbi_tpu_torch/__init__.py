@@ -1,12 +1,14 @@
 """flash_viterbi_tpu_torch — the FLASH Viterbi decoder on PyTorch and CUDA.
 
-A port of ``flash_viterbi_tpu`` (JAX/Pallas) that runs the FLASH decoder
-in pointer and lean modes, checkpoint and fused, the beam family
-(``flash_bs``, ``beam``), the fixed-median SIEVE decoders (``sieve_mp``,
-``sieve_bs_mp``), ``auto`` (the fastest of the FLASH family for the shape,
-or the leanest under a memory budget) and batched decoding on an NVIDIA H100
-through hand-written CUDA kernels, and on the CPU through their plain
-PyTorch versions.  It never imports JAX or the JAX package.
+A port of ``flash_viterbi_tpu`` (JAX/Pallas) that runs all 13 of its
+decoders: the FLASH decoder in pointer and lean modes and in groups of
+steps (``flash_long``), checkpoint and fused, the beam family
+(``flash_bs``, ``beam``), the SIEVE family (``sieve_mp``, ``sieve_bs_mp``,
+``sieve_bs``, ``sieve``, ``sieve_dag``), vanilla and ``auto`` (the fastest
+of the FLASH family for the shape, or the leanest under a memory budget),
+and batched decoding, on an NVIDIA H100 through hand-written CUDA kernels
+and on the CPU through their plain PyTorch versions.  It never imports JAX
+or the JAX package.
 
 Quick start::
 
@@ -17,6 +19,7 @@ Quick start::
     print(result.path, result.time_s, result.memory_bytes)
     beamed = decode(hmm, y, algorithm="flash_bs", beam_width=64, device="cuda")
     sieved = decode(hmm, y, algorithm="sieve_mp", device="cuda")
+    long = decode(hmm, y, algorithm="flash_long", num_segments=4, group_steps=64, device="cuda")
     batch = decode_batch(hmm, [y, y], algorithm="fused", device="cuda")
     sharded = decode_batch(hmm, [y, y], mesh=make_mesh(1, 1, 1), device="cuda")
 
@@ -31,8 +34,10 @@ from .algorithms import checkpoint as _checkpoint  # noqa: F401
 from .algorithms import flash as _flash  # noqa: F401
 from .algorithms import flash_bs as _flash_bs  # noqa: F401
 from .algorithms import fused as _fused  # noqa: F401
+from .algorithms import longform as _longform  # noqa: F401
 from .algorithms import sieve as _sieve  # noqa: F401
 from .algorithms import sieve_bs as _sieve_bs  # noqa: F401
+from .algorithms import sieve_dyn as _sieve_dyn  # noqa: F401
 from .algorithms import vanilla as _vanilla  # noqa: F401
 from .algorithms.base import DecodeResult, available_algorithms, build, decode
 from .models.generate import make_sparse_hmm

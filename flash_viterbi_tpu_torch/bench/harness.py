@@ -20,12 +20,14 @@ beam family against its numpy mirrors.  Above the oracle's cells a row
 names its witness: the port's ``fused`` decode on the device (``checkpoint``
 for a ``fused`` row), bit for bit, with the FLASH family's paths within
 ``dp_divergence_tolerance_f64`` of its f64 score labelled
-``witness:fused:tie-equivalent``.  ``sieve_mp`` rows are held to the
+``witness:fused:tie-equivalent``; ``flash_long`` rows are held as
+``flash`` pointer rows are.  ``sieve_mp`` rows are held to the
 SIEVE-Mp oracle in fp32 numerics, ``sieve_bs_mp`` rows to their numpy
 mirror, ``sieve_bs`` rows to the float64 SIEVE-BS oracle for a uniform Pi
 (the oracle threads ``Baseline.py``'s uniform root Pi) and to their numpy
 mirror for another Pi or where the oracle is undefined (the decoder's
-``(-1, -1)`` sentinel), up to ``_MIRROR_MAX_K`` states; above it, and for an unpruned
+``(-1, -1)`` sentinel), ``sieve`` and ``sieve_dag`` rows to the float64
+SIEVE and SIEVE-DAG oracles, up to ``_MIRROR_MAX_K`` states; above it, and for an unpruned
 ``sieve_mp`` row (the oracle prunes), to the port's decode of the same
 options on the CPU, labelled ``witness:cpu:True`` or ``False``.
 
@@ -166,10 +168,12 @@ def queued_ms(fn, device, k: int = 20, reps: int = 5) -> float:
 _ORACLE_MAX_CELLS = 2e10
 # Above these state counts the SIEVE family's numpy mirrors are too slow for
 # a sweep: such rows take the port's CPU decode as witness (the JAX
-# package's figures, kept for the SIEVE decoders not ported yet too).
+# package's figures).
 _MIRROR_MAX_K = {"sieve_mp": 1024, "sieve_bs": 512, "sieve_bs_mp": 512,
                  "sieve": 512, "sieve_dag": 256}
-_EXACT = ("vanilla", "checkpoint", "flash", "fused")  # exact decoders: vanilla's path
+# exact decoders: vanilla's path (a FLASH path up to an fp32 tie flip)
+_EXACT = ("vanilla", "checkpoint", "flash", "fused", "flash_long")
+_FLASH = ("flash", "flash_long")
 
 
 def _routed(cfg: RunConfig, dec, Kp: int) -> tuple[str, dict]:
@@ -196,7 +200,7 @@ def _witness(cfg: RunConfig, hmm, y, path, routed: str, tables) -> str:
     want = build(name)(*tables).cpu().numpy()[: cfg.T]
     if np.array_equal(path, want):
         return f"witness:{name}:True"
-    if routed == "flash":
+    if routed in _FLASH:
         s_got = path_score_f64(hmm.A, hmm.B, hmm.Pi, y, path)
         s_ref = path_score_f64(hmm.A, hmm.B, hmm.Pi, y, want)
         if np.isfinite(s_got) and abs(s_got - s_ref) <= dp_divergence_tolerance_f64(cfg.T, s_ref):
@@ -218,7 +222,7 @@ def _parity(cfg: RunConfig, hmm, y, path, dec, tables):
             return _witness(cfg, hmm, y, path, routed, tables)
         if np.array_equal(path, _oracle(_problem_key(cfg))):
             return True
-        if routed != "flash":
+        if routed not in _FLASH:
             return False
         # a FLASH path may flip an fp32 tie against vanilla (docs/DESIGN.md
         # section 1): arbitrate against the f32 FLASH mirror
@@ -264,6 +268,17 @@ def _parity(cfg: RunConfig, hmm, y, path, dec, tables):
                 pass  # the decoder's totality sentinel: only the mirror has it
         if pairs is None:
             pairs = fw.sieve_bs(hmm.A, hmm.B, hmm.Pi, y, beam_width=bw, b_hops=b_hops)
+        return bool(np.array_equal(path, _flatten_pairs(pairs, cfg.T)))
+    if routed in ("sieve", "sieve_dag"):
+        if cfg.K > _MIRROR_MAX_K[routed]:
+            return _cpu_witness(cfg, path, routed, kw, tables)
+        from ..algorithms.sieve_bs import _flatten_pairs
+        from ..oracle.sieve import sieve_dag, sieve_dynamic
+
+        if routed == "sieve":
+            pairs = sieve_dynamic(hmm.A, hmm.B, hmm.Pi, y, b_hops=kw.get("b_hops"))
+        else:
+            pairs = sieve_dag(hmm.A, hmm.B, hmm.Pi, y)
         return bool(np.array_equal(path, _flatten_pairs(pairs, cfg.T)))
     raise KeyError(f"no yardstick for {routed!r}")
 
@@ -317,7 +332,7 @@ def run_one(cfg: RunConfig) -> dict:
 
     hmm, y = _problem(*_problem_key(cfg))
     static = dict(cfg.extra)
-    if cfg.algorithm in ("flash", "flash_bs", "auto"):
+    if cfg.algorithm in ("flash", "flash_bs", "flash_long", "auto"):
         # for auto an override, so a routed flash or flash_bs runs the
         # segment count its parity mirror is checked with
         static.setdefault("num_segments", cfg.num_segments)

@@ -1,6 +1,8 @@
-"""NumPy oracle for SIEVE-Mp, bit-exact to the reference.
+"""NumPy oracles for the SIEVE family: SIEVE-Mp, bit-exact to the reference,
+and SIEVE (dynamic median) and SIEVE-DAG in the float64 semantics of their
+Python originals.
 
-A behavioural port of ``Base_line/C implementations/SIEVE-Mp.c:286-509``
+SIEVE-Mp is a behavioural port of ``Base_line/C implementations/SIEVE-Mp.c:286-509``
 (``Viterbi.py:686-820``, sieve_middlepath): divide and conquer over the
 time midpoint; a single forward pass per node tracks, per end state, the
 "median pair" (x_a, x_b) of states straddling t = floor(T/2); BFS
@@ -20,9 +22,14 @@ Reference quirks reproduced deliberately (they are the semantics):
 * BFS marks nodes within <= b hops, excluding the source unless revisited
   (C :200-280); the pruned index set keeps the parent's (sorted) order.
 
+SIEVE (dynamic median, ``Viterbi.py:529-681``) and SIEVE-DAG
+(``Viterbi.py:994-1152``) have no C port: ``sieve_dynamic`` and ``sieve_dag``
+follow the float64 Python originals and return the in-order median pairs.
+
 Copied from ``flash_viterbi_tpu/oracle/sieve.py`` (``sieve_mp``,
-``_mp_forward``, ``_bfs_mask``), kept here because the port never imports
-the JAX package.
+``_mp_forward``, ``_bfs_mask``, ``_b_hop_counts``, ``sieve_dag``,
+``sieve_dynamic``), kept here because the port never imports the JAX
+package.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import numpy as np
 
 from .reference import F32, F64, Tables, _sanitize
 
-__all__ = ["sieve_mp"]
+__all__ = ["sieve_mp", "sieve_dynamic", "sieve_dag"]
 
 
 class _MpState:
@@ -180,3 +187,217 @@ def _bfs_mask(sub_adj: np.ndarray, indices: np.ndarray, source: int,
         visited |= new
         frontier = new
     return visited
+
+
+# ---------------------------------------------------------------------------
+# SIEVE (dynamic median) — float64 Python-semantics port [Viterbi.py:529-681]
+# ---------------------------------------------------------------------------
+
+def _b_hop_counts(A_pos: np.ndarray, b: int):
+    """#states within <= b hops of each state, both directions
+    [Viterbi.py:476-526].  Source excluded unless reachable via a cycle."""
+    K = A_pos.shape[0]
+    anc = np.zeros(K, dtype=np.int64)
+    dec = np.zeros(K, dtype=np.int64)
+    idx = np.arange(K, dtype=np.int64)
+    for s in range(K):
+        anc[s] = int(_bfs_mask(A_pos.T, idx, s, b).sum())
+        dec[s] = int(_bfs_mask(A_pos, idx, s, b).sum())
+    return anc, dec
+
+
+def sieve_dag(A, B, Pi, y) -> list:
+    """SIEVE for DAG-structured HMMs [Viterbi.py:994-1152].
+
+    No C port exists; semantics are the float64 Python original, which
+    *recomputes* ancestor/descendant counts at every recursion level via a
+    topological accumulation over the DAG
+    (``viterbi_preprocessing_{ancestors,descendants}_pruning_dag``,
+    :850-988).  The counts equal "#states within <= T_seg-1 hops in the
+    index-restricted digraph", which is what we compute (BFS; identical on
+    DAGs, and also terminates on cyclic inputs where the reference's
+    topological sweep would spin forever).  Returns the in-order median
+    pair list.
+    """
+    A = np.asarray(A, dtype=F64)
+    B = np.asarray(B, dtype=F64)
+    y = np.asarray(y, dtype=np.int64)
+    K_full = A.shape[0]
+    A_pos = A > 0
+
+    out_pairs: list = []
+    state = {"initial_state": None}
+
+    def hop_counts(indices: np.ndarray, T_seg: int):
+        sub_adj = A_pos[np.ix_(indices, indices)]
+        anc = {}
+        dec = {}
+        for pos, s in enumerate(indices):
+            anc[int(s)] = int(_bfs_mask(sub_adj.T, indices, int(s), T_seg - 1).sum())
+            dec[int(s)] = int(_bfs_mask(sub_adj, indices, int(s), T_seg - 1).sum())
+        return anc, dec
+
+    def recurse(indices: np.ndarray, y_seg: np.ndarray, last):
+        K = len(indices)
+        T = len(y_seg)
+        if K == 1:
+            return
+        anc_cnt, dec_cnt = hop_counts(indices, T)
+        if state["initial_state"] is not None:
+            Pi_seg = np.array([0.0 if it != state["initial_state"] else 1.0
+                               for it in indices])
+        else:
+            Pi_seg = np.full(K, 1.0 / K)
+
+        subA = A[np.ix_(indices, indices)]
+        subB = B[indices]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            T1 = np.log(Pi_seg) + np.log(subB[:, y_seg[0]])
+            prev_n = np.full(K, -1, dtype=np.int64)
+            prev_med = [-1] * K
+            prev_val = np.full(K, np.inf)
+            for j in range(1, T):
+                scores = T1[:, None] + np.log(subA) + np.log(subB[:, y_seg[j]])[None, :]
+                scores = _sanitize(scores)
+                arg = np.argmax(scores, axis=0)
+                T1 = np.max(scores, axis=0)
+                new_n = np.full(K, -1, dtype=np.int64)
+                new_med = [-1] * K
+                new_val = np.full(K, np.inf)
+                for i in range(K):
+                    m = arg[i]
+                    cand = max(anc_cnt[int(indices[m])], dec_cnt[int(indices[i])])
+                    if cand < prev_val[m]:
+                        new_val[i] = cand
+                        new_med[i] = (int(indices[m]), int(indices[i]))
+                        new_n[i] = j
+                    elif prev_med[m] != -1:
+                        new_med[i] = prev_med[m]
+                        new_n[i] = prev_n[m]
+                        new_val[i] = prev_val[m]
+                prev_n, prev_med, prev_val = new_n, new_med, new_val
+
+        if last is None:
+            last = int(np.argmax(_sanitize(np.asarray(T1))))
+        if prev_med[last] == -1:
+            return
+        x_a, x_b = prev_med[last]
+        N_left = int(prev_n[last])
+        y_left = y_seg[:N_left]
+
+        if len(y_left) > 1:
+            sub_adj = A_pos[np.ix_(indices, indices)]
+            vis = _bfs_mask(sub_adj.T, indices, x_a, N_left - 1)
+            keep = vis | (indices == x_a)
+            left_idx = indices[keep]
+            left_last = int(np.nonzero(left_idx == x_a)[0][0])
+            recurse(left_idx, y_left, left_last)
+
+        out_pairs.append((x_a, x_b))
+
+        N_right = T - N_left
+        y_right = y_seg[-N_right:]
+        if len(y_right) > 1:
+            sub_adj = A_pos[np.ix_(indices, indices)]
+            vis = _bfs_mask(sub_adj, indices, x_b, N_right - 1)
+            keep = vis | (indices == x_b)
+            right_idx = indices[keep]
+            state["initial_state"] = x_b
+            recurse(right_idx, y_right, None)
+
+    recurse(np.arange(K_full, dtype=np.int64), y, None)
+    return out_pairs
+
+
+def sieve_dynamic(A, B, Pi, y, b_hops: int | None = None) -> list:
+    """SIEVE with dynamic median selection [Viterbi.py:529-681].
+
+    No C port exists in the reference; semantics are the float64 Python
+    original: the forward pass tracks, per end state, the best split
+    ``(x_a, x_b, t)`` seen so far — the transition minimizing
+    ``max(#ancestors(x_a), #descendants(x_b))`` (first strictly smaller
+    wins).  Returns the in-order list of median pairs (the reference
+    appends pairs to ``self.path``; its flattening is the pair list).
+    """
+    A = np.asarray(A, dtype=F64)
+    B = np.asarray(B, dtype=F64)
+    Pi0 = np.asarray(Pi, dtype=F64)
+    y = np.asarray(y, dtype=np.int64)
+    K_full = A.shape[0]
+    A_pos = A > 0
+    if b_hops is None:
+        b_hops = max(1, int(np.floor(np.log2(max(2, K_full)))))
+    anc_cnt, dec_cnt = _b_hop_counts(A_pos, b_hops)
+
+    out_pairs: list = []
+    state = {"initial_state": None}
+
+    def recurse(indices: np.ndarray, y_seg: np.ndarray, last):
+        K = len(indices)
+        T = len(y_seg)
+        if K == 1:
+            return
+        if state["initial_state"] is not None:
+            Pi_seg = np.array([0.0 if it != state["initial_state"] else 1.0
+                               for it in indices])
+        else:
+            Pi_seg = np.full(K, 1.0 / K)
+
+        subA = A[np.ix_(indices, indices)]
+        subB = B[indices]
+        with np.errstate(divide="ignore"):
+            T1 = np.log(Pi_seg) + np.log(subB[:, y_seg[0]])
+            prev_n = np.full(K, -1, dtype=np.int64)
+            prev_med = [-1] * K
+            prev_val = np.full(K, np.inf)
+            for j in range(1, T):
+                scores = T1[:, None] + np.log(subA) + np.log(subB[:, y_seg[j]])[None, :]
+                scores = _sanitize(scores)
+                arg = np.argmax(scores, axis=0)
+                T1 = np.max(scores, axis=0)
+                new_n = np.full(K, -1, dtype=np.int64)
+                new_med = [-1] * K
+                new_val = np.full(K, np.inf)
+                for i in range(K):
+                    m = arg[i]
+                    cand = max(anc_cnt[indices[m]], dec_cnt[indices[i]])
+                    if cand < prev_val[m]:
+                        new_val[i] = cand
+                        new_med[i] = (int(indices[m]), int(indices[i]))
+                        new_n[i] = j
+                    elif prev_med[m] != -1:
+                        new_med[i] = prev_med[m]
+                        new_n[i] = prev_n[m]
+                        new_val[i] = prev_val[m]
+                prev_n, prev_med, prev_val = new_n, new_med, new_val
+
+        if last is None:
+            last = int(np.argmax(_sanitize(T1)))
+        if prev_med[last] == -1:
+            return
+        x_a, x_b = prev_med[last]
+        N_left = int(prev_n[last])
+        y_left = y_seg[:N_left]
+
+        if len(y_left) > 1:
+            sub_adj = A_pos[np.ix_(indices, indices)]
+            vis = _bfs_mask(sub_adj.T, indices, x_a, N_left - 1)
+            keep = vis | (indices == x_a)
+            left_idx = indices[keep]
+            left_last = int(np.nonzero(left_idx == x_a)[0][0])
+            recurse(left_idx, y_left, left_last)
+
+        out_pairs.append((x_a, x_b))
+
+        N_right = T - N_left
+        y_right = y_seg[-N_right:]
+        if len(y_right) > 1:
+            sub_adj = A_pos[np.ix_(indices, indices)]
+            vis = _bfs_mask(sub_adj, indices, x_b, N_right - 1)
+            keep = vis | (indices == x_b)
+            right_idx = indices[keep]
+            state["initial_state"] = x_b
+            recurse(right_idx, y_right, None)
+
+    recurse(np.arange(K_full, dtype=np.int64), y, None)
+    return out_pairs

@@ -3,6 +3,7 @@ paths, analytic memory and the reference stdout lines — for FLASH pointer
 mode (JAX with its Pallas kernels in interpret mode, and without them) and
 for vanilla; plus the port's oracles, device handling and import rule."""
 
+import os
 import subprocess
 import sys
 
@@ -96,12 +97,13 @@ def test_unported_options_and_unknown_names_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfv.decode(hmm, y, "flash", precision="bf16", device="cpu")
     with pytest.raises(KeyError):
-        tfv.decode(hmm, y, "sieve", device="cpu")
+        tfv.decode(hmm, y, "nope", device="cpu")
     with pytest.raises(ValueError):
         tfv.decode(hmm, y, "flash", device="meta")
     assert tfv.available_algorithms() == ["auto", "beam", "checkpoint", "flash", "flash_bs",
-                                          "fused", "sieve_bs", "sieve_bs_mp", "sieve_mp",
-                                          "vanilla"]
+                                          "flash_long", "fused", "sieve", "sieve_bs",
+                                          "sieve_bs_mp", "sieve_dag", "sieve_mp", "vanilla"]
+    assert tfv.available_algorithms() == jfv.available_algorithms()
 
 
 def test_cuda_device_raises_without_cuda(monkeypatch):
@@ -112,7 +114,7 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
-    code = ("import sys, flash_viterbi_tpu_torch, flash_viterbi_tpu_torch.ops.cuda, "
+    code = ("import sys, chip_smoke, flash_viterbi_tpu_torch, flash_viterbi_tpu_torch.ops.cuda, "
             "flash_viterbi_tpu_torch.parallel.batch, "
             "flash_viterbi_tpu_torch.oracle.native, "
             "flash_viterbi_tpu_torch.oracle.validate, "
@@ -131,10 +133,12 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "flash_viterbi_tpu_torch.probes.__main__, flash_viterbi_tpu_torch.oracle.sieve, "
             "flash_viterbi_tpu_torch.algorithms.sieve, flash_viterbi_tpu_torch.models.generate, "
             "flash_viterbi_tpu_torch.algorithms.sieve_bs, flash_viterbi_tpu_torch.oracle.sieve_bs, "
-            "flash_viterbi_tpu_torch.bench.bounds; "
+            "flash_viterbi_tpu_torch.bench.bounds, flash_viterbi_tpu_torch.algorithms.sieve_dyn, "
+            "flash_viterbi_tpu_torch.algorithms.longform; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flash_viterbi_tpu', 'triton')); "
             "print(bad); sys.exit(1 if bad else 0)")
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=120)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=root)
     assert proc.returncode == 0, proc.stdout + proc.stderr

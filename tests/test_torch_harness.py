@@ -139,7 +139,7 @@ def test_parity_catches_a_wrong_path():
 
 def test_unported_algorithm_raises():
     with pytest.raises(KeyError):
-        th.run_one(th.RunConfig(algorithm="sieve", **SMALL))
+        th.run_one(th.RunConfig(algorithm="nope", **SMALL))
 
 
 @pytest.mark.parametrize("mirror_k,bw", [(512, 16), (512, 8), (8, 16)])
@@ -186,6 +186,58 @@ def test_sieve_bs_row_with_a_nonuniform_pi_takes_the_framework_mirror(monkeypatc
     tables = (lh.logA, lh.logB, lh.logPi, torch.as_tensor(y.astype(np.int64)))
     path = tfv.decode(hmm, y, "sieve_bs", beam_width=8, device="cpu").path
     assert th._parity(cfg, hmm, y, path, dec, tables) is True
+
+
+# the decoders of the last slice: flash_long held as flash pointer rows,
+# sieve and sieve_dag to the float64 oracles
+DYN_ROWS = [("flash_long", {"group_steps": 16}), ("sieve", {}), ("sieve", {"b_hops": 3}),
+            ("sieve_dag", {})]
+
+
+@pytest.mark.parametrize("alg,extra", DYN_ROWS)
+def test_flash_long_and_sieve_dyn_rows(alg, extra):
+    """Each row is held to its yardstick (True on SMALL), a wrong path reads
+    False, and the memory is the JAX package's (flash_long at the row's
+    segments, as flash)."""
+    cfg = th.RunConfig(algorithm=alg, extra=dict(extra), **SMALL)
+    row = th.run_one(cfg)
+    assert row["parity"] is True
+    segs = {"num_segments": 8} if alg == "flash_long" else {}
+    assert row["memory"] == jfv.build(alg, **segs, **extra).analytic_memory(K=48, T=40)
+    hmm, y = tfv.make_sparse_hmm(K=48, M=8, T=40, prob=0.2, seed=3)
+    dec = tfv.build(alg, **segs, **extra)
+    lh = hmm.log(device="cpu").padded(128)
+    tables = (lh.logA, lh.logB, lh.logPi, torch.as_tensor(y.astype(np.int64)))
+    path = tfv.decode(hmm, y, alg, device="cpu", **segs, **extra).path.copy()
+    assert th._parity(cfg, hmm, y, path, dec, tables) is True
+    path[6] = (path[6] + 1) % 48
+    assert th._parity(cfg, hmm, y, path, dec, tables) is False
+
+
+@pytest.mark.parametrize("alg", ["sieve", "sieve_dag"])
+def test_sieve_dyn_rows_take_the_cpu_witness_above_the_mirror(alg, monkeypatch):
+    """Above _MIRROR_MAX_K a sieve or sieve_dag row is held to the port's
+    CPU decode, and the float64 oracle is not run."""
+    from flash_viterbi_tpu_torch.oracle import sieve as osieve
+
+    def oracle(*a, **k):
+        raise AssertionError("the oracle ran above the mirror's K")
+
+    monkeypatch.setattr(osieve, "sieve_dynamic", oracle)
+    monkeypatch.setattr(osieve, "sieve_dag", oracle)
+    monkeypatch.setattr(th, "_MIRROR_MAX_K", {alg: 8})
+    assert th.run_one(th.RunConfig(algorithm=alg, **SMALL))["parity"] == "witness:cpu:True"
+
+
+def test_flash_long_row_above_the_oracle_cells(monkeypatch):
+    monkeypatch.setattr(th, "_ORACLE_MAX_CELLS", 0)
+    cfg = th.RunConfig(algorithm="flash_long", **SMALL)
+    assert th.run_one(cfg)["parity"] == "witness:fused:True"
+
+
+def test_sieve_dag_row_on_a_dag():
+    cfg = th.RunConfig(algorithm="sieve_dag", K=32, M=6, T=20, dag=True, device="cpu")
+    assert th.run_one(cfg)["parity"] is True
 
 
 def test_save_dataset_bytes_match_jax(tmp_path):
