@@ -172,6 +172,27 @@ Phases, each fatal on failure:
    (the batched pipeline) on the same tables equals ``decode_batch(...,
    "flash")``; its time and peak above the tables are printed.
 
+12. The command line and tools (its wall time printed), at the headline:
+   ``cli.main(["decode", "-a", "fused", ...])`` (the reference stdout
+   protocol: the path equals request 0's C oracle, ``memory:`` fused's
+   analytic value, its time beside ``scaling.single_chip_wall_model``);
+   ``generate`` then ``decode --data`` at K=512 against the C oracle of
+   the written files; ``bench -a fused,flash`` into a temporary
+   ``--csv-dir`` (header ``CSV_FIELDS``, parity); ``compare`` in a
+   temporary directory (vanilla, checkpoint and fused equal the C oracle,
+   flash at 8 segments under phase 4's rule, flash_bs and beam phase 6's
+   paths, sieve_mp the CPU decode, the SIEVE oracles skipped above
+   ``--oracle-limit``); the headline script
+   (``flash_viterbi_tpu_torch.bench.headline``, exact path parity,
+   ``bench.py``'s keys); ``scaling --mesh "1,1,2;1,2,2" --measure`` (each
+   mesh as gloo ranks on the card, every row's paths equal);
+   ``profile_flash`` at 16 segments (0 < phase 1 <= the whole decode);
+   ``memory_report`` after a fused decode; ``decode(..., retries=2)``
+   equal to the decode without.  Phase 7 also prints the model's T=16384
+   wall beside fused's.
+13. Last, ``device_trace`` around one fused decode: a Chrome trace holding
+   its kernels (host timings after a profiler session run slower).
+
 The kernel phase also holds ``maxplus_step_block`` bit-exact on nine
 fixtures: the (1, 1, 1) boundary step (N=1, Ks=Kd=3968), 16 phase-2 lanes
 on one of 4 state ranks (Kd=992), config-5's K on one of 4 state ranks
@@ -239,9 +260,13 @@ then, last, the
 
 from __future__ import annotations
 
+import ast
+import contextlib
+import io
 import itertools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -365,6 +390,18 @@ WITNESS_TIMEOUT_S = 600.0
 SPIN_UP_S = 0.5
 SHARDED_NEEDS = ("maxplus_step_block", "maxplus_scan", "backtrack_batched",
                  "maxplus_scan_deltas", "argmax_walk")
+
+# the command line and tools phase: the kernels its decodes must launch (the
+# headline script's flash, compare's checkpoint, beam decoders and sieve_mp),
+# the K of its generate/decode --data round trip (the headline's tables as
+# text are ~150 MB), the meshes of its scaling sweep, and bench.py's keys,
+# which the headline script's line must hold
+TOOLS_NEEDS = ("maxplus_scan", "maxplus_scan_deltas", "maxplus_scan_emitgather",
+               "backtrack_batched", "argmax_walk", "beam_scan", "fold_planes")
+TOOLS_DATA_K = 512
+TOOLS_MESHES = "1,1,2;1,2,2"
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "wall_s", "config",
+              "exact_path_parity", "device")
 
 # the error word the kernel phase's timed beam scans and walks share
 SHARED_ERR = None
@@ -1982,11 +2019,13 @@ def checkpoint_phase(hmm, requests, oracles, device) -> list[dict[str, int]]:
     return [ck_launches, fu_launches]
 
 
-def beam_phase(hmm, requests, oracles, device, cpu_device) -> list[dict[str, int]]:
+def beam_phase(hmm, requests, oracles, device, cpu_device,
+               keep: dict) -> list[dict[str, int]]:
     """Decode every request with flash_bs and with beam on ``device``; each
     path must equal the CPU decode and the numpy mirror exactly, and each
     ``memory:`` its analytic value.  Prints the f64 score gap to the C
-    oracle's path.  Returns the launches of both."""
+    oracle's path.  Puts request 0's path of each into ``keep`` by name;
+    returns the launches of both."""
     from flash_viterbi_tpu_torch import decode
     from flash_viterbi_tpu_torch.algorithms import beam, flash_bs
     from flash_viterbi_tpu_torch.oracle import framework
@@ -2003,6 +2042,7 @@ def beam_phase(hmm, requests, oracles, device, cpu_device) -> list[dict[str, int
             f"{name}, {len(requests)} decodes", ("beam_scan", "backtrack_batched"),
             lambda: [decode(hmm, y, name, device=device, **static) for y in requests])
         all_launches.append(launches)
+        keep[name] = results[0].path
         want_mem = memory(K=K, T=T, **static)
         require(want_mem == BEAM_MEMORY[name], f"{name}: analytic memory {want_mem}")
         for i, (y, r, oracle) in enumerate(zip(requests, results, oracles)):
@@ -2057,6 +2097,7 @@ def long_t_phase(hmm, device) -> dict[str, int]:
     from flash_viterbi_tpu_torch import build
     from flash_viterbi_tpu_torch.models.generate import observations
     from flash_viterbi_tpu_torch.ops import maxplus as mp
+    from flash_viterbi_tpu_torch.parallel import scaling
 
     lh = tables(hmm, 128, device)
     y = observations(LONG_T, HEADLINE["M"], seed=1)
@@ -2097,6 +2138,10 @@ def long_t_phase(hmm, device) -> dict[str, int]:
           f"({ck_peak / 2**20:.2f} MiB); fused {fu_ms:.3f} ms "
           f"({K2T / fu_ms / 1e6:.2f} G updates/s), peak +{fu_peak} bytes "
           f"({fu_peak / 2**20:.2f} MiB); equal paths, fp32 score {score}", flush=True)
+    print(f"long T={LONG_T}: single_chip_wall_model({hmm.K}, {LONG_T}) "
+          f"{scaling.single_chip_wall_model(hmm.K, LONG_T) * 1e3:.3f} ms against fused "
+          f"{fu_ms:.3f} ms; (T-1)K^2 / time = {hmm.K**2 * (LONG_T - 1) / fu_ms * 1e3:.4g} "
+          f"updates/s against CHIP_UPDATES_PER_S {scaling.CHIP_UPDATES_PER_S:.4g}", flush=True)
     return launches
 
 
@@ -3090,6 +3135,213 @@ def flash_long_phase(hmm, requests, oracles, device) -> list[dict[str, int]]:
     return [launches, long_launches]
 
 
+def captured(fn, *args):
+    """(``fn(*args)``, what it wrote to standard output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def cli_run(argv: list[str]) -> str:
+    """``cli.main(argv)`` in this process (its launches count); its output,
+    after it returned 0."""
+    from flash_viterbi_tpu_torch import cli
+
+    rc, text = captured(cli.main, argv)
+    require(rc == 0, f"cli {argv[0]}: exit code {rc}: {text[-2000:]}")
+    return text
+
+
+def reference_stdout(text: str) -> tuple[float, np.ndarray, int]:
+    """(time, path, memory) of the reference stdout protocol."""
+    m = re.fullmatch(r"time: (\S+) \npath: \[([^\]]*)\]\nmemory: (\d+)\n", text)
+    require(m is not None, f"not the reference stdout protocol: {text[:300]!r}")
+    return float(m.group(1)), np.array(m.group(2).split(), dtype=np.int64), int(m.group(3))
+
+
+def ans_paths(text: str) -> dict[str, np.ndarray]:
+    """Each decoder's path in a ``compare`` summary file."""
+    paths, name = {}, None
+    for line in text.splitlines():
+        if " Time: " in line:
+            name = line.split(" Time: ")[0]
+        elif line.startswith("path: "):
+            paths[name] = np.array(ast.literal_eval(line[len("path: "):]))
+    return paths
+
+
+def tools_phase(hmm, requests, oracles, device, witness, beam_paths) -> dict[str, int]:
+    """The command line, the headline script and the tools on the card at
+    the headline: ``cli decode`` (fused) against request 0's C oracle and
+    fused's analytic memory; ``generate`` then ``decode --data`` at
+    K=TOOLS_DATA_K against the C oracle of the files; ``bench -a
+    fused,flash`` (parity, CSV header); ``compare`` in a temporary
+    directory (the exact decoders against the C oracle, ``flash_bs`` and
+    ``beam`` against the beam phase's paths, ``sieve_mp`` against the CPU
+    decode, the SIEVE oracles skipped); the headline script (exact parity);
+    ``scaling --measure`` on TOOLS_MESHES (every row's paths equal) beside
+    ``single_chip_wall_model``; ``profile_flash``; ``memory_report`` after
+    a decode; ``decode(..., retries=2)``.  Prints the phase's seconds;
+    returns the launches."""
+    import csv
+
+    from flash_viterbi_tpu_torch import build, decode
+    from flash_viterbi_tpu_torch.algorithms import fused
+    from flash_viterbi_tpu_torch.bench import headline as headline_script
+    from flash_viterbi_tpu_torch.bench.harness import CSV_FIELDS
+    from flash_viterbi_tpu_torch.oracle import native
+    from flash_viterbi_tpu_torch.parallel import scaling
+    from flash_viterbi_tpu_torch.utils.io import load_dataset
+    from flash_viterbi_tpu_torch.utils.profiling import memory_report, profile_flash
+
+    t_phase = time.perf_counter()
+    K, T, y1 = hmm.K, HEADLINE["T"], requests[0]
+    problem = ["-K", str(K), "-M", str(HEADLINE["M"]), "-T", str(T), "-p",
+               str(HEADLINE["prob"]), "-s", str(HEADLINE["seed"])]
+    small = ["-K", str(TOOLS_DATA_K)] + problem[2:]
+    out = {}
+
+    def run():
+        out["decode"] = reference_stdout(cli_run(["decode", "-a", "fused", *problem]))
+        with tempfile.TemporaryDirectory() as data:
+            cli_run(["generate", *small, "-o", data])
+            out["data"] = reference_stdout(cli_run(["decode", "-a", "fused", *small,
+                                                    "--data", data]))
+            out["data_hmm"] = load_dataset(data, TOOLS_DATA_K, T, HEADLINE["M"],
+                                           prob=HEADLINE["prob"])
+        with tempfile.TemporaryDirectory() as csv_dir:
+            out["bench"] = cli_run(["bench", "-a", "fused,flash", *problem,
+                                    "--csv-dir", csv_dir])
+            out["csv"] = {}
+            for name in ("fused", "flash"):
+                with open(os.path.join(csv_dir, f"{name}.csv")) as f:
+                    out["csv"][name] = list(csv.reader(f))
+        cwd = os.getcwd()
+        with tempfile.TemporaryDirectory() as work:
+            os.chdir(work)
+            try:
+                out["compare"] = cli_run(["compare", *problem])
+                ans = f"ANS_K{K}_T{T}_prob{HEADLINE['prob']}_beam_width{BEAM_WIDTH}.txt"
+                with open(ans) as f:
+                    out["ans"] = f.read()
+            finally:
+                os.chdir(cwd)
+        out["headline"] = captured(headline_script.main, [])
+        out["scaling"] = cli_run(["scaling", "--mesh", TOOLS_MESHES, "--measure"])
+        out["profile"] = profile_flash(hmm, y1, num_segments=SEGMENTS, device=device)
+        r = decode(hmm, y1, "fused", device=device)
+        out["memory"] = memory_report(build("fused"), K=K, T=T, device=device)
+        out["retries"] = (r, decode(hmm, y1, "fused", retries=2, device=device))
+
+    _, launches = drive("command line and tools", TOOLS_NEEDS, run)
+
+    secs, path, mem = out["decode"]
+    verdict = oracle_verdict(hmm, y1, path, oracles[0], exact=True)
+    require(mem == fused._memory(K=K, T=T), f"cli decode: memory {mem}")
+    rate = K * K * (T - 1) / secs
+    print(f"cli decode -a fused at the headline: time {secs:.6f} s, oracle {verdict}, "
+          f"memory {mem}; (T-1)K^2 / time = {rate:.4g} updates/s against "
+          f"CHIP_UPDATES_PER_S {scaling.CHIP_UPDATES_PER_S:.4g}; single_chip_wall_model"
+          f"({K}, {T}) {scaling.single_chip_wall_model(K, T) * 1e3:.3f} ms against "
+          f"{secs * 1e3:.3f} ms measured", flush=True)
+
+    dhmm, dy = out["data_hmm"]
+    want = native.vanilla(dhmm.A, dhmm.B, dhmm.Pi, dy)
+    require(np.array_equal(out["data"][1], want),
+            f"cli decode --data K={TOOLS_DATA_K}: path differs from the C oracle")
+    print(f"cli generate + decode --data K={TOOLS_DATA_K}: equal to the C oracle of the "
+          f"files, time {out['data'][0]:.6f} s, memory {out['data'][2]}", flush=True)
+
+    for name, rows in out["csv"].items():
+        require(rows[0] == CSV_FIELDS, f"cli bench {name}.csv: header {rows[0]}")
+        require(len(rows) == 2, f"cli bench {name}.csv: {len(rows) - 1} rows")
+        row = dict(zip(rows[0], rows[1]))
+        require(row["parity"] in ("True", "mirror-exact", "tie-equivalent"),
+                f"cli bench {name}: parity {row['parity']!r}")
+        print(f"cli bench row: {','.join(rows[1])}", flush=True)
+
+    ans = out["ans"]
+    paths = ans_paths(ans)
+    require("SIEVE oracles skipped" in ans and "(oracle)" not in ans,
+            "cli compare: the SIEVE oracles were not skipped at the headline")
+    require(sorted(paths) == sorted(("vanilla", "checkpoint", "fused", "flash", "flash_bs",
+                                     "sieve_mp", "beam")), f"cli compare: rows {sorted(paths)}")
+    verdicts = {name: oracle_verdict(hmm, y1, paths[name], oracles[0],
+                                     exact=name != "flash")
+                for name in ("vanilla", "checkpoint", "fused", "flash")}
+    for name in ("flash_bs", "beam"):
+        require(np.array_equal(paths[name], beam_paths[name]),
+                f"cli compare {name}: path differs from the beam phase's")
+    require(np.array_equal(paths["sieve_mp"], witness.get("sieve_mp")[0]),
+            "cli compare sieve_mp: path differs from the CPU decode")
+    print(f"cli compare at the headline: {verdicts}; flash_bs and beam equal the beam "
+          f"phase's paths, sieve_mp the CPU decode; SIEVE oracles skipped; its lines: "
+          f"{' | '.join(out['compare'].splitlines())}", flush=True)
+
+    row, text = out["headline"]
+    require(row["exact_path_parity"] is True, f"headline script: {text}")
+    require(set(BENCH_KEYS) <= set(row), f"headline script: keys {sorted(row)}")
+    print(f"headline script: {text.strip()}", flush=True)
+
+    lines = out["scaling"].splitlines()
+    modeled = [json.loads(line) for line in lines if line.startswith('{"')]
+    measured = [ast.literal_eval(line) for line in lines if line.startswith("{'")]
+    require(len(modeled) == len(measured) == len(TOOLS_MESHES.split(";")),
+            f"cli scaling: {out['scaling']}")
+    require(all(r["paths_equal"] for r in measured), f"cli scaling: {measured}")
+    for m, r in zip(modeled, measured):
+        print(f"cli scaling {r['shape']}: paths_equal {r['paths_equal']}, work_balance "
+              f"{r['work_balance']:.4f}, modeled_efficiency at K={m['K']} T={m['T']} "
+              f"batch {m['batch']} {m['modeled_efficiency']:.4f}", flush=True)
+
+    prof = out["profile"]
+    require(0 < prof["phase1_s"] <= prof["total_s"], f"profile_flash: {prof}")
+    print(f"profile_flash N={SEGMENTS}: {prof}", flush=True)
+
+    mem = out["memory"]
+    require(mem["analytic_bytes"] == fused._memory(K=K, T=T)
+            and 0 < mem["live_array_bytes"] == mem["device_bytes_in_use"]
+            <= mem["device_peak_bytes_in_use"] <= mem["device_bytes_limit"],
+            f"memory_report: {mem}")
+    print(f"memory_report after a fused decode: {mem}", flush=True)
+
+    plain, retried = out["retries"]
+    require(np.array_equal(plain.path, retried.path), "decode(..., retries=2): path differs")
+    print(f"decode fused retries=2: equal path, {retried.time_s * 1e3:.3f} ms (without "
+          f"{plain.time_s * 1e3:.3f} ms)", flush=True)
+    print(f"command line and tools phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def trace_phase(hmm, y, device) -> dict[str, int]:
+    """``device_trace`` around one fused decode (its warmup and timed call),
+    last in the script: host timings after a torch.profiler session run
+    slower.  The Chrome trace must be written and hold the decode's
+    kernels.  Returns the launches."""
+    from flash_viterbi_tpu_torch import decode
+    from flash_viterbi_tpu_torch.utils.profiling import device_trace
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        def run():
+            with device_trace(log_dir) as prof:
+                decode(hmm, y, "fused", device=device)
+            return prof
+
+        _, launches = drive("device_trace", ("maxplus_scan", "backtrack_batched"), run)
+        trace = os.path.join(log_dir, "trace.json")
+        size = os.path.getsize(trace) if os.path.exists(trace) else 0
+        with open(trace) as f:
+            events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    require(size > 0 and kernels, f"device_trace: {size} bytes, {len(kernels)} kernel events")
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e3
+    print(f"device_trace of one fused decode (warmup and timed call): {size} bytes, "
+          f"{len(events)} events, {len(kernels)} kernels, {busy:.3f} ms of kernel time",
+          flush=True)
+    return launches
+
+
 def headline() -> tuple:
     """(HMM, the four requests: the seed-1 sequence and
     ``observations(T, M, seed=s)`` for s in EXTRA_SEEDS)."""
@@ -3171,8 +3423,8 @@ def main() -> None:
 
 
 def phases(device, witness: Witness, t_start: float) -> None:
-    """Phases 3 to 11 and the closing lines, the CPU decodes of phases 4
-    and 8c read from ``witness``."""
+    """Phases 3 to 13 and the closing lines, the CPU decodes of phases 4,
+    8c and 12 read from ``witness``."""
     from flash_viterbi_tpu_torch.oracle import native
 
     hmm, requests = headline()
@@ -3197,9 +3449,10 @@ def phases(device, witness: Witness, t_start: float) -> None:
     print(f"C oracle: {len(requests)} decodes in {time.perf_counter() - t0:.1f} s",
           flush=True)
     cpu = torch.device("cpu")
+    beam_paths = {}
     launches = ([slice_phase(hmm, requests, oracles, device, witness)]
                 + checkpoint_phase(hmm, requests, oracles, device)
-                + beam_phase(hmm, requests, oracles, device, cpu)
+                + beam_phase(hmm, requests, oracles, device, cpu, beam_paths)
                 + [beam_large_phase(device, cpu), long_t_phase(hmm, device)]
                 + batch_phase(hmm, device))
     launches += lean_auto_harness_phase(hmm, requests, oracles, device, cpu)
@@ -3207,9 +3460,11 @@ def phases(device, witness: Witness, t_start: float) -> None:
     launches += sieve_dyn_phase(hmm, requests, device, witness)
     print(f"CPU witness: the phases waited {witness.waited:.1f} s for it in all", flush=True)
     launches += flash_long_phase(hmm, requests, oracles, device)
+    launches.append(tools_phase(hmm, requests, oracles, device, witness, beam_paths))
     sharded_paths, sharded_launches = sharded_phase(hmm, requests, oracles, device, cpu)
     multi_rank_phase(sharded_paths)
     launches += [sharded_launches, *config5_phase(device), probe_launches]
+    launches.append(trace_phase(hmm, y1, device))  # last: a profiler session slows the host
     recs.update(probe_recs)
     table = {**KERNELS, **PROBE_KERNELS}
     total = {name: sum(run[name] for run in launches) for name in table}

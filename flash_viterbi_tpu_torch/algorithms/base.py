@@ -18,6 +18,7 @@ import torch
 from ..models.hmm import HMM, LogHMM, resolve_device
 from ..ops import cuda as cuda_ops
 from ..runtime import build as kernel_build
+from ..utils.failsafe import with_redispatch
 
 _REGISTRY: dict[str, Callable[..., "Decoder"]] = {}
 
@@ -132,6 +133,7 @@ def decode(
     pad_to: int = 128,
     warmup: bool = True,
     device="cuda",
+    retries: int = 0,
     **static: Any,
 ) -> DecodeResult:
     """End-to-end decode of one observation sequence on ``device``.
@@ -142,6 +144,10 @@ def decode(
     optional warmup: with CUDA events on the card, with ``perf_counter``
     on the CPU.  ``extra`` holds the kernel launches each wrapper made
     during the timed decode.
+
+    ``retries > 0`` issues a decode that failed with a transient error
+    again on the same device, synchronising after each attempt
+    (``utils.failsafe``); the default fails fast.
     """
     dev = resolve_device(device)
     dec = build(algorithm, **static)
@@ -149,8 +155,17 @@ def decode(
     K, lh = upload(hmm, dev, pad_to)
     T = int(len(yv))
     yd = torch.as_tensor(yv, device=dev)
-    path, time_s, launches = timed(lambda: dec(lh.logA, lh.logB, lh.logPi, yd),
-                                   dev, warmup)
+
+    def issue():
+        out = dec(lh.logA, lh.logB, lh.logPi, yd)
+        if retries > 0 and dev.type == "cuda":
+            torch.cuda.synchronize(dev)  # an asynchronous error raises in the retried call
+        return out
+
+    def run():
+        return with_redispatch(issue, retries=retries) if retries > 0 else issue()
+
+    path, time_s, launches = timed(run, dev, warmup)
     return DecodeResult(
         path=path.cpu().numpy()[:T],
         time_s=time_s,

@@ -134,7 +134,15 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "flash_viterbi_tpu_torch.algorithms.sieve, flash_viterbi_tpu_torch.models.generate, "
             "flash_viterbi_tpu_torch.algorithms.sieve_bs, flash_viterbi_tpu_torch.oracle.sieve_bs, "
             "flash_viterbi_tpu_torch.bench.bounds, flash_viterbi_tpu_torch.algorithms.sieve_dyn, "
-            "flash_viterbi_tpu_torch.algorithms.longform; "
+            "flash_viterbi_tpu_torch.algorithms.longform, flash_viterbi_tpu_torch.cli, "
+            "flash_viterbi_tpu_torch.utils.failsafe, flash_viterbi_tpu_torch.utils.cache, "
+            "flash_viterbi_tpu_torch.utils.profiling, flash_viterbi_tpu_torch.parallel.scaling, "
+            "flash_viterbi_tpu_torch.parallel.scaling_worker, "
+            "flash_viterbi_tpu_torch.bench.headline, runpy\n"
+            # python -m flash_viterbi_tpu_torch --help: __main__ exits 0
+            "sys.argv = ['flash_viterbi_tpu_torch', '--help']\n"
+            "try:\n    runpy.run_module('flash_viterbi_tpu_torch', run_name='__main__')\n"
+            "except SystemExit as e:\n    assert e.code == 0, e.code\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flash_viterbi_tpu', 'triton')); "
             "print(bad); sys.exit(1 if bad else 0)")
