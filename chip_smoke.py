@@ -10,8 +10,8 @@ Phases, each fatal on failure:
 2. Build: compile the port's CUDA sources with ``nvcc``, one process per
    source, all at once.  Then four worker processes start (this script
    with ``--cpu-witness``, no card visible, 2 threads each) that make the
-   port's CPU decodes phases 4, 8c and 8d hold the card's paths to, the
-   SIEVE mirror fixtures' oracles and phase 8d's DAG tables, while the
+   port's CPU decodes phases 4, 8c, 8d and 12b hold the card's paths to,
+   the SIEVE mirror fixtures' oracles and phase 8d's DAG tables, while the
    card's phases run.
 3. Kernels: each of the eight kernels against its plain PyTorch version on
    the card, bit-exact (tolerance 0: the kernels use only correctly
@@ -190,6 +190,26 @@ Phases, each fatal on failure:
    ``memory_report`` after a fused decode; ``decode(..., retries=2)``
    equal to the decode without.  Phase 7 also prints the model's T=16384
    wall beside fused's.
+12b. ``precision="bf16"`` (its wall time printed; after phase 11, before
+   13): the bf16-table instances of the pointer scan, the deltas scan and
+   the walk against their plain versions on the card, bit for bit (the
+   sums are fp32 of the bf16 values in both): at the flash decode's shapes
+   (timed, each beside its bound: the bf16 table counts at 2 bytes a
+   value), the walk also at N=1, T'=255, at the unpadded K=3965, on a
+   dense-tie table of four bf16 values (K=1000, 20 lanes, ragged mask) and
+   on the parity grid (the walk over each deltas scan's history).  Then
+   the four requests through ``decode(..., precision="bf16")`` for
+   ``fused``, ``flash`` (16 segments) and flash lean: each launches its
+   bf16 kernels and no fp32 scan or walk, each path equals the port's CPU
+   bf16 decode (made by the witness workers) bit for bit, ``memory:`` the
+   decoder's figure, and its positions and f64 score gap to the C oracle's
+   exact path are printed; ``auto`` in bf16 chooses fused and equals it;
+   ``decode_batch(..., "fused", precision="bf16")`` over 16 sequences in
+   both pointer modes, every row equal to its single bf16 decode on the
+   card (rows 0-3, the requests, to the CPU's).  Last, fp32 against bf16
+   in turns: the two scans' µs a step, the fused, flash, lean and
+   recompute Bs=16 decodes, the flash decoder's kept tables and peak, and
+   each decode's device busy ms (torch.profiler).
 13. Last, ``device_trace`` around one fused decode: a Chrome trace holding
    its kernels (host timings after a profiler session run slower).
 
@@ -372,16 +392,42 @@ LONG_BATCH_NEEDS = ("maxplus_scan_deltas", "argmax_walk")
 # them.  The CPU decodes gain little from more threads (the plain scan goes
 # a lane at a time): four workers of 2 threads each, to finish before the
 # phases that read them
+# precision="bf16" (phase 12b): its kernel instances' launch counters, the
+# headline decodes it drives (label, decoder, keywords, the kernels each must
+# launch, and launch alone), and the batch's pointer modes with theirs
+BF16_SCAN, BF16_DELTAS, BF16_WALK = "maxplus_scan_bf16", "maxplus_scan_deltas_bf16", \
+    "argmax_walk_bf16"
+BF16_DECODES = (
+    ("fused", "fused", {}, (BF16_SCAN, "backtrack_batched")),
+    ("flash", "flash", {"num_segments": SEGMENTS},
+     (BF16_SCAN, BF16_DELTAS, "backtrack_batched", BF16_WALK)),
+    ("lean", "flash", {"mode": "lean", "num_segments": SEGMENTS},
+     (BF16_SCAN, BF16_DELTAS, BF16_WALK, "fold_planes")))
+BF16_BATCH = 16
+BF16_BATCH_NEEDS = {"store": (BF16_SCAN, "backtrack_batched"),
+                    "recompute": (BF16_DELTAS, BF16_WALK)}
+
+
+def _bf16_jobs(label: str, requests) -> tuple:
+    """Witness jobs: the CPU bf16 decodes of BF16_DECODES[label] on
+    ``requests``, tagged ``bf16_<label><i>``."""
+    _, name, static, _ = next(d for d in BF16_DECODES if d[0] == label)
+    return tuple((f"bf16_{label}{i}", name, i, {**static, "precision": "bf16"})
+                 for i in requests)
+
+
 WITNESS_JOBS = (
     tuple((f"flash{i}", "flash", i, {"num_segments": SEGMENTS})
           for i in range(1 + len(EXTRA_SEEDS)))
-    + tuple((f"mirror_{name}", name, None, SIEVE_STATIC[name]) for name in SIEVE_MIRROR_K),
+    + tuple((f"mirror_{name}", name, None, SIEVE_STATIC[name]) for name in SIEVE_MIRROR_K)
+    + _bf16_jobs("fused", range(4)) + _bf16_jobs("lean", (0,)),
     (("sieve_mp", "sieve_mp", 0, {}), ("sieve_bs", "sieve_bs", 0, SIEVE_STATIC["sieve_bs"]),
-     ("sieve_prefix", "sieve", "prefix", {})),
+     ("sieve_prefix", "sieve", "prefix", {})) + _bf16_jobs("flash", (0, 1)),
     (("sieve_bs_mp", "sieve_bs_mp", 0, SIEVE_STATIC["sieve_bs_mp"]),
      ("sieve_mp_unpruned", "sieve_mp", 0, {"prune": False}),
-     ("sieve_oracle", "sieve", "sieve_oracle", {})),
-    tuple((key, DYN_FIXTURES[key][0], key, {}) for key in ("dag_large", "dag_cpu", "dag_oracle")))
+     ("sieve_oracle", "sieve", "sieve_oracle", {})) + _bf16_jobs("flash", (2, 3)),
+    tuple((key, DYN_FIXTURES[key][0], key, {}) for key in ("dag_large", "dag_cpu", "dag_oracle"))
+    + _bf16_jobs("lean", (1, 2, 3)))
 WITNESS_THREADS = 2
 WITNESS_TIMEOUT_S = 600.0
 # PR 6's first request of each decode phase read ~2x the others, after
@@ -426,6 +472,14 @@ KERNELS = {
     # mode's anchor planes (and, at :401, its t2 planes)
     "fold_planes": ("flash_viterbi_tpu_torch/csrc/fold_planes.cu",
                     "flash_viterbi_tpu/algorithms/flash.py:190"),
+    # the bf16-table instances (precision="bf16"): the Pallas scans load a
+    # bf16 tile (maxplus.py:132, :196), the walk reads bf16 logAT rows
+    BF16_SCAN: ("flash_viterbi_tpu_torch/csrc/maxplus_scan.cu",
+                "flash_viterbi_tpu/ops/pallas/maxplus.py:467"),
+    BF16_DELTAS: ("flash_viterbi_tpu_torch/csrc/maxplus_scan.cu",
+                  "flash_viterbi_tpu/ops/pallas/maxplus.py:240"),
+    BF16_WALK: ("flash_viterbi_tpu_torch/csrc/argmax_walk.cu",
+                "flash_viterbi_tpu/ops/pallas/backtrack.py:594"),
 }
 # the probes' kernels (flash_viterbi_tpu_torch/probes/), the same way
 PROBE_KERNELS = {
@@ -599,13 +653,14 @@ def work_backtrack(args, outs):
 
 def work_walk(args, outs):
     """The argmax walk: per walked row one carry row, and the logAT rows of
-    the states it walks from (each distinct row once)."""
+    the states it walks from (each distinct row once, at its element size)."""
     deltas, logAT, last, valid = args
     Tm, N, K = deltas.shape
     v = torch.ones((Tm, N), dtype=torch.bool, device=deltas.device) if valid is None else valid
     walked = int(v.sum())
     rows = int(torch.unique(outs[0][:, 1:].t()[v]).numel())
-    return (walked + rows) * K * 4 + nbytes(last, valid, *outs), 2 * walked * K
+    return ((walked * deltas.element_size() + rows * logAT.element_size()) * K
+            + nbytes(last, valid, *outs), 2 * walked * K)
 
 
 def work_beam(args, outs):
@@ -639,7 +694,8 @@ def work_fold(args, outs):
 WORK = {"maxplus_scan": work_scan, "maxplus_scan_deltas": work_scan,
         "maxplus_scan_emitgather": work_emitgather, "maxplus_step_block": work_step_block,
         "backtrack_batched": work_backtrack, "argmax_walk": work_walk, "beam_scan": work_beam,
-        "fold_planes": work_fold}
+        "fold_planes": work_fold, BF16_SCAN: work_scan, BF16_DELTAS: work_scan,
+        BF16_WALK: work_walk}
 
 
 def card():
@@ -3314,6 +3370,259 @@ def tools_phase(hmm, requests, oracles, device, witness, beam_paths) -> dict[str
     return launches
 
 
+def bf16_tie_fixture(device, K: int = 1000, N: int = 20, Tm: int = 21, seed: int = 9):
+    """A dense-tie bf16 table: four distinct values, an all -inf source row
+    and destination column; integer emissions and carries, a ragged valid
+    mask.  K is not a multiple of 8 and N needs two lane groups."""
+    rng = np.random.default_rng(seed)
+    logA = rng.choice(np.float32([-3.0, -1.5, -0.75, 0.0]), (K, K))
+    logA[K // 3] = -np.inf
+    logA[:, K // 5] = -np.inf
+
+    def put(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+    ties = (put(logA).to(torch.bfloat16), put(np.round(rng.standard_normal((Tm, N, K)))),
+            put(np.round(rng.standard_normal((N, K)))))
+    return ties, torch.as_tensor(rng.random((Tm, N)) < 0.8, device=device)
+
+
+def bf16_check_all(scan_in, deltas_in, valid, device, reps: int = 0) -> list[dict]:
+    """The three bf16 instances against their plain versions: the pointer
+    scan on ``scan_in``, the deltas scan on ``deltas_in`` and the walk over
+    its carry history (``valid`` its mask), ``logA`` bf16 in both."""
+    from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.ops import maxplus as mp
+    from flash_viterbi_tpu_torch.ops.cuda import backtrack as kb
+    from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
+
+    recs = [compare(BF16_SCAN, k.maxplus_scan_bf16, km.maxplus_scan_plain, scan_in, device,
+                    reps),
+            compare(BF16_DELTAS, k.maxplus_scan_deltas_bf16, km.maxplus_scan_deltas_plain,
+                    deltas_in, device, reps)]
+    dfin, deltas = k.maxplus_scan_deltas_bf16(*deltas_in)
+    logAT = deltas_in[0].t().contiguous()
+    recs.append(compare(BF16_WALK, shared_word(k.argmax_walk_bf16, device), kb.argmax_walk_plain,
+                        (deltas, logAT, mp.first_argmax(dfin, 1)[1], valid), device, reps))
+    return recs
+
+
+def bf16_kernel_checks(hmm, y, device) -> dict[str, dict]:
+    """The bf16 pointer scan, deltas scan and walk against their plain
+    versions on the card, bit for bit: at the flash decode's shapes (the
+    scans timed at N=1, T'=255 and N=16, T'=16, the walk at the latter's 16
+    ragged lanes), the walk also at N=1, T'=255; at the unpadded K=3965; on
+    the dense-tie table; on the parity grid GRID_K x GRID_N (the walk over
+    each deltas scan's history).  Returns per-kernel records as the kernel
+    phase's."""
+    from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.ops import maxplus as mp
+    from flash_viterbi_tpu_torch.ops.cuda import backtrack as kb
+    from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
+
+    def bf16(inputs):
+        return (inputs[0].to(torch.bfloat16), *inputs[1:])
+
+    t0 = time.perf_counter()
+    head = tables(hmm, 128, device)
+    scan_in, deltas_in, valid = phase_inputs(head, y, device, seed=0)
+    timed = bf16_check_all(bf16(scan_in), bf16(deltas_in), valid, device, reps=9)
+    dfin, deltas = k.maxplus_scan_deltas_bf16(*bf16(scan_in))
+    long_walk = compare(BF16_WALK, shared_word(k.argmax_walk_bf16, device), kb.argmax_walk_plain,
+                        (deltas, bf16(scan_in)[0].t().contiguous(),
+                         mp.first_argmax(dfin, 1)[1], None), device, reps=9)
+    scan_in, deltas_in, valid = phase_inputs(tables(hmm, 1, device), y, device, seed=1)
+    others = [long_walk] + bf16_check_all(bf16(scan_in), bf16(deltas_in), valid, device)
+    ties, tie_valid = bf16_tie_fixture(device)
+    others += bf16_check_all(ties, ties, tie_valid, device)
+    for K in GRID_K:
+        for N in GRID_N:
+            Tm = GRID_TM_LARGE if K > 4096 else GRID_TM
+            grid = bf16(grid_inputs(K, N, Tm, device, seed=K + N + 1)[:3])
+            others += bf16_check_all(grid, grid, None, device)
+            del grid
+        torch.cuda.empty_cache()
+    recs = {r["name"]: dict(r, fixtures=1) for r in timed}
+    for r in others:
+        recs[r["name"]]["max_abs_err"] = max(recs[r["name"]]["max_abs_err"], r["max_abs_err"])
+        recs[r["name"]]["fixtures"] += 1
+    for name, r in recs.items():
+        print(f"kernel {name}: bit-exact on {r['fixtures']} fixtures; {r['ms']:.3f} ms (plain "
+              f"{r['plain_ms']:.3f} ms) at the headline shape; bound {r['bound_ms']:.6f} ms by "
+              f"{r['bound_by']} ({r['bytes']} bytes, {r['operations']} operations)", flush=True)
+    print(f"{BF16_WALK} at N=1, T'={len(y) - 1}: {long_walk['ms']:.4f} ms (plain "
+          f"{long_walk['plain_ms']:.3f}); bound {long_walk['bound_ms']:.6f} ms by "
+          f"{long_walk['bound_by']}; the bf16 kernel checks {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    km.raise_on_error(SHARED_ERR, "bf16 kernel checks")
+    return recs
+
+
+def bf16_turns(hmm, y, device) -> None:
+    """fp32 against bf16 in turns (fp32, bf16, bf16, fp32) at the headline:
+    the phase-1 pointer scan (N=1, T'=255) and phase 2's deltas scan (N=16,
+    T'=16) as µs a step, then the fused, flash N=16, lean and recompute
+    Bs=16 decodes (the decoders built once, called on the tables on the
+    card: the median of 5 CUDA-event timings a turn), the flash decoder's
+    kept tables and peak (``kept_tables``), and last each decode's device
+    busy ms (torch.profiler, which slows later host timings; three decodes
+    a session, the sessions in turns)."""
+    import functools
+
+    from flash_viterbi_tpu_torch import build
+    from flash_viterbi_tpu_torch.algorithms.fused import fused_decode_batch
+    from flash_viterbi_tpu_torch.ops import cuda as k
+
+    head = tables(hmm, 128, device)
+    scan_in, deltas_in, _ = phase_inputs(head, y, device, seed=0)
+    logA = {"fp32": head.logA, "bf16": head.logA.to(torch.bfloat16)}
+    order = ("fp32", "bf16", "bf16", "fp32")
+    for label, fn, args in (("pointer scan N=1", k.maxplus_scan, scan_in),
+                            ("deltas scan N=16", k.maxplus_scan_deltas, deltas_in)):
+        runs = {"fp32": [], "bf16": []}
+        for p in order:
+            runs[p].append(elapsed_ms(lambda: fn(logA[p], *args[1:]), device, 9))
+        steps = args[1].shape[0]
+        fp, bf = (statistics.mean(runs[p]) for p in ("fp32", "bf16"))
+        print(f"bf16 turns, {label}, T'={steps}: fp32 {fp:.4f} ms ({fp / steps * 1e3:.3f} us a "
+              f"step), bf16 {bf:.4f} ms ({bf / steps * 1e3:.3f} us a step), bf16/fp32 "
+              f"{bf / fp:.3f}; runs {runs}", flush=True)
+    yd = torch.as_tensor(y.astype(np.int64), device=device)
+    ys = torch.as_tensor(batch_seqs()[:BF16_BATCH].astype(np.int64), device=device)
+    cases = {}
+    for p in ("fp32", "bf16"):
+        for label, name, static, _ in BF16_DECODES:
+            cases[(label, p)] = functools.partial(build(name, precision=p, **static),
+                                                  head.logA, head.logB, head.logPi, yd)
+        cases[(f"recompute Bs={BF16_BATCH}", p)] = functools.partial(
+            fused_decode_batch, head.logA, head.logB, head.logPi, ys, pointers="recompute",
+            precision=p)
+    for run in cases.values():
+        run()
+    labels = list(dict.fromkeys(label for label, _ in cases))
+    for label in labels:
+        runs = {"fp32": [], "bf16": []}
+        for p in order:
+            runs[p].append(elapsed_ms(cases[(label, p)], device, 5))
+        fp, bf = (statistics.mean(runs[p]) for p in ("fp32", "bf16"))
+        print(f"bf16 turns, {label} decode: fp32 {fp:.3f} ms, bf16 {bf:.3f} ms (bf16/fp32 "
+              f"{bf / fp:.3f}); runs {runs}", flush=True)
+    for p in ("fp32", "bf16"):
+        kept, first, again = kept_tables(head, yd, p, device)
+        print(f"flash N={SEGMENTS} {p}: the decoder keeps {kept} bytes of tables across calls; "
+              f"the first call's peak +{first} bytes, a later call's +{again} bytes above them",
+              flush=True)
+    # a session may record only part of its decodes (PERF.md), which can only
+    # lower a reading: three decodes a session, in turns, the larger reading
+    # of each precision kept
+    for label in labels:
+        busy = {"fp32": [], "bf16": []}
+        for p in order:
+            run = cases[(label, p)]
+            ms, launches, largest = device_profile(lambda: [run() for _ in range(3)], device)
+            busy[p].append((ms / 3, launches / 3, largest))
+        fp, bf = (max(busy[p]) for p in ("fp32", "bf16"))
+        print(f"bf16 device busy, {label} decode: fp32 {fp[0]:.3f} ms ({fp[1]:.1f} launches), "
+              f"bf16 {bf[0]:.3f} ms ({bf[1]:.1f} launches) a decode; sessions "
+              f"{ {p: [(round(b[0], 3), b[1]) for b in busy[p]] for p in busy} }; largest bf16 "
+              f"items (3 decodes) {bf[2]}", flush=True)
+
+
+def kept_tables(head, yd, precision: str, device) -> tuple[int, int, int]:
+    """A fresh flash N=SEGMENTS decoder at ``precision`` on the headline
+    tables: (the bytes it keeps across calls and its first call's peak,
+    both above what was allocated before it was built; a later call's peak
+    above what was allocated before that call)."""
+    from flash_viterbi_tpu_torch import build
+
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    dec = build("flash", num_segments=SEGMENTS, precision=precision)
+    args = (head.logA, head.logB, head.logPi, yd)
+    dec(*args)
+    torch.cuda.synchronize(device)
+    kept = torch.cuda.memory_allocated(device) - before
+    first = torch.cuda.max_memory_allocated(device) - before
+    return kept, first, peak_run(dec, args, device)[2]
+
+
+def bf16_phase(hmm, requests, oracles, device, witness) -> tuple[dict, list[dict[str, int]]]:
+    """precision="bf16": the kernel checks (``bf16_kernel_checks``), then the
+    four requests through ``decode(..., precision="bf16")`` for each of
+    BF16_DECODES (fused, flash N=16 pointer, flash lean), each launching its
+    kernels and no other, each path equal to the port's CPU bf16 decode
+    (the witness) bit for bit and ``memory:`` the decoder's fp32 figure,
+    the f64 score gap to the C oracle's exact path printed; ``auto`` in
+    bf16 (it chooses fused) equal to fused's; ``decode_batch(..., "fused",
+    precision="bf16")`` over BF16_BATCH sequences in both pointer modes,
+    every row equal to its single bf16 fused decode on the card, the first
+    four (the requests) the CPU's; then ``bf16_turns``.  Returns the kernel
+    records and the decodes' launches."""
+    from flash_viterbi_tpu_torch import build, decode, decode_batch
+    from flash_viterbi_tpu_torch.algorithms.auto import choose
+    from flash_viterbi_tpu_torch.oracle.validate import path_score_f64
+
+    t0 = time.perf_counter()
+    recs = bf16_kernel_checks(hmm, requests[0], device)
+    spun = spin_up(device)
+    K, T = hmm.K, len(requests[0])
+    all_launches, paths = [], {}
+    for label, name, static, needed in BF16_DECODES:
+        results, launches = drive(
+            f"bf16 {label}, {len(requests)} decodes", needed,
+            lambda: [decode(hmm, y, name, precision="bf16", device=device, **static)
+                     for y in requests])
+        only(launches, needed)
+        all_launches.append(launches)
+        want_mem = build(name, **static).analytic_memory(K=K, T=T)
+        for i, (y, r, oracle) in enumerate(zip(requests, results, oracles)):
+            cpu_path, cpu_s = witness.get(f"bf16_{label}{i}")
+            require(np.array_equal(r.path, cpu_path),
+                    f"bf16 {label} request {i}: the card's path differs from the CPU decode")
+            require(r.memory_bytes == want_mem, f"bf16 {label} request {i}: memory "
+                    f"{r.memory_bytes} != {want_mem}")
+            gap = (path_score_f64(hmm.A, hmm.B, hmm.Pi, y, oracle)
+                   - path_score_f64(hmm.A, hmm.B, hmm.Pi, y, r.path))
+            print(f"bf16 {label} request {i}: {r.time_s * 1e3:.3f} ms, equal to the CPU decode "
+                  f"({cpu_s:.1f} s in the witness); {int((r.path != oracle).sum())} positions "
+                  f"off the C oracle's exact path, f64 score gap {gap:.6g}", flush=True)
+        paths[label] = np.stack([r.path for r in results])
+    name, kw = choose(-(-K // 128) * 128, T, static={"precision": "bf16"})
+    require(name == "fused", f"auto in bf16 chose {name} {kw} at the headline, not fused")
+    needed = BF16_DECODES[0][3]
+    results, launches = drive("bf16 auto, 4 decodes", needed, lambda: [
+        decode(hmm, y, "auto", precision="bf16", device=device) for y in requests])
+    only(launches, needed)
+    all_launches.append(launches)
+    require(np.array_equal(np.stack([r.path for r in results]), paths["fused"]),
+            "bf16 auto: a path differs from fused's (and the CPU's)")
+    print(f"bf16 auto: chose {name} {kw}; the four paths equal fused's bf16 paths, "
+          f"{[round(r.time_s * 1e3, 3) for r in results]} ms", flush=True)
+    lh = tables(hmm, 128, device)
+    seqs = batch_seqs()[:BF16_BATCH]
+    single = build("fused", precision="bf16")
+    singles = np.stack([single(lh.logA, lh.logB, lh.logPi,
+                               torch.as_tensor(q.astype(np.int64), device=device)).cpu().numpy()
+                        for q in seqs])[:, :T]
+    require(np.array_equal(singles[:len(requests)], paths["fused"]),
+            "bf16 fused single decodes of the requests differ from decode()'s")
+    log_tables = hmm.log(device=device)
+    for pointers, needed in BF16_BATCH_NEEDS.items():
+        r, launches = drive(f"bf16 batch Bs={BF16_BATCH} pointers={pointers}", needed,
+                            lambda: decode_batch(log_tables, seqs, "fused", precision="bf16",
+                                                 pointers=pointers, device=device))
+        only(launches, needed)
+        all_launches.append(launches)
+        require(np.array_equal(r.path, singles),
+                f"bf16 batch {pointers}: a row differs from its single bf16 decode")
+        print(f"bf16 batch Bs={BF16_BATCH} pointers={pointers}: {r.time_s * 1e3:.3f} ms, rows "
+              f"equal the single bf16 decodes (rows 0-3 the CPU's); {spun}", flush=True)
+    bf16_turns(hmm, requests[0], device)
+    print(f"bf16 phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return recs, all_launches
+
+
 def trace_phase(hmm, y, device) -> dict[str, int]:
     """``device_trace`` around one fused decode (its warmup and timed call),
     last in the script: host timings after a torch.profiler session run
@@ -3464,8 +3773,11 @@ def phases(device, witness: Witness, t_start: float) -> None:
     sharded_paths, sharded_launches = sharded_phase(hmm, requests, oracles, device, cpu)
     multi_rank_phase(sharded_paths)
     launches += [sharded_launches, *config5_phase(device), probe_launches]
+    bf16_recs, bf16_launches = bf16_phase(hmm, requests, oracles, device, witness)
+    launches += bf16_launches
     launches.append(trace_phase(hmm, y1, device))  # last: a profiler session slows the host
     recs.update(probe_recs)
+    recs.update(bf16_recs)
     table = {**KERNELS, **PROBE_KERNELS}
     total = {name: sum(run[name] for run in launches) for name in table}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -43,6 +43,12 @@ host-to-device copy in mid-decode would wait for the kernels queued before
 it), and the scans and walks share one error word, read once at the end.
 On CUDA tensors every call above launches a hand-written kernel; on CPU
 tensors each runs its plain version.
+
+``precision="bf16"`` rounds ``logA`` to bfloat16 before anything reads it,
+so every scan, walk and forced entry row reads the bf16 table (the scans'
+and the walk's bf16 instances on the card); the carries, sums and maxes
+stay fp32, and the path is the fp32 path of the rounded table.  The
+decoder keeps the cast, as it keeps the transposed table (``_Transposed``).
 """
 
 from __future__ import annotations
@@ -175,22 +181,36 @@ def lean_working_set(K: int, T: int, num_segments: int = 8,
     return max(round_b, leaf_b) + (2 * N + 4) * K * 4
 
 
+class _Kept:
+    """``make(src, *key)``, kept for the ``src`` tensor (and its version)
+    and the ``key`` it was made from."""
+
+    def __init__(self, make):
+        self._make = make
+        self._src, self._version, self._key, self._out = None, -1, None, None
+
+    def __call__(self, src: torch.Tensor, *key) -> torch.Tensor:
+        if self._src is not src or self._version != src._version or self._key != key:
+            self._src, self._out = None, None  # free the old first
+            self._out = self._make(src, *key)
+            self._src, self._version, self._key = src, src._version, key
+        return self._out
+
+
 class _Transposed:
-    """``logA`` transposed and contiguous, the layout ``argmax_walk`` reads,
-    kept for the ``logA`` (and its version) it was made from: a decoder
-    called again on the same tables reuses it, as it does the tables."""
+    """The forms of ``logA`` a decode makes, each kept for the tensor (and
+    its version) it was made from, so that a decoder called again on the
+    same tables reuses them, as it does the tables: calling it gives a table
+    transposed and contiguous, the layout ``argmax_walk`` reads, and
+    :meth:`cast` the table at a precision (``ops.maxplus.table_at``; under
+    "bf16" a copy of K*K*2 bytes)."""
 
     def __init__(self):
-        self._src = None
-        self._version = -1
-        self._logAT = None
+        self.cast = _Kept(mp.table_at)
+        self._logAT = _Kept(lambda a: a.t().contiguous())
 
     def __call__(self, logA: torch.Tensor) -> torch.Tensor:
-        if self._src is not logA or self._version != logA._version:
-            self._src, self._version, self._logAT = None, -1, None  # free the old first
-            self._logAT = logA.t().contiguous()
-            self._src, self._version = logA, logA._version
-        return self._logAT
+        return self._logAT(logA)
 
 
 class _Indices:
@@ -454,11 +474,14 @@ def _lean_decode(logA, logB, logPi, y, N: int, num_segments: int, lean_leaf: int
 
 
 def flash_decode(logA, logB, logPi, y, num_segments: int = 8, mode: str = "pointer",
-                 lean_leaf: int = LEAN_LEAF, transposed=None):
-    """The (T,) int32 path of ``y`` under the (padded) tables.
-    ``transposed(logA)`` gives the walk's transposed table (by default a
-    fresh copy each call)."""
-    transposed = transposed or (lambda a: a.t().contiguous())
+                 lean_leaf: int = LEAN_LEAF, transposed: _Transposed | None = None,
+                 precision: str = "fp32"):
+    """The (T,) int32 path of ``y`` under the (padded) tables, ``logA``
+    read at ``precision``.  ``transposed`` makes the table at that
+    precision and the walk's transposed table (by default fresh copies each
+    call)."""
+    transposed = transposed or _Transposed()
+    logA = transposed.cast(logA, precision)
     N = int(num_segments)
     T = y.shape[0]
     if N < 1 or T < 2 * N:
@@ -498,16 +521,13 @@ def _build(num_segments: int = 8, mode: str = "pointer", precision: str = "fp32"
     recorded in ``static`` and change nothing."""
     if mode not in ("pointer", "lean"):
         raise ValueError(f"unknown flash mode {mode!r}")
-    if precision == "bf16":
-        raise NotImplementedError(
-            "flash precision='bf16' is not ported yet (ROADMAP.md, queue 1)")
-    if precision != "fp32":
+    if precision not in mp.PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
     transposed = _Transposed()
 
     def fn(logA, logB, logPi, y):
         return flash_decode(logA, logB, logPi, y, num_segments=num_segments, mode=mode,
-                            lean_leaf=lean_leaf, transposed=transposed)
+                            lean_leaf=lean_leaf, transposed=transposed, precision=precision)
 
     return Decoder("flash", fn, {"num_segments": num_segments, "mode": mode,
                                  "precision": precision, "lean_leaf": lean_leaf, **static},

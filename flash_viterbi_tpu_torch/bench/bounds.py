@@ -6,7 +6,10 @@ table that a scan needs whole every step.  Where such a table exceeds what
 the card holds on chip (the shared memory and registers of every SM, and
 the L2), every step after the first must read at least the excess from
 device memory again (:func:`table_bytes`): at K=16384 a (K, K) logA is
-1.07 GB against an H100's 118 MB on chip.
+1.07 GB against an H100's 118 MB on chip.  A table counts at its own
+element size: a bf16 logA (``precision="bf16"``) is half the bytes, 31.5
+MB at K=3968 (on chip, read once, like the fp32 one's 63 MB) and 537 MB at
+K=16384, whose excess a step halves.
 
 Operations: an fp32 add, max, compare or multiply is one instruction of
 one thread, and an SM issues one warp instruction a clock on each of its
@@ -14,7 +17,13 @@ four sub-partitions: 128 operations a clock.  The published 67 TFLOP/s
 fp32 of an H100 is that issue rate with a fused multiply-add counted as two
 operations; no kernel of the port does one (a max-plus cell is an FADD and
 an FMNMX), so their peak is half of it: 64 add+max cells a clock an SM,
-16.7 T cells/s at 132 SMs and the 1.98 GHz maximum SM clock.
+16.7 T cells/s at 132 SMs and the 1.98 GHz maximum SM clock.  A bf16
+table's widening to fp32 (one integer instruction a table value a step)
+is not counted: the bound is a floor for the function, whose arithmetic
+is the fp32 add and max; the widening is a move of bits that a kernel
+shares across all N lanes of a value (1/(2N) of the cells' operations),
+and leaving it out can only make the floor lower, never above what the
+card could do.
 
 Some kernels are held by neither: a one-launch probe whose steps each wait
 for the last is bound by its chain of dependent latencies

@@ -34,7 +34,16 @@
 // null for all rows valid.  A last state outside [0, K) has no logAT row:
 // that lane's path is written as -1.  A ring wait gives up after about a
 // second and sets the error word (async_copy.cuh).
+//
+// walk_kernel<TA> reads the logAT row as TA: float, or __nv_bfloat16 for
+// precision="bf16" (argmax_walk_pallas at flash_viterbi_tpu/ops/pallas/
+// backtrack.py:594 reading bf16 logAT rows).  A bf16 value is widened with
+// __bfloat162float before the add (exact), so the walk equals the fp32 walk
+// of the table rounded to bf16; the carry ring stays fp32.  A 16-byte load
+// holds 8 bf16 columns, not 4, so the head before the row's first 16-byte
+// boundary is counted mod 8.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -68,10 +77,34 @@ __device__ __forceinline__ void take(float v, int k, float& best, int& arg) {
     }
 }
 
+// A table value as fp32 (a bf16 one widened, exactly)
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// The 16 bytes of a logAT row at p (16-byte aligned) as fp32 values: 4
+// floats or 8 bf16 values
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[8]) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const unsigned int w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const unsigned short lo = static_cast<unsigned short>(w[i] & 0xffffu);
+        const unsigned short hi = static_cast<unsigned short>(w[i] >> 16);
+        v[2 * i] = __bfloat162float(__ushort_as_bfloat16(lo));
+        v[2 * i + 1] = __bfloat162float(__ushort_as_bfloat16(hi));
+    }
+}
+
+template <typename TA>
 __global__ void __launch_bounds__(THREADS)
-walk_kernel(const float* __restrict__ deltas, const float* __restrict__ logAT,
+walk_kernel(const float* __restrict__ deltas, const TA* __restrict__ logAT,
             const int* __restrict__ last, const unsigned char* __restrict__ valid,
             int* __restrict__ out, int* __restrict__ err, int Tm, int N, int K, Ring rg) {
+    constexpr int VEC = 16 / sizeof(TA);  // table values a 16-byte load
     extern __shared__ __align__(128) float buf[];  // nb buffers of ch + 4 floats
     __shared__ __align__(8) uint64_t s_bar[NB_MAX];
     __shared__ float s_v[2][WARPS];
@@ -128,7 +161,7 @@ walk_kernel(const float* __restrict__ deltas, const float* __restrict__ logAT,
             if (tid == 0) path[t] = s;
             continue;
         }
-        const float* a = logAT + (size_t)s * K;
+        const TA* a = logAT + (size_t)s * K;
         const float* drow = deltas + ((size_t)t * N + n) * K;
         float best = -INFINITY;
         int arg = K;
@@ -145,20 +178,20 @@ walk_kernel(const float* __restrict__ deltas, const float* __restrict__ logAT,
                                                     : 0);
             const float* d = buf + (size_t)b * (rg.ch + 4) + (off & 3);
             auto carry = [&](int k) { return k - k0 < copied ? d[k - k0] : drow[k]; };
-            const int head = min(len, static_cast<int>((4 - (((size_t)s * K + k0) & 3)) & 3));
-            const int quads = (len - head) / 4;
+            const int head = min(len, static_cast<int>(
+                                          (VEC - (((size_t)s * K + k0) & (VEC - 1))) & (VEC - 1)));
+            const int vecs = (len - head) / VEC;
             const int kq = k0 + head;  // the first 16-byte-aligned column of the logAT row
-            if (tid < head) take(carry(k0 + tid) + a[k0 + tid], k0 + tid, best, arg);
-            for (int q = tid; q < quads; q += THREADS) {
-                const int k = kq + 4 * q;
-                const float4 av = *reinterpret_cast<const float4*>(a + k);
-                take(carry(k) + av.x, k, best, arg);
-                take(carry(k + 1) + av.y, k + 1, best, arg);
-                take(carry(k + 2) + av.z, k + 2, best, arg);
-                take(carry(k + 3) + av.w, k + 3, best, arg);
+            if (tid < head) take(carry(k0 + tid) + widen(a[k0 + tid]), k0 + tid, best, arg);
+            for (int q = tid; q < vecs; q += THREADS) {
+                const int k = kq + VEC * q;
+                float av[VEC];
+                load16(a + k, av);
+#pragma unroll
+                for (int j = 0; j < VEC; ++j) take(carry(k + j) + av[j], k + j, best, arg);
             }
-            const int kt = kq + 4 * quads + tid;  // the row's last few columns
-            if (kt < k0 + len) take(carry(kt) + a[kt], kt, best, arg);
+            const int kt = kq + VEC * vecs + tid;  // the row's last few columns
+            if (kt < k0 + len) take(carry(kt) + widen(a[kt]), kt, best, arg);
             if (c + 1 < rg.nch) {  // a chunk's buffer is free: refill it
                 __syncthreads();
                 if (tid == 0) issue();
@@ -186,6 +219,23 @@ walk_kernel(const float* __restrict__ deltas, const float* __restrict__ logAT,
     }
 }
 
+template <typename TA>
+int launch_walk(const float* deltas, const TA* logAT, const int* last, const unsigned char* valid,
+                int* out, int* err, int Tm, int N, int K, void* stream, long long* launches) {
+    const Ring rg = ring_for(K);
+    const size_t smem = (size_t)rg.nb * (rg.ch + 4) * 4;
+    cudaError_t e = cudaFuncSetAttribute(walk_kernel<TA>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    walk_kernel<TA><<<N, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        deltas, logAT, last, valid, out, err, Tm, N, K, rg);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ++*launches;
+    return 0;
+}
+
 }  // namespace
 
 // deltas (Tm, N, K) f32 and logAT (K, K) f32, both 16-byte aligned; last
@@ -194,16 +244,13 @@ walk_kernel(const float* __restrict__ deltas, const float* __restrict__ logAT,
 extern "C" int fvt_argmax_walk(const float* deltas, const float* logAT, const int* last,
                                const unsigned char* valid, int* out, int* err, int Tm, int N,
                                int K, void* stream, long long* launches) {
-    const Ring rg = ring_for(K);
-    const size_t smem = (size_t)rg.nb * (rg.ch + 4) * 4;
-    cudaError_t e = cudaFuncSetAttribute(walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    walk_kernel<<<N, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(deltas, logAT, last,
-                                                                         valid, out, err, Tm, N,
-                                                                         K, rg);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ++*launches;
-    return 0;
+    return launch_walk(deltas, logAT, last, valid, out, err, Tm, N, K, stream, launches);
+}
+
+// fvt_argmax_walk on a bf16 logAT (K, K), 16-byte aligned.
+extern "C" int fvt_argmax_walk_bf16(const float* deltas, const __nv_bfloat16* logAT,
+                                    const int* last, const unsigned char* valid, int* out,
+                                    int* err, int Tm, int N, int K, void* stream,
+                                    long long* launches) {
+    return launch_walk(deltas, logAT, last, valid, out, err, Tm, N, K, stream, launches);
 }

@@ -123,8 +123,32 @@
 // and the lowest-index tie rule of argmax.cuh; bit-identical to the plain
 // versions.  One kernel serves every K: ragged edges are clamped on read and
 // masked on write, so K need not be a multiple of anything.
+//
+// ---- the bf16 table (scan_persistent's TA) ----
+//
+// scan_persistent also reads a bf16 logA (TA = __nv_bfloat16: the pointer
+// and deltas scans of precision="bf16", flash_viterbi_tpu/ops/pallas/
+// maxplus.py:132 and :196 loading a bf16 tile).  Each table value is
+// widened with __bfloat162float before the add, which is exact; the add,
+// the max, the strict '>' and the carries stay fp32, so the scan equals the
+// fp32 scan of the table rounded to bf16, bit for bit, as JAX's promotion
+// of the bf16 tile does.  No bf16 arithmetic: a bf16 add would round the
+// sum.  Shared memory holds the tile at 2 bytes a value, twice the rows of
+// an fp32 tile (ops/cuda/maxplus.py:scan_plan at elem_bytes=2): at K=3968,
+// N=1 a block keeps 58 of its 61 rows, not 29, and streams 3.  The tile
+// comes in by 4-byte cp.async pairs where the rows, the tile's first column
+// and the stride are even (the plan keeps a bf16 stride even), else by
+// 2-byte loads and stores; streamed rows take one 8-byte (4 columns) or
+// 4-byte (2 columns) load where K is a multiple of the thread's columns,
+// else clamped 2-byte loads.  A streamed row stays in registers as loaded,
+// two values a word, and is widened where it folds: widened at the load,
+// each thread waited for its loads at once (on an H100 at 700 W the
+// K=16384, N=1 scan took 15.5 ms against fp32's 11.0; kept as bits, 6.0),
+// and at one lane 16 rows fly a thread, the registers of fp32's 8.  The
+// wrapper hands the kernel a 16-byte-aligned table.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -166,9 +190,12 @@ __host__ __device__ constexpr int cols_per_thread() {
 
 // streamed rows whose loads a thread has in flight: 8 where the registers
 // allow (a step's streamed rows are latency-bound with fewer), 4 at 4 and 8
-// lanes, whose partials fill the registers
-template <int LG>
+// lanes, whose partials fill the registers.  A bf16 table (ELEM 2) keeps
+// its loaded rows as bits, two values a register: 16 rows at one lane (the
+// registers of fp32's 8), 8 elsewhere
+template <int LG, int ELEM = 4>
 __host__ __device__ constexpr int unroll_rows() {
+    if constexpr (ELEM == 2) return LG == 1 ? 16 : 8;
     return LG == 4 || LG == 8 ? 4 : 8;
 }
 
@@ -195,7 +222,7 @@ __device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
     return v;
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
     const unsigned int d = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
 }
@@ -246,6 +273,72 @@ __device__ __forceinline__ void load_row(float (&a)[CPT], const float* row, int 
     for (int j = 0; j < CPT; ++j) a[j] = __ldg(row + min(col + j, K - 1));
 }
 
+// The bf16 value in the low or high half of a 32-bit word, widened to fp32
+// (exact: the bf16 bits are the float's upper half)
+__device__ __forceinline__ float bf16_lo(unsigned int w) {
+    return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(w & 0xffffu)));
+}
+__device__ __forceinline__ float bf16_hi(unsigned int w) {
+    return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(w >> 16)));
+}
+
+// CPT table values of one streamed row as loaded, widened only when they
+// fold (a widening at the load would wait for it): the floats themselves,
+// or the bf16 bits, two values a word (one at CPT = 1)
+template <typename TA, int CPT>
+struct Loaded {
+    float a[CPT];
+};
+template <int CPT>
+struct Loaded<__nv_bfloat16, CPT> {
+    unsigned int w[(CPT + 1) / 2];
+};
+
+template <int CPT>
+__device__ __forceinline__ void load_row(Loaded<float, CPT>& r, const float* row, int col, int K,
+                                         bool vec) {
+    load_row<CPT>(r.a, row, col, K, vec);
+}
+
+// CPT bf16 values of one logA row from device memory: one 8- or 4-byte
+// load when the rows are CPT-aligned, else CPT 2-byte loads clamped to the
+// row's K (packed in pairs)
+template <int CPT>
+__device__ __forceinline__ void load_row(Loaded<__nv_bfloat16, CPT>& r,
+                                         const __nv_bfloat16* row, int col, int K, bool vec) {
+    if constexpr (CPT == 4) {
+        if (vec) {
+            const uint2 v = __ldg(reinterpret_cast<const uint2*>(row + col));
+            r.w[0] = v.x, r.w[1] = v.y;
+            return;
+        }
+    } else if constexpr (CPT == 2) {
+        if (vec) {
+            r.w[0] = __ldg(reinterpret_cast<const unsigned int*>(row + col));
+            return;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < CPT; j += 2) {
+        const unsigned int lo = __bfloat16_as_ushort(__ldg(row + min(col + j, K - 1)));
+        r.w[j / 2] = CPT == 1 ? lo
+            : lo | static_cast<unsigned int>(__bfloat16_as_ushort(
+                       __ldg(row + min(col + j + 1, K - 1)))) << 16;
+    }
+}
+
+// A loaded row's values as fp32
+template <int CPT>
+__device__ __forceinline__ void widen(float (&a)[CPT], const Loaded<float, CPT>& r) {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) a[j] = r.a[j];
+}
+template <int CPT>
+__device__ __forceinline__ void widen(float (&a)[CPT], const Loaded<__nv_bfloat16, CPT>& r) {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) a[j] = j % 2 == 0 ? bf16_lo(r.w[j / 2]) : bf16_hi(r.w[j / 2]);
+}
+
 // CPT floats of one tile row from shared memory (16- or 8-byte aligned)
 template <int CPT>
 __device__ __forceinline__ void load_tile(float (&a)[CPT], const float* s) {
@@ -257,6 +350,21 @@ __device__ __forceinline__ void load_tile(float (&a)[CPT], const float* s) {
         a[0] = v.x, a[1] = v.y;
     } else {
         a[0] = s[0];
+    }
+}
+
+// CPT bf16 values of one tile row from shared memory (8-, 4- or 2-byte
+// aligned), widened to fp32
+template <int CPT>
+__device__ __forceinline__ void load_tile(float (&a)[CPT], const __nv_bfloat16* s) {
+    if constexpr (CPT == 4) {
+        const uint2 v = *reinterpret_cast<const uint2*>(s);
+        a[0] = bf16_lo(v.x), a[1] = bf16_hi(v.x), a[2] = bf16_lo(v.y), a[3] = bf16_hi(v.y);
+    } else if constexpr (CPT == 2) {
+        const unsigned int v = *reinterpret_cast<const unsigned int*>(s);
+        a[0] = bf16_lo(v), a[1] = bf16_hi(v);
+    } else {
+        a[0] = __bfloat162float(s[0]);
     }
 }
 
@@ -389,16 +497,17 @@ __device__ __forceinline__ Tile tile_of(int q, int K, int units, const Plan& p) 
 // without P_COMBINE no partial is written or combined, the carry stays the
 // first one and a sink of the partials keeps the fold alive; with no part
 // a step is its grid barriers alone.  Only P_ALL, and P_ALL less P_HIST
-// for dfin, compute the scan.
-template <int LG, bool WITH_PTR, Emit EMIT, int PARTS>
+// for dfin, compute the scan.  TA: logA's element type, float or
+// __nv_bfloat16 (the tile in shared memory is of the same type).
+template <int LG, bool WITH_PTR, Emit EMIT, int PARTS, typename TA = float>
 __global__ void __launch_bounds__(PT, 1)
-scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
+scan_persistent(const TA* __restrict__ logA, const float* __restrict__ emit,
                 const int* __restrict__ ys, const float* __restrict__ delta0,
                 float* __restrict__ dfin, int* __restrict__ ptrs,
                 float* __restrict__ deltas, float* part_v, int* part_i, float* carry,
                 unsigned int* count, unsigned int* err, int Tm, int N, int K, Plan p) {
     constexpr int CPT = cols_per_thread<LG>();
-    constexpr int UNROLL = unroll_rows<LG>();
+    constexpr int UNROLL = unroll_rows<LG, sizeof(TA)>();
     constexpr bool HIST = PARTS & P_HIST, STREAM = PARTS & P_STREAM, FOLD = PARTS & P_FOLD,
                    COMBINE = PARTS & P_COMBINE, WORK = PARTS != 0;
     extern __shared__ __align__(16) float smem[];
@@ -407,7 +516,8 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
     const int nb = gridDim.x;
     const int tiles = p.R * p.C;
     float* s_d = smem;                                        // carry_rows x LG, lane-minor
-    float* s_tile = smem + (p.carry_rows * LG + 3) / 4 * 4;  // rows_smem x stride
+    // rows_smem x stride table values
+    TA* s_tile = reinterpret_cast<TA*>(smem + (p.carry_rows * LG + 3) / 4 * 4);
     const int units = (K + CPT - 1) / CPT;
     const bool vec = K % CPT == 0;
 
@@ -418,10 +528,29 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
     if constexpr (WORK) {
         if (p.rows_smem > 0) {
             const int rs = min(p.rows_smem, tl.kr), width = (tl.u1 - tl.u0) * CPT;
-            for (int i = tid; i < rs * width; i += PT) {
-                const int lr = i / width, jc = i - lr * width;
-                cp_async4(s_tile + lr * p.stride + jc,
-                          logA + (size_t)(tl.r0 + lr) * K + min(tl.u0 * CPT + jc, K - 1));
+            const int c0 = tl.u0 * CPT;
+            if constexpr (sizeof(TA) == 4) {
+                for (int i = tid; i < rs * width; i += PT) {
+                    const int lr = i / width, jc = i - lr * width;
+                    cp_async4(s_tile + lr * p.stride + jc,
+                              logA + (size_t)(tl.r0 + lr) * K + min(c0 + jc, K - 1));
+                }
+            } else if (((K | c0 | p.stride) & 1) == 0) {
+                // bf16 pairs: an even column of an even row is 4-byte
+                // aligned in both memories; a pair past the row's end
+                // (columns no thread writes out) copies the row's last pair
+                const int pairs = (width + 1) / 2;
+                for (int i = tid; i < rs * pairs; i += PT) {
+                    const int lr = i / pairs, jc = 2 * (i - lr * pairs);
+                    cp_async4(s_tile + lr * p.stride + jc,
+                              logA + (size_t)(tl.r0 + lr) * K + min(c0 + jc, K - 2));
+                }
+            } else {
+                for (int i = tid; i < rs * width; i += PT) {
+                    const int lr = i / width, jc = i - lr * width;
+                    s_tile[lr * p.stride + jc] =
+                        logA[(size_t)(tl.r0 + lr) * K + min(c0 + jc, K - 1)];
+                }
             }
         }
         asm volatile("cp.async.wait_all;" ::: "memory");
@@ -442,7 +571,7 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
                 const bool active = tl.u0 + tid < tl.u1;
                 const int col = my_u * CPT;                     // this thread's first column
                 const int rs = min(p.rows_smem, kr);            // tile rows in shared memory
-                const float* my_tile = s_tile + (my_u - tl.u0) * CPT;
+                const TA* my_tile = s_tile + (my_u - tl.u0) * CPT;
 
                 float best[LG][CPT];
                 int arg[LG][CPT];
@@ -462,7 +591,7 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
                     const int sm_end = min(p1, rs), st0 = max(p0, rs);
                     // the first streamed rows' loads fly while the carry forms and
                     // the shared rows fold
-                    float nxt[UNROLL][CPT];
+                    Loaded<TA, CPT> nxt[UNROLL];
                     if (t < Tm && st0 < p1) {
 #pragma unroll
                         for (int u = 0; u < UNROLL; ++u) {
@@ -543,12 +672,9 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
                         }
                     }
                     for (int lr = st0; lr < p1; lr += UNROLL) {
-                        float cur[UNROLL][CPT];
+                        Loaded<TA, CPT> cur[UNROLL];
 #pragma unroll
-                        for (int u = 0; u < UNROLL; ++u) {
-#pragma unroll
-                            for (int j = 0; j < CPT; ++j) cur[u][j] = nxt[u][j];
-                        }
+                        for (int u = 0; u < UNROLL; ++u) cur[u] = nxt[u];
                         if (STREAM && lr + UNROLL < p1) {
 #pragma unroll
                             for (int u = 0; u < UNROLL; ++u) {
@@ -559,12 +685,14 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
 #pragma unroll
                         for (int u = 0; u < UNROLL; ++u) {
                             if (lr + u < p1) {
+                                float a[CPT];
+                                widen<CPT>(a, cur[u]);
                                 if constexpr (FOLD) {
                                     float d[LG];
                                     load_carry<LG>(d, s_d + (lr + u - p0) * LG);
-                                    fold<LG, CPT, WITH_PTR>(best, arg, d, cur[u], r0 + lr + u);
+                                    fold<LG, CPT, WITH_PTR>(best, arg, d, a, r0 + lr + u);
                                 } else {
-                                    keep<LG, CPT>(best, cur[u]);
+                                    keep<LG, CPT>(best, a);
                                 }
                             }
                         }
@@ -638,13 +766,13 @@ scan_persistent(const float* __restrict__ logA, const float* __restrict__ emit,
     if (!COMBINE && WORK && sink == INFINITY) part_v[blockIdx.x] = sink;
 }
 
-template <int LG, bool WITH_PTR, Emit EMIT, int PARTS>
-int launch_persistent(const float* logA, const float* emit, const int* ys,
+template <int LG, bool WITH_PTR, Emit EMIT, int PARTS, typename TA = float>
+int launch_persistent(const TA* logA, const float* emit, const int* ys,
                       const float* delta0, float* dfin, int* ptrs, float* deltas,
                       float* part_v, int* part_i, float* carry, unsigned int* count,
                       unsigned int* err, int Tm, int N, int K, const int* plan,
                       cudaStream_t stream) {
-    const auto kernel = scan_persistent<LG, WITH_PTR, EMIT, PARTS>;
+    const auto kernel = scan_persistent<LG, WITH_PTR, EMIT, PARTS, TA>;
     const int smem = plan[PF_SMEM];
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
@@ -658,17 +786,17 @@ int launch_persistent(const float* logA, const float* emit, const int* ys,
     return static_cast<int>(e);
 }
 
-template <bool WITH_PTR, Emit EMIT>
-int run_scan(const float* logA, const float* emit, const int* ys, const float* delta0,
+template <bool WITH_PTR, Emit EMIT, typename TA = float>
+int run_scan(const TA* logA, const float* emit, const int* ys, const float* delta0,
              float* dfin, int* ptrs, float* deltas, float* part_v, int* part_i,
              float* carry, unsigned int* count, unsigned int* err, const int* plan, int Tm,
              int N, int K, void* stream, long long* launches) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     int rc;
 #define FVT_SCAN(LG) \
-    rc = launch_persistent<LG, WITH_PTR, EMIT, P_ALL>(logA, emit, ys, delta0, dfin, ptrs, \
-                                                      deltas, part_v, part_i, carry, count, \
-                                                      err, Tm, N, K, plan, s)
+    rc = launch_persistent<LG, WITH_PTR, EMIT, P_ALL, TA>(logA, emit, ys, delta0, dfin, ptrs, \
+                                                          deltas, part_v, part_i, carry, count, \
+                                                          err, Tm, N, K, plan, s)
     switch (plan[PF_LANES]) {
         case 1: FVT_SCAN(1); break;
         case 2: FVT_SCAN(2); break;
@@ -971,6 +1099,24 @@ extern "C" int fvt_maxplus_scan(const float* logA, const float* emits, const flo
                                 int* part_i, float* carry, unsigned int* count,
                                 unsigned int* err, const int* plan, int Tm, int N, int K,
                                 void* stream, long long* launches) {
+    if (ptrs != nullptr) {
+        return run_scan<true, EMIT_ROWS>(logA, emits, nullptr, delta0, dfin, ptrs, nullptr,
+                                         part_v, part_i, carry, count, err, plan, Tm, N, K,
+                                         stream, launches);
+    }
+    return run_scan<false, EMIT_ROWS>(logA, emits, nullptr, delta0, dfin, nullptr, deltas,
+                                      part_v, part_i, carry, count, err, plan, Tm, N, K,
+                                      stream, launches);
+}
+
+// fvt_maxplus_scan on a bf16 logA (K, K), 16-byte aligned, under a plan
+// made for 2-byte table values (scan_plan(..., elem_bytes=2)); every other
+// argument as there.  Pointer or deltas scan as ptrs is given or null.
+extern "C" int fvt_maxplus_scan_bf16(const __nv_bfloat16* logA, const float* emits,
+                                     const float* delta0, float* dfin, int* ptrs,
+                                     float* deltas, float* part_v, int* part_i, float* carry,
+                                     unsigned int* count, unsigned int* err, const int* plan,
+                                     int Tm, int N, int K, void* stream, long long* launches) {
     if (ptrs != nullptr) {
         return run_scan<true, EMIT_ROWS>(logA, emits, nullptr, delta0, dfin, ptrs, nullptr,
                                          part_v, part_i, carry, count, err, plan, Tm, N, K,

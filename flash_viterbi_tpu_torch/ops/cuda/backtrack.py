@@ -4,7 +4,9 @@
 ``flash_viterbi_tpu/ops/pallas/backtrack.py:backtrack_pallas_batched``,
 kernel ``csrc/backtrack.cu``).  ``argmax_walk`` re-derives each walked
 step's argmax from the carry history (counterpart of
-``argmax_walk_pallas``, kernel ``csrc/argmax_walk.cu``).
+``argmax_walk_pallas``, kernel ``csrc/argmax_walk.cu``).  A bfloat16
+``logAT`` (``precision="bf16"``) goes to the kernel's bf16 instance, whose
+wrapper :func:`argmax_walk_bf16` counts its own launches.
 
 Every ``last_states[n]`` must be a state in [0, K).  On CPU tensors the
 wrappers check it; on CUDA tensors the check would cost a device sync, so
@@ -17,7 +19,7 @@ import torch
 
 from ..maxplus import first_argmax
 from .common import expect, expect_contiguous, launch, on_cuda
-from .maxplus import error_word, raise_on_error
+from .maxplus import TABLE_DTYPES, error_word, raise_on_error
 
 
 def _check_last(last, N: int, K: int) -> torch.Tensor:
@@ -73,7 +75,9 @@ def backtrack_batched(ptrs: torch.Tensor, last_states: torch.Tensor) -> torch.Te
 
 def argmax_walk_plain(deltas: torch.Tensor, logAT: torch.Tensor,
                       last_states: torch.Tensor, valid: torch.Tensor | None = None):
-    """Plain version of :func:`argmax_walk`, all lanes of a row at once."""
+    """Plain version of :func:`argmax_walk` (and :func:`argmax_walk_bf16`),
+    all lanes of a row at once; a bf16 ``logAT`` is promoted in the fp32
+    sum ``deltas[t] + logAT[s]``."""
     Tm, N, K = deltas.shape
     out = torch.empty((N, Tm + 1), dtype=torch.int32, device=deltas.device)
     s = last_states.reshape(N).to(torch.int64)
@@ -95,8 +99,9 @@ def argmax_walk(deltas: torch.Tensor, logAT: torch.Tensor,
     Args:
       deltas: (T', N, K) f32 — ``deltas[t]`` is the carry before forward
         step t (:func:`maxplus_scan_deltas`'s second output).
-      logAT:  (K, K) f32 — the transposed transition table (row s holds
-        the logA column of destination s).
+      logAT:  (K, K) f32 or bf16 — the transposed transition table (row s
+        holds the logA column of destination s); a bf16 one goes to
+        :func:`argmax_walk_bf16` on CUDA tensors.
       last_states: (N,) integer states at the final time.
       valid: optional (T', N) bool — False keeps the lane's state at that
         row (ragged segments).  None: every row is real.
@@ -108,11 +113,27 @@ def argmax_walk(deltas: torch.Tensor, logAT: torch.Tensor,
     Returns (N, T'+1) int32 paths ending in ``last_states``:
     ``path[t] = lowest argmax_k(deltas[t][n, k] + logAT[path[t+1], k])``.
     """
+    return _walk(deltas, logAT, last_states, valid, err, TABLE_DTYPES)
+
+
+def argmax_walk_bf16(deltas: torch.Tensor, logAT: torch.Tensor,
+                     last_states: torch.Tensor, valid: torch.Tensor | None = None, *,
+                     err: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`argmax_walk` on a (K, K) bfloat16 ``logAT``, its own kernel
+    instance and launch count.  The CPU's plain version is
+    :func:`argmax_walk_plain`."""
+    return _walk(deltas, logAT, last_states, valid, err, (torch.bfloat16,))
+
+
+def _walk(deltas, logAT, last_states, valid, err, tables):
+    """Check the walk's arguments (``logAT`` of a dtype in ``tables``) and
+    run the plain version on CPU tensors, else the kernel instance of
+    ``logAT``'s dtype."""
     if deltas.dim() != 3:
         raise ValueError(f"deltas must be (T', N, K), got {tuple(deltas.shape)}")
     Tm, N, K = deltas.shape
     expect("deltas", deltas, torch.float32, (Tm, N, K))
-    expect("logAT", logAT, torch.float32, (K, K))
+    expect("logAT", logAT, tables, (K, K))
     if valid is not None:
         expect("valid", valid, torch.bool, (Tm, N))
     last = _check_last(last_states, N, K)
@@ -121,6 +142,8 @@ def argmax_walk(deltas: torch.Tensor, logAT: torch.Tensor,
     tensors = (deltas, logAT, last) + (() if valid is None else (valid,))
     if not on_cuda(*tensors):
         return argmax_walk_plain(deltas, logAT, last, valid)
+    fn_name, counter = (("fvt_argmax_walk_bf16", argmax_walk_bf16)
+                        if logAT.dtype == torch.bfloat16 else ("fvt_argmax_walk", argmax_walk))
     expect_contiguous(deltas=deltas, logAT=logAT)
     # bulk copies and 16-byte loads need 16-byte-aligned rows' bases
     deltas, logAT = (x.clone() if x.data_ptr() % 16 else x for x in (deltas, logAT))
@@ -132,7 +155,7 @@ def argmax_walk(deltas: torch.Tensor, logAT: torch.Tensor,
     else:
         expect("err", err, torch.int32, (1,))
     out = torch.empty((N, Tm + 1), dtype=torch.int32, device=deltas.device)
-    launch("fvt_argmax_walk", argmax_walk, deltas.device,
+    launch(fn_name, counter, deltas.device,
            deltas.data_ptr(), logAT.data_ptr(), last.data_ptr(),
            None if valid is None else valid.data_ptr(), out.data_ptr(), err.data_ptr(),
            Tm, N, K)
@@ -143,3 +166,4 @@ def argmax_walk(deltas: torch.Tensor, logAT: torch.Tensor,
 
 backtrack_batched.launches = 0
 argmax_walk.launches = 0
+argmax_walk_bf16.launches = 0

@@ -31,9 +31,9 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel and no plain version for device {dev}")
 
 
-def expect(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
-    """Raise unless ``t`` has this dtype and shape."""
-    if t.dtype != dtype:
+def expect(name: str, t: torch.Tensor, dtype: torch.dtype | tuple, shape: tuple) -> None:
+    """Raise unless ``t`` has this dtype (or one of a tuple of them) and shape."""
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")

@@ -8,6 +8,13 @@ are in ``csrc/maxplus_scan.cu``: the three scans run ``scan_persistent``,
 one cooperative launch a call over the tiling of :func:`scan_plan`; the
 step block runs ``step_block_kernel``, one launch a call over the tiling
 of :func:`step_plan`.
+
+The pointer and deltas scans also take a bfloat16 ``logA`` (``precision=
+"bf16"``, as the Pallas scans load a bf16 tile): on CUDA tensors they hand
+it to ``scan_persistent``'s bf16 instances, whose wrappers
+:func:`maxplus_scan_bf16` and :func:`maxplus_scan_deltas_bf16` count their
+own launches.  Each table value is widened to fp32 before the add, so the
+result is the fp32 scan of the table rounded to bf16, bit for bit.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from .common import SMEM_LIMIT, expect, expect_contiguous, launch, on_cuda
 THREADS = 512        # threads of a block of the persistent scan (csrc: PT)
 LANES_MAX = 16       # lanes a group; more lanes go in groups, one after another
 MIN_TILE_ROWS = 16   # source rows a tile keeps at least: small K takes fewer blocks
+# logA's dtypes the pointer and deltas scans take
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
 STATIC_SMEM = 1024   # bytes kept free for the kernel's static shared memory
 SYNC_ERR = 32        # the error word's index in a call's own barrier words
 # Above this many bytes of partials a block would read each step to form its
@@ -64,7 +73,8 @@ class ScanPlan(NamedTuple):
     each entry, or, with ``two_phase``, combines its share of the entries
     once and publishes them behind a second barrier; ``team`` threads
     combine an entry.  ``smem`` is the dynamic shared memory of a block, in
-    bytes."""
+    bytes.  The table's values are ``elem_bytes`` bytes each (4 fp32, 2
+    bf16): the tile rows in shared memory are of that size."""
 
     lanes: int
     cols: int
@@ -80,6 +90,7 @@ class ScanPlan(NamedTuple):
     team: int
     two_phase: bool
     smem: int
+    elem_bytes: int = 4
 
     @property
     def tiles(self) -> int:
@@ -111,7 +122,7 @@ def combine_team(entries: int, R: int) -> int:
 
 
 def scan_plan(K: int, N: int, sm_count: int, smem_bytes: int = SMEM_LIMIT,
-              two_phase: bool | None = None) -> ScanPlan:
+              two_phase: bool | None = None, elem_bytes: int = 4) -> ScanPlan:
     """The tiling of a (K, K) logA for an N-lane scan on ``sm_count`` SMs
     with ``smem_bytes`` of shared memory a block.
 
@@ -123,9 +134,14 @@ def scan_plan(K: int, N: int, sm_count: int, smem_bytes: int = SMEM_LIMIT,
     several groups, all streamed.  Edges split evenly (``r * K // R``), so
     tiles differ by at most a row or a column unit.  ``two_phase`` chooses
     the combine; by default the plan takes two-phase above
-    ``TWO_PHASE_BYTES`` of partials."""
+    ``TWO_PHASE_BYTES`` of partials.  ``elem_bytes`` is the size of a table
+    value, 4 (fp32) or 2 (bf16): shared memory then holds twice the rows,
+    and a bf16 tile's ``stride`` is even, so that the kernel copies the
+    tile in 4-byte pairs."""
     if K < 1 or N < 1 or sm_count < 1:
         raise ValueError(f"need K, N, sm_count >= 1, got {K}, {N}, {sm_count}")
+    if elem_bytes not in (2, 4):
+        raise ValueError(f"elem_bytes must be 4 (fp32) or 2 (bf16), got {elem_bytes}")
     lanes = plan_lanes(N)
     cols = 4 if lanes <= 4 else 2 if lanes == 8 else 1
     units = -(-K // cols)
@@ -136,6 +152,8 @@ def scan_plan(K: int, N: int, sm_count: int, smem_bytes: int = SMEM_LIMIT,
     col_edges = tuple(min(K, (c * units // C) * cols) for c in range(C + 1))
     kr_max = -(-K // R)
     stride = -(-units // C) * cols
+    if elem_bytes == 2:
+        stride += stride % 2
     room = smem_bytes - STATIC_SMEM
     if -(-kr_max * lanes // 4) * 16 <= room // 2:
         carry_rows = kr_max
@@ -143,7 +161,7 @@ def scan_plan(K: int, N: int, sm_count: int, smem_bytes: int = SMEM_LIMIT,
         carry_rows = min(kr_max, room // (lanes * 4) // 4 * 4)
     carry = -(-carry_rows * lanes // 4) * 16  # bytes, padded to 16
     # a block that walks several tiles keeps none in shared memory
-    rows_smem = (max(0, min(kr_max, (room - carry) // (stride * 4)))
+    rows_smem = (max(0, min(kr_max, (room - carry) // (stride * elem_bytes)))
                  if R * C == blocks else 0)
     if two_phase is None:
         two_phase = K * lanes * 4 > TWO_PHASE_BYTES
@@ -153,7 +171,8 @@ def scan_plan(K: int, N: int, sm_count: int, smem_bytes: int = SMEM_LIMIT,
     return ScanPlan(lanes=lanes, cols=cols, R=R, C=C, blocks=blocks, row_edges=row_edges,
                     col_edges=col_edges, stride=stride, rows_smem=rows_smem,
                     rows_streamed=kr_max - rows_smem, carry_rows=carry_rows, team=team,
-                    two_phase=two_phase, smem=carry + rows_smem * stride * 4)
+                    two_phase=two_phase, smem=carry + rows_smem * stride * elem_bytes,
+                    elem_bytes=elem_bytes)
 
 
 def streamed_bytes(plan: ScanPlan) -> int:
@@ -164,7 +183,7 @@ def streamed_bytes(plan: ScanPlan) -> int:
         rows = plan.row_edges[r + 1] - plan.row_edges[r]
         for c in range(plan.C):
             cols = plan.col_edges[c + 1] - plan.col_edges[c]
-            total += max(0, rows - plan.rows_smem) * cols * 4
+            total += max(0, rows - plan.rows_smem) * cols * plan.elem_bytes
     return total
 
 
@@ -241,21 +260,23 @@ def step_plan(N: int, Ks: int, Kd: int, sm_count: int, R: int | None = None) -> 
                     col_edges=tuple(min(Kd, (c * units // C) * cols) for c in range(C + 1)))
 
 
-def _check(logA, emits, delta0) -> tuple[int, int, int]:
+def _check(logA, emits, delta0, tables=TABLE_DTYPES) -> tuple[int, int, int]:
     if emits.dim() != 3:
         raise ValueError(f"emits must be (T', N, K), got {tuple(emits.shape)}")
     Tm, N, K = emits.shape
     if K < 1 or N < 1:
         raise ValueError(f"empty state or lane dimension: {tuple(emits.shape)}")
-    expect("logA", logA, torch.float32, (K, K))
+    expect("logA", logA, tables, (K, K))
     expect("emits", emits, torch.float32, (Tm, N, K))
     expect("delta0", delta0, torch.float32, (N, K))
     return Tm, N, K
 
 
 def maxplus_scan_plain(logA, emits, delta0):
-    """Plain version of :func:`maxplus_scan`, one lane at a time (scratch
-    stays at one (K, K) tensor)."""
+    """Plain version of :func:`maxplus_scan` (and :func:`maxplus_scan_bf16`),
+    one lane at a time (scratch stays at one (K, K) tensor).  A bf16
+    ``logA`` is promoted in ``delta + logA``: the fp32 sums of the bf16
+    values, as JAX promotes the Pallas scan's bf16 tile."""
     Tm, N, K = _check(logA, emits, delta0)
     dfin = torch.empty_like(delta0)
     ptrs = torch.empty((Tm, N, K), dtype=torch.int32, device=emits.device)
@@ -265,7 +286,9 @@ def maxplus_scan_plain(logA, emits, delta0):
 
 
 def maxplus_scan_deltas_plain(logA, emits, delta0):
-    """Plain version of :func:`maxplus_scan_deltas`, one lane at a time."""
+    """Plain version of :func:`maxplus_scan_deltas` (and
+    :func:`maxplus_scan_deltas_bf16`), one lane at a time; a bf16 ``logA``
+    is promoted in the sum, as in :func:`maxplus_scan_plain`."""
     Tm, N, K = _check(logA, emits, delta0)
     dfin = torch.empty_like(delta0)
     deltas = torch.empty((Tm, N, K), dtype=torch.float32, device=emits.device)
@@ -346,7 +369,9 @@ def scan_scratch_bytes(K: int, N: int, device, with_ptr: bool) -> int:
     """Bytes of scratch one N-lane scan call on ``device`` allocates beside
     its outputs: the plan's partials (with their indices for a pointer
     scan), a two-phase plan's carry and the barrier words.  0 on the CPU,
-    whose plain version keeps none past a step."""
+    whose plain version keeps none past a step.  The same for a bf16 table:
+    the partials and the carry are fp32, and the plan's ranges, lanes and
+    combine do not depend on the table's element size."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return 0
@@ -371,11 +396,15 @@ def _scan_cuda(fn_name: str, counter, inputs: dict, delta0, Tm: int,
                        dtype=torch.int32 if with_ptr else torch.float32)
     if Tm == 0:
         return delta0, hist
+    elem = inputs["logA"].element_size()
     if plan is None:
-        plan = _cached_plan(K, N, sm_count(dev))
+        plan = _cached_plan(K, N, sm_count(dev), elem_bytes=elem)
     elif plan.row_edges[-1] != K or plan.col_edges[-1] != K or plan.lanes != plan_lanes(N):
         raise ValueError(f"the plan is for K={plan.row_edges[-1]} at {plan.lanes} lanes, "
                          f"not for K={K}, N={N}")
+    elif plan.elem_bytes != elem:
+        raise ValueError(f"the plan is for {plan.elem_bytes}-byte table values, logA has "
+                         f"{elem}-byte ones")
     return launch_scan(fn_name, counter, inputs, delta0, hist, plan, err)
 
 
@@ -417,12 +446,19 @@ def launch_scan(fn_name: str, counter, inputs: dict, delta0, hist, plan: ScanPla
     return dfin, hist
 
 
+def _bf16_table(logA: torch.Tensor) -> torch.Tensor:
+    """A bf16 table as the kernels read it: 16-byte aligned (a view of
+    another base is copied)."""
+    return logA.clone() if logA.data_ptr() % 16 else logA
+
+
 def maxplus_scan(logA: torch.Tensor, emits: torch.Tensor, delta0: torch.Tensor, *,
                  plan: ScanPlan | None = None, err: torch.Tensor | None = None):
     """Run the N-lane forward scan.
 
     Args:
-      logA:   (K, K) fp32, source k rows -> dest i columns.
+      logA:   (K, K) fp32 or bf16, source k rows -> dest i columns; a bf16
+        table goes to :func:`maxplus_scan_bf16` on CUDA tensors.
       emits:  (T', N, K) fp32 log emission rows for steps 1..T'.
       delta0: (N, K) fp32 scores at step 0.
       plan:   the kernel's tiling (default: :func:`scan_plan` for the card).
@@ -436,8 +472,23 @@ def maxplus_scan(logA: torch.Tensor, emits: torch.Tensor, delta0: torch.Tensor, 
     _check(logA, emits, delta0)
     if not on_cuda(logA, emits, delta0):
         return maxplus_scan_plain(logA, emits, delta0)
+    if logA.dtype == torch.bfloat16:
+        return maxplus_scan_bf16(logA, emits, delta0, plan=plan, err=err)
     return _scan_cuda("fvt_maxplus_scan", maxplus_scan,
                       {"logA": logA, "emits": emits}, delta0, emits.shape[0], True, plan, err)
+
+
+def maxplus_scan_bf16(logA: torch.Tensor, emits: torch.Tensor, delta0: torch.Tensor, *,
+                      plan: ScanPlan | None = None, err: torch.Tensor | None = None):
+    """:func:`maxplus_scan` on a (K, K) bfloat16 ``logA``, its own kernel
+    instance and launch count; ``plan``, when given, is made with
+    ``elem_bytes=2``.  The CPU's plain version is :func:`maxplus_scan_plain`."""
+    _check(logA, emits, delta0, torch.bfloat16)
+    if not on_cuda(logA, emits, delta0):
+        return maxplus_scan_plain(logA, emits, delta0)
+    return _scan_cuda("fvt_maxplus_scan_bf16", maxplus_scan_bf16,
+                      {"logA": _bf16_table(logA), "emits": emits}, delta0, emits.shape[0], True,
+                      plan, err)
 
 
 def maxplus_scan_deltas(logA: torch.Tensor, emits: torch.Tensor,
@@ -447,14 +498,29 @@ def maxplus_scan_deltas(logA: torch.Tensor, emits: torch.Tensor,
 
     Returns (delta_final (N, K), deltas (T', N, K) fp32) with
     ``deltas[t]`` = the carry before step t (``deltas[0] == delta0``).
-    Scores are bit-identical to :func:`maxplus_scan`'s; ``plan`` and
+    Scores are bit-identical to :func:`maxplus_scan`'s; ``logA`` (fp32 or
+    bf16, which goes to :func:`maxplus_scan_deltas_bf16`), ``plan`` and
     ``err`` as there.
     """
     _check(logA, emits, delta0)
     if not on_cuda(logA, emits, delta0):
         return maxplus_scan_deltas_plain(logA, emits, delta0)
+    if logA.dtype == torch.bfloat16:
+        return maxplus_scan_deltas_bf16(logA, emits, delta0, plan=plan, err=err)
     return _scan_cuda("fvt_maxplus_scan", maxplus_scan_deltas,
                       {"logA": logA, "emits": emits}, delta0, emits.shape[0], False, plan, err)
+
+
+def maxplus_scan_deltas_bf16(logA: torch.Tensor, emits: torch.Tensor, delta0: torch.Tensor,
+                             *, plan: ScanPlan | None = None, err: torch.Tensor | None = None):
+    """:func:`maxplus_scan_deltas` on a (K, K) bfloat16 ``logA``, its own
+    kernel instance and launch count, as :func:`maxplus_scan_bf16`."""
+    _check(logA, emits, delta0, torch.bfloat16)
+    if not on_cuda(logA, emits, delta0):
+        return maxplus_scan_deltas_plain(logA, emits, delta0)
+    return _scan_cuda("fvt_maxplus_scan_bf16", maxplus_scan_deltas_bf16,
+                      {"logA": _bf16_table(logA), "emits": emits}, delta0, emits.shape[0], False,
+                      plan, err)
 
 
 def maxplus_scan_emitgather(logA: torch.Tensor, logBT: torch.Tensor,
@@ -548,5 +614,7 @@ def maxplus_step_block(delta: torch.Tensor, logA_block: torch.Tensor, *,
 
 maxplus_scan.launches = 0
 maxplus_scan_deltas.launches = 0
+maxplus_scan_bf16.launches = 0
+maxplus_scan_deltas_bf16.launches = 0
 maxplus_scan_emitgather.launches = 0
 maxplus_step_block.launches = 0

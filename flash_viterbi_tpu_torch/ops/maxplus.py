@@ -16,6 +16,21 @@ from __future__ import annotations
 
 import torch
 
+#: the transition table's precisions a decoder takes: "bf16" rounds logA to
+#: bfloat16 (JAX's ``logA.astype(jnp.bfloat16)``) and leaves every sum, max
+#: and carry in fp32 -- an approximate mode, exact for the rounded table
+PRECISIONS = ("fp32", "bf16")
+
+
+def table_at(logA: torch.Tensor, precision: str) -> torch.Tensor:
+    """``logA`` as a decode at ``precision`` reads it: itself under "fp32",
+    rounded to bfloat16 (to nearest, ties to even, as XLA converts) under
+    "bf16"; a bf16 value promotes to fp32 exactly wherever it meets an fp32
+    operand.  ValueError for another precision."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; have {PRECISIONS}")
+    return logA.to(torch.bfloat16) if precision == "bf16" else logA
+
 
 def first_argmax(x: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(max, lowest index attaining it) along ``dim``; int32 indices.

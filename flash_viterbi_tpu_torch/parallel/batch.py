@@ -7,7 +7,9 @@ read of ``logA`` per step serves up to 16 sequences; a decoder with a
 batch at once; any other registered algorithm decodes the sequences one by
 one.  A ``mesh`` from
 ``parallel.sharded.make_mesh`` routes to the multi-device FLASH decode
-(``flash_decode_sharded``), which every rank of the mesh calls.
+(``flash_decode_sharded``), which every rank of the mesh calls; as in the
+JAX package, it takes no ``precision`` and decodes in fp32 whatever the
+caller asks.
 """
 
 from __future__ import annotations
@@ -68,7 +70,8 @@ def decode_batch(
             return flash_decode_sharded(mesh, *tables, yd, num_segments=num_segments)
     elif algorithm == "fused":
         def run():
-            return fused_decode_batch(*tables, yd, pointers=dec.static["pointers"])
+            return fused_decode_batch(*tables, yd, pointers=dec.static["pointers"],
+                                      precision=dec.static["precision"])
     elif dec.batch_fn is not None:
         def run():
             return dec.batch_fn(*tables, yd)

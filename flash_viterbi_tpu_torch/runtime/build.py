@@ -49,6 +49,9 @@ _SIGNATURES = {
     # plan, Tm, N, K, stream, launches
     "fvt_maxplus_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _IP, _I, _I, _I, _P,
                          _LL],
+    # the same on a bf16 logA
+    "fvt_maxplus_scan_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _IP, _I, _I, _I, _P,
+                              _LL],
     # logA, logBT, ys, delta0, dfin, ptrs, deltas, part_v, part_i, carry, count,
     # err, plan, Tm, N, K, stream, launches
     "fvt_maxplus_scan_eg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _IP, _I, _I,
@@ -59,6 +62,8 @@ _SIGNATURES = {
     "fvt_backtrack": [_P, _P, _P, _I, _I, _I, _P, _LL],
     # deltas, logAT, last, valid, out, err, Tm, N, K, stream, launches
     "fvt_argmax_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
+    # the same on a bf16 logAT
+    "fvt_argmax_walk_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
     # logA, emits, vals0, states0, valid, prop, hist, slots, planes, scratch, err,
     # plan, Tm, N, K, B, P, stream, launches
     "fvt_beam_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _I, _P,

@@ -10,9 +10,11 @@ process builds that checkout's kernels, prints each kernel whose ``ptxas``
 report shows a spill, the registers and spill stores of every
 ``scan_persistent`` instantiation (as ``<LG, WITH_PTR, EMIT, PARTS>``,
 PARTS 15, every part, where a checkout predates it: the production
-instances and the scan-ablation probe's) and the length of its SASS
-(``cuobjdump -sass`` instructions), and of every ``step_block_kernel`` one
-(as ``<LG>``), where the checkout has those kernels.  With
+instances and the scan-ablation probe's; the bf16-table instances, where
+the checkout has them, as ``<LG, WITH_PTR, EMIT, PARTS, bf16>``) and the
+length of its SASS (``cuobjdump -sass`` instructions), and of every
+``step_block_kernel`` one (as ``<LG>``), where the checkout has those
+kernels.  With
 ``--scans-only`` it then times the scans and the headline ``flash``,
 ``checkpoint`` and ``fused`` decodes alone (below).  Else it times
 ``maxplus_step_block`` at the sharded decode's shapes ((N, Ks, Kd) = (1,
@@ -26,9 +28,13 @@ before each call.  Then the median of 9 CUDA-event runs of
 ``maxplus_scan`` (N=1, T'=255),
 ``maxplus_scan_emitgather`` (N=1, T'=255, the headline symbols) and
 ``maxplus_scan_deltas`` (N=16, T'=16) on the headline tables (K=3965
-padded to 3968, M=50, prob=0.112, seed=1), and of the scan and the deltas
-scan at K=16384 (N=1 and N=16, T'=32, standard normal tables drawn on the
-card), and the headline ``flash`` (num_segments=16), ``checkpoint`` and
+padded to 3968, M=50, prob=0.112, seed=1); where the checkout has the
+bf16-table instances, the pointer scan (N=1, T'=255) and the deltas scan
+(N=16, T'=16) in turns on the fp32 and the bf16 table (fp32, bf16, bf16,
+fp32, the median of 9 each); the scan and the deltas scan at K=16384 (N=1
+and N=16, T'=32, standard normal tables drawn on the card; the deltas scan
+at N=16 on the bf16 table too, where the checkout has it), and the
+headline ``flash`` (num_segments=16), ``checkpoint`` and
 ``fused`` decodes, the median of 5 decodes' ``time_s`` each after a
 warmup; then, with the
 checkout's own ``chip_smoke.py`` input helpers, ``beam_scan`` at flash_bs's
@@ -59,13 +65,19 @@ import subprocess
 import sys
 
 
-SCAN = re.compile(r"scan_persistentILi(\d+)ELb(\d)ELNS_4EmitE(\d)E(?:Li(\d+)E)?")
+SCAN = re.compile(r"scan_persistentILi(\d+)ELb(\d)ELNS_4EmitE(\d)E(?:Li(\d+)E)?"
+                  r"(13__nv_bfloat16)?")
 
 
 def scan_key(fn: str) -> str | None:
-    """``<LG,WITH_PTR,EMIT,PARTS>`` of a mangled scan_persistent name."""
+    """``<LG,WITH_PTR,EMIT,PARTS>`` of a mangled scan_persistent name, with
+    ``,bf16`` before the ``>`` for a bf16-table instance (an fp32 one keys
+    as in checkouts that have no table type)."""
     q = SCAN.search(fn)
-    return "<{},{},{},{}>".format(*q.groups()[:3], q.group(4) or 15) if q else None
+    if not q:
+        return None
+    return "<{},{},{},{}{}>".format(*q.groups()[:3], q.group(4) or 15,
+                                    ",bf16" if q.group(5) else "")
 
 
 def sass_lengths(lib: str) -> dict[str, int]:
@@ -195,6 +207,21 @@ def time_checkout(root: str, scans_only: bool = False) -> None:
           f"{ms(lambda: k.maxplus_scan_emitgather(*eg_in)):.4f} ms; "
           f"maxplus_scan_deltas N=16 T'=16 {ms(lambda: k.maxplus_scan_deltas(*deltas_in)):.4f} ms",
           flush=True)
+    bf16 = hasattr(k, "maxplus_scan_bf16")
+    if bf16:
+        table = {"fp32": lh.logA, "bf16": lh.logA.to(torch.bfloat16)}
+        for label, fn, args in (("maxplus_scan N=1 T'=255", k.maxplus_scan, scan_in),
+                                ("maxplus_scan_deltas N=16 T'=16", k.maxplus_scan_deltas,
+                                 deltas_in)):
+            runs = {"fp32": [], "bf16": []}
+            for p in ("fp32", "bf16", "bf16", "fp32"):
+                runs[p].append(ms(lambda: fn(table[p], *args[1:])))
+            steps = args[1].shape[0]
+            fp, bt = (statistics.mean(runs[p]) for p in ("fp32", "bf16"))
+            print(f"{root}: {label} in turns: fp32 {fp:.4f} ms ({fp / steps * 1e3:.3f} us a "
+                  f"step), bf16 {bt:.4f} ms ({bt / steps * 1e3:.3f} us a step), bf16/fp32 "
+                  f"{bt / fp:.3f}; runs {runs}", flush=True)
+        del table
     del e, scan_in, d16, deltas_in, eg_in
     g = torch.Generator(device=dev).manual_seed(16384)
     K, Tm = 16384, 32
@@ -205,6 +232,13 @@ def time_checkout(root: str, scans_only: bool = False) -> None:
           f"{ms(lambda: k.maxplus_scan(*big[1]), 5):.4f} ms; maxplus_scan_deltas N=1 "
           f"{ms(lambda: k.maxplus_scan_deltas(*big[1]), 5):.4f} ms; N=16 "
           f"{ms(lambda: k.maxplus_scan_deltas(*big[16]), 5):.4f} ms", flush=True)
+    if bf16:
+        half = logA.to(torch.bfloat16)
+        print(f"{root}: K={K}, T'={Tm}, bf16 table: maxplus_scan N=1 "
+              f"{ms(lambda: k.maxplus_scan(half, *big[1][1:]), 5):.4f} ms; maxplus_scan_deltas "
+              f"N=16 {ms(lambda: k.maxplus_scan_deltas(half, *big[16][1:]), 5):.4f} ms",
+              flush=True)
+        del half
     del logA, big
     torch.cuda.empty_cache()
     print(f"{root}: decodes, median of 5: flash {decode_ms(y, 'flash', num_segments=16):.3f} ms; "

@@ -94,8 +94,10 @@ def test_unported_options_and_unknown_names_raise():
     hmm, y = tfv.make_sparse_hmm(K=16, M=3, T=8, prob=0.5, seed=1)
     with pytest.raises(ValueError, match="mode"):
         tfv.decode(hmm, y, "flash", mode="fast", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfv.decode(hmm, y, "flash", precision="bf16", device="cpu")
+    # bf16 is ported (tests/test_torch_bf16.py); an unknown precision raises
+    assert tfv.decode(hmm, y, "flash", precision="bf16", device="cpu").path.shape == (8,)
+    with pytest.raises(ValueError, match="precision"):
+        tfv.decode(hmm, y, "flash", precision="fp16", device="cpu")
     with pytest.raises(KeyError):
         tfv.decode(hmm, y, "nope", device="cpu")
     with pytest.raises(ValueError):

@@ -139,10 +139,13 @@ def test_unported_options_raise():
     hmm, ys = _batch(K=16, M=3, T=8, Bs=2, seed=1)
     with pytest.raises(TypeError, match="make_mesh"):
         tfv.decode_batch(hmm, ys, "fused", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfv.decode(hmm, ys[0], "fused", precision="bf16", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfv.decode_batch(hmm, ys, "fused", precision="bf16", device="cpu")
+    # bf16 is ported (tests/test_torch_bf16.py); an unknown precision raises
+    assert tfv.decode(hmm, ys[0], "fused", precision="bf16", device="cpu").path.shape == (8,)
+    assert tfv.decode_batch(hmm, ys, "fused", precision="bf16", device="cpu").path.shape == (2, 8)
+    with pytest.raises(ValueError, match="precision"):
+        tfv.decode(hmm, ys[0], "fused", precision="fp16", device="cpu")
+    with pytest.raises(ValueError, match="precision"):
+        tfv.decode_batch(hmm, ys, "fused", precision="fp16", device="cpu")
     with pytest.raises(ValueError, match="pointers"):
         tfv.decode_batch(hmm, ys, "fused", pointers="both", device="cpu")
     # JAX's use_pallas is recorded only (every decoder records its extra

@@ -590,9 +590,13 @@ def test_scan_ablation_table_matches_variants_and_production_passes_all_parts():
     assert {name for name, p in parts.items() if p in ("P_ALL", "P_ALL & ~P_HIST")} == set(
         scan.EXACT)
     launches = re.findall(r"launch_persistent<([^>]*)>\(", src)
-    assert sorted(launches) == ["LG, WITH_PTR, EMIT, P_ALL", "LG, false, EMIT_ROWS, ABLATION[V].parts"]
+    assert sorted(launches) == ["LG, WITH_PTR, EMIT, P_ALL, TA",
+                                "LG, false, EMIT_ROWS, ABLATION[V].parts"]
+    # fvt_maxplus_scan, fvt_maxplus_scan_bf16 (its table type from logA's),
+    # fvt_maxplus_scan_eg
     assert re.findall(r"run_scan<(\w+), (\w+)>\(", src) == [
-        ("true", "EMIT_ROWS"), ("false", "EMIT_ROWS"), ("true", "EMIT_GATHER")]
+        ("true", "EMIT_ROWS"), ("false", "EMIT_ROWS"), ("true", "EMIT_ROWS"),
+        ("false", "EMIT_ROWS"), ("true", "EMIT_GATHER")]
     assert "scan_step" not in src and "for_each_step" not in src
 
 
