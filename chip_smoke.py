@@ -162,7 +162,8 @@ Phases, each fatal on failure:
    arguments), every rank on ``cuda:0`` holding only its column shard of
    ``logA`` and ``logB``; each rank's paths must equal phase 9's bit for
    bit.  Per-rank times are of ranks time-sliced on one card, not of
-   several cards.
+   several cards.  Each world then runs 3 fuzz draws of its size (phase
+   12c).
 11. Config-5's K: K=16384, M=50, prob=0.112, seed=1, 2 sequences in one
    microbatch, 16 segments, T cut from 65536 to 4096 (8 chunks of 512) to
    keep the run short; mesh (1, 1, 1) in this process, then (1, 1, 4) as 4 ranks on the
@@ -210,6 +211,21 @@ Phases, each fatal on failure:
    in turns: the two scans' µs a step, the fused, flash, lean and
    recompute Bs=16 decodes, the flash decoder's kept tables and peak, and
    each decode's device busy ms (torch.profiler).
+12c. Fuzz (its wall time printed; after 12b): fixed draws of the port's
+   fuzz scripts through the public decoders on the card, every path held as
+   the scripts hold it (``scripts/torch_fuzz_midscale.py``: the C oracle,
+   the tie-flip arbitration, the numpy mirrors, the fp32 decode of the
+   bf16-rounded table; ``scripts/torch_fuzz_engines.py``: the port's CPU
+   decode and the oracles): 8 midscale draws (seeds 90000-90007), 8 small
+   (50000-50007), 4 wide (K 2135, 3476, 4340 and 4109), the wide draws' C
+   oracle made by the witness workers, and 3 engine draws (``sieve_bs``,
+   ``sieve`` / ``sieve_dag``, a batch of three; the CPU decodes and oracles
+   in the witness workers).  Every kernel of each regime's paths must
+   launch, none of the engine draws'.  The coverage line (scan plans, the
+   bf16 tile copy's paths, the beam and fold clusters) is printed.  Phase
+   10's rank worlds also run the first 3 sharded draws of distinct meshes
+   of their size (``scripts/torch_fuzz_sharded.py``), each rank against
+   the single-device flash decode on the card.
 13. Last, ``device_trace`` around one fused decode: a Chrome trace holding
    its kernels (host timings after a profiler session run slower).
 
@@ -416,18 +432,45 @@ def _bf16_jobs(label: str, requests) -> tuple:
                  for i in requests)
 
 
+# the fuzz phase (12c): fixed draws of the port's fuzz scripts
+# (scripts/torch_fuzz_*.py), the same in every run: the first 8 of the
+# midscale and small regimes' default runs, 4 wide draws (the first two at
+# K <= 4096, K 2135 and 3476, and the first two above, 4340 and 4109), the
+# first 3 engine draws and the first 3 sharded draws of distinct meshes of the
+# worlds of 2 and 4 ranks, which join the rank worlds of phase 10
+FUZZ_MIDSCALE = tuple(range(90_000, 90_008))
+FUZZ_SMALL = tuple(range(50_000, 50_008))
+FUZZ_WIDE = (70_001, 70_004, 70_000, 70_002)
+FUZZ_ENGINES = 3
+FUZZ_SHARDED = 3
+FUZZ_NEEDS = ("maxplus_scan", "maxplus_scan_deltas", "maxplus_scan_emitgather",
+              "backtrack_batched", "argmax_walk", "fold_planes")
+FUZZ_BEAM_NEEDS = ("beam_scan",)             # the draws with a beam check
+FUZZ_BF16_NEEDS = (BF16_SCAN, BF16_DELTAS, BF16_WALK)  # the draws with a bf16 check
+
+
+def _fuzz_jobs(worker: int) -> tuple:
+    """Witness jobs of the fuzz phase on worker ``worker``: the C oracle of
+    the wide draws and the engine draws' CPU decodes and oracles."""
+    return (tuple((f"fuzz_wide{i}", "fuzz_wide", i, {})
+                  for i in range(len(FUZZ_WIDE)) if i % 4 == worker)
+            + tuple((f"fuzz_engines{i}", "fuzz_engines", i, {})
+                    for i in range(FUZZ_ENGINES) if i % 4 == worker))
+
+
 WITNESS_JOBS = (
     tuple((f"flash{i}", "flash", i, {"num_segments": SEGMENTS})
           for i in range(1 + len(EXTRA_SEEDS)))
     + tuple((f"mirror_{name}", name, None, SIEVE_STATIC[name]) for name in SIEVE_MIRROR_K)
-    + _bf16_jobs("fused", range(4)) + _bf16_jobs("lean", (0,)),
+    + _bf16_jobs("fused", range(4)) + _bf16_jobs("lean", (0,)) + _fuzz_jobs(0),
     (("sieve_mp", "sieve_mp", 0, {}), ("sieve_bs", "sieve_bs", 0, SIEVE_STATIC["sieve_bs"]),
-     ("sieve_prefix", "sieve", "prefix", {})) + _bf16_jobs("flash", (0, 1)),
+     ("sieve_prefix", "sieve", "prefix", {})) + _bf16_jobs("flash", (0, 1)) + _fuzz_jobs(1),
     (("sieve_bs_mp", "sieve_bs_mp", 0, SIEVE_STATIC["sieve_bs_mp"]),
      ("sieve_mp_unpruned", "sieve_mp", 0, {"prune": False}),
-     ("sieve_oracle", "sieve", "sieve_oracle", {})) + _bf16_jobs("flash", (2, 3)),
+     ("sieve_oracle", "sieve", "sieve_oracle", {})) + _bf16_jobs("flash", (2, 3))
+    + _fuzz_jobs(2),
     tuple((key, DYN_FIXTURES[key][0], key, {}) for key in ("dag_large", "dag_cpu", "dag_oracle"))
-    + _bf16_jobs("lean", (1, 2, 3)))
+    + _bf16_jobs("lean", (1, 2, 3)) + _fuzz_jobs(3))
 WITNESS_THREADS = 2
 WITNESS_TIMEOUT_S = 600.0
 # PR 6's first request of each decode phase read ~2x the others, after
@@ -2275,8 +2318,11 @@ def run_ranks(job: dict) -> tuple[list[dict], float]:
     """Start one process per rank of ``job["mesh"]``, all on this card,
     joined over gloo (``launch_workers``: this script with rank arguments,
     a file:// store).  Returns each rank's record (its paths, decode ms,
-    launches) and the seconds the ranks took, start-up included."""
+    launches; with ``job["fuzz"]``, rank 0's also the fuzz draws' results,
+    ``torch_fuzz_sharded.world_results``) and the seconds the ranks took,
+    start-up included."""
     from flash_viterbi_tpu_torch.parallel.multihost import launch_workers
+    from scripts.torch_fuzz_sharded import world_results
 
     n = int(np.prod(job["mesh"]))
     with tempfile.TemporaryDirectory() as out:
@@ -2290,6 +2336,8 @@ def run_ranks(job: dict) -> tuple[list[dict], float]:
                 rec = json.load(f)
             rec["paths"] = np.load(os.path.join(out, f"rank{r}.npy"))
             recs.append(rec)
+        if job.get("fuzz"):
+            recs[0]["fuzz"] = world_results(job["fuzz"], n, out)
     return recs, wall
 
 
@@ -2329,6 +2377,12 @@ class Witness:
             secs = json.load(f)["s"]
         return np.load(os.path.join(self.dir, f"{tag}.npy")), secs
 
+    def record(self, tag: str) -> dict:
+        """A fuzz engine job's reference record, waiting for its worker."""
+        self.get(tag)
+        with open(os.path.join(self.dir, f"{tag}.rec.json")) as f:
+            return json.load(f)
+
     def problem(self, key: str) -> tuple:
         """(HMM, observations) of DYN_FIXTURES[key], as its worker saved
         them (waiting for the worker's record)."""
@@ -2352,7 +2406,9 @@ def witness_main(outdir: str, k: str) -> None:
     decode of a headline request (or, "prefix", of request 0's first
     SIEVE_DYN_PREFIX symbols), the SIEVE decoder's oracle at its mirror
     fixture (request None), or a DYN_FIXTURES entry's path (request its
-    key); each path saved as ``<tag>.npy`` and its seconds as
+    key), or a fuzz job: the C oracle's path of a wide draw, or an engine
+    draw's reference record (``<tag>.rec.json``: the port's CPU pair lists
+    and the oracles'); each path saved as ``<tag>.npy`` and its seconds as
     ``<tag>.json``, which is renamed into place last."""
     from flash_viterbi_tpu_torch import decode
     from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm
@@ -2361,7 +2417,17 @@ def witness_main(outdir: str, k: str) -> None:
     hmm, requests = headline()
     for tag, name, i, static in WITNESS_JOBS[int(k)]:
         t0 = time.perf_counter()
-        if i is None:
+        if name == "fuzz_wide":
+            from scripts.torch_fuzz_midscale import oracle_path
+
+            path = oracle_path("wide", FUZZ_WIDE[i])
+        elif name == "fuzz_engines":
+            from scripts.torch_fuzz_engines import DEFAULT, draws, reference
+
+            with open(os.path.join(outdir, f"{tag}.rec.json"), "w") as f:
+                json.dump(reference(draws(FUZZ_ENGINES, DEFAULT[1])[i], cpu_decode=True), f)
+            path = np.zeros(0, dtype=np.int64)
+        elif i is None:
             path = sieve_mirror(name, *make_sparse_hmm(**dict(HEADLINE, K=SIEVE_MIRROR_K[name])))
         elif i == "prefix":
             path = decode(hmm, requests[0][:SIEVE_DYN_PREFIX], name, device="cpu",
@@ -2394,13 +2460,39 @@ def check_ranks(label: str, recs: list[dict], want: np.ndarray, wall: float) -> 
           f"one-rank run; {wall:.1f} s with start-up", flush=True)
 
 
+def fuzz_sharded_draws(world: int) -> list[dict]:
+    """The first FUZZ_SHARDED draws of distinct meshes that
+    ``torch_fuzz_sharded.py``'s default run gives a world of ``world``
+    ranks (draw i goes to ``WORLDS[i % 3]``)."""
+    from scripts.torch_fuzz_sharded import DEFAULT, WORLDS, draw
+
+    out, seed = [], DEFAULT[1] + WORLDS.index(world)
+    while len(out) < FUZZ_SHARDED:
+        p = draw(seed, world)
+        if all(q["mesh"] != p["mesh"] for q in out):
+            out.append(p)
+        seed += len(WORLDS)
+    return out
+
+
 def multi_rank_phase(want: np.ndarray) -> None:
     """The headline requests on each mesh of RANK_MESHES, every rank on this
-    card; each rank's paths must equal the one-rank phase's."""
+    card; each rank's paths must equal the one-rank phase's.  Then each
+    world runs its fuzz draws (``fuzz_sharded_draws``; meshes of its size
+    drawn, every rank held to the single-device flash decode)."""
+    from scripts.torch_fuzz_sharded import ctx
+
     for shape in RANK_MESHES:
+        world = int(np.prod(shape))
         recs, wall = run_ranks({"mesh": shape, "problem": "headline",
-                                "segments": SEGMENTS, "microbatch": 1, "warmup": True})
+                                "segments": SEGMENTS, "microbatch": 1, "warmup": True,
+                                "fuzz": fuzz_sharded_draws(world)})
         check_ranks(f"sharded {shape}", recs, want, wall)
+        for p, fails, rec0 in recs[0]["fuzz"]:
+            require(not fails, f"fuzz sharded draw {ctx(p)}: {fails}")
+            print(f"fuzz sharded, world of {world} ranks on the card: ok {ctx(p)} "
+                  f"path={rec0['path']} rank 0: {rec0['ms']:.1f} ms sharded, "
+                  f"{rec0['s']:.1f} s with its references", flush=True)
 
 
 def config5_phase(device) -> list[dict[str, int]]:
@@ -3623,6 +3715,64 @@ def bf16_phase(hmm, requests, oracles, device, witness) -> tuple[dict, list[dict
     return recs, all_launches
 
 
+def fuzz_phase(device, witness) -> list[dict[str, int]]:
+    """Phase 12c: the fixed fuzz draws of ``scripts/torch_fuzz_midscale.py``
+    (FUZZ_MIDSCALE, FUZZ_SMALL, FUZZ_WIDE, the wide draws' C oracle made by
+    the witness workers) and ``scripts/torch_fuzz_engines.py`` (the first
+    FUZZ_ENGINES draws, their CPU decodes and oracles made by the witness
+    workers) through the public decoders on the card; any mismatch fails.
+    Each regime's draws run between a reset and a read of the launch
+    counters: every kernel of its paths must launch, and the engine draws
+    (no hand kernel) launch none.  Prints each draw's line, the coverage
+    (scan plans, the bf16 tile copy's paths, the beam and fold clusters)
+    and the phase's wall time.  Returns the launches."""
+    from scripts import torch_fuzz_engines as fe
+    from scripts import torch_fuzz_midscale as fm
+
+    t0 = time.perf_counter()
+    cov = fm.Coverage().install()
+    launches = []
+    try:
+        for regime, seeds in (("midscale", FUZZ_MIDSCALE), ("small", FUZZ_SMALL),
+                              ("wide", FUZZ_WIDE)):
+            needs = FUZZ_NEEDS
+            if regime == "small" or any(seed % 4 == 0 for seed in seeds):
+                needs += FUZZ_BEAM_NEEDS
+            if regime != "small" and any(seed % 2 == 0 for seed in seeds):
+                needs += FUZZ_BF16_NEEDS
+
+            def run(regime=regime, seeds=seeds):
+                for i, seed in enumerate(seeds):
+                    t1 = time.perf_counter()
+                    oracle = (None if regime != "wide"
+                              else lambda i=i: witness.get(f"fuzz_wide{i}")[0])
+                    d = fm.one_round(seed, regime, device, oracle)
+                    print(f"fuzz {regime}: {fm.draw_line(d, cov.take(), time.perf_counter() - t1)}",
+                          flush=True)
+                    require(not d.failures, f"fuzz {regime} seed={seed}: {d.failures}")
+
+            launches.append(drive(f"fuzz {regime}, {len(seeds)} draws", needs, run)[1])
+
+        def engines():
+            for i, p in enumerate(fe.draws(FUZZ_ENGINES, fe.DEFAULT[1])):
+                t1 = time.perf_counter()
+                r = fe.one_round(p, device, witness.record(f"fuzz_engines{i}"))
+                print(f"fuzz engines: {fe.draw_line(p, r, time.perf_counter() - t1)}", flush=True)
+                require(not r["failures"], f"fuzz engines {fe.ctx(p)}: {r['failures']}")
+
+        eng = drive(f"fuzz engines, {FUZZ_ENGINES} draws", (), engines)[1]
+        only(eng, ())
+        launches.append(eng)
+    finally:
+        cov.uninstall()
+    print(cov.summary(), flush=True)
+    print(f"fuzz phase: {len(FUZZ_MIDSCALE)} midscale, {len(FUZZ_SMALL)} small, "
+          f"{len(FUZZ_WIDE)} wide and {FUZZ_ENGINES} engine draws, 0 mismatches, "
+          f"{time.perf_counter() - t0:.1f} s (the sharded draws ran in phase 10's worlds)",
+          flush=True)
+    return launches
+
+
 def trace_phase(hmm, y, device) -> dict[str, int]:
     """``device_trace`` around one fused decode (its warmup and timed call),
     last in the script: host timings after a torch.profiler session run
@@ -3715,6 +3865,10 @@ def rank_main(init_method: str, rank: str, world: str, outdir: str) -> None:
         json.dump({"rank": rank, "coords": mesh.coords, "ms": start.elapsed_time(end),
                    "launches": nonzero(k.launch_counts()),
                    "shard_bytes": logA_l.numel() * logA_l.element_size()}, f)
+    if job.get("fuzz"):
+        from scripts.torch_fuzz_sharded import rank_draws
+
+        rank_draws(job["fuzz"], rank, device, outdir)
     multihost.shutdown()
     with open(os.path.join(outdir, f"ok_{rank}"), "w") as f:
         f.write("ok")
@@ -3775,6 +3929,7 @@ def phases(device, witness: Witness, t_start: float) -> None:
     launches += [sharded_launches, *config5_phase(device), probe_launches]
     bf16_recs, bf16_launches = bf16_phase(hmm, requests, oracles, device, witness)
     launches += bf16_launches
+    launches += fuzz_phase(device, witness)
     launches.append(trace_phase(hmm, y1, device))  # last: a profiler session slows the host
     recs.update(probe_recs)
     recs.update(bf16_recs)

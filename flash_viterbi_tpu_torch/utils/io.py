@@ -9,9 +9,10 @@ where ``T`` in the file name is the observation sequence length, not the
 alphabet size M.  Files are whitespace-separated text: ``A`` and ``B`` a
 matrix row a line (``%.16f``), ``Pi`` and ``ob`` one line each.
 Probabilities load as float64; ``as_float32=True`` quantizes them as the C
-loaders store them.  Copied from ``flash_viterbi_tpu/utils/io.py`` with its
-numpy reader and writer (the JAX package's optional native parser writes
-the same bytes).
+loaders store them.  Copied from ``flash_viterbi_tpu/utils/io.py``: the
+matrices are read and written by ``csrc/fastio.c`` (``runtime.native``,
+the same ``%.16f`` format, about ten times faster than numpy) where a C
+compiler built it, by numpy where none exists.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import os
 import numpy as np
 
 from ..models.hmm import HMM
+from ..runtime import native
 
 
 def prob_str(prob: float, decimals: int | None = None) -> str:
@@ -50,14 +52,18 @@ def save_dataset(data_path: str, hmm: HMM, y: np.ndarray, T: int | None = None,
     os.makedirs(data_path, exist_ok=True)
     T = int(len(y) if T is None else T)
     paths = dataset_paths(data_path, hmm.K, T, prob, dag, prob_decimals)
-    np.savetxt(paths["A"], hmm.A, fmt="%.16f")
-    np.savetxt(paths["B"], hmm.B, fmt="%.16f")
+    for name, mat in (("A", hmm.A), ("B", hmm.B)):
+        if not native.save_floats_native(paths[name], mat):
+            np.savetxt(paths[name], mat, fmt="%.16f")
     np.savetxt(paths["Pi"], hmm.Pi, fmt="%.16f", newline=" ")
     np.savetxt(paths["ob"], np.asarray(y, dtype=np.int64), fmt="%d", newline=" ")
     return paths
 
 
 def _load_text_floats(path: str, count: int) -> np.ndarray:
+    out = native.load_floats_native(path, count)
+    if out is not None:
+        return out
     # split-parse: np.fromfile(sep=" ") stops at the reference DAG
     # generator's overflowed 1.8e308 tokens (data_script_dag.py:54)
     with open(path) as f:
@@ -74,7 +80,10 @@ def load_dataset(data_path: str, K: int, T: int, M: int,
     A = _load_text_floats(paths["A"], K * K).reshape(K, K)
     B = _load_text_floats(paths["B"], K * M).reshape(K, M)
     Pi = _load_text_floats(paths["Pi"], K)
-    y = np.fromfile(paths["ob"], dtype=np.int64, count=T, sep=" ").astype(np.int32)
+    y = native.load_ints_native(paths["ob"], T)
+    if y is None:
+        y = np.fromfile(paths["ob"], dtype=np.int64, count=T, sep=" ")
+    y = y.astype(np.int32)
     if as_float32:
         A, B, Pi = (x.astype(np.float32).astype(np.float64) for x in (A, B, Pi))
     return HMM(A=A, B=B, Pi=Pi), y

@@ -3,7 +3,9 @@
     python tests/torch_sharded_worker.py <init_method> <rank> <world> <outdir>
 
 Joins a gloo world of ``<world>`` ranks (none for a world of 1), runs
-every case of ``CASES`` whose mesh has that many ranks, and writes each
+every case of ``CASES`` (with ``FVT_WORKER_CASES=fuzz`` in the environment,
+of ``FUZZ_CASES``: ``tests/test_torch_fuzz.py``'s, through the public
+``decode_batch``) whose mesh has that many ranks, and writes each
 case's (Bs, T) paths as ``<case>.rank<r>.npy`` (commtrace cases: the
 rank's collective stats as ``<case>.rank<r>.json``) into ``<outdir>``,
 then ``ok_<rank>``.  Imports only the port, never JAX.
@@ -60,11 +62,26 @@ def _cases() -> dict[str, dict]:
 
 CASES = _cases()
 
+# tests/test_fuzz.py's SHARD_CASES: (K, M, T, prob, seed, mesh shape, segments)
+SHARD_CASES = [(33, 4, 26, 0.5, 206, (2, 2, 2), 4),
+               (56, 11, 40, 0.2, 203, (1, 2, 2), 6),
+               (72, 5, 23, 0.45, 204, (2, 2, 1), 4)]
+FUZZ_CASES = {_name("fuzz", shape, s=segs, seed=seed): dict(
+    shape=shape, fuzz=(K, M, T, prob, seed), opts=dict(num_segments=segs))
+    for K, M, T, prob, seed, shape, segs in SHARD_CASES}
+
 
 def problem(case: dict):
-    """(HMM, y, ys): the case's problem and its (4, T) int32 batch."""
+    """(HMM, y, ys): the case's problem and its (4, T) int32 batch (a fuzz
+    case's: its sequence and one more, as tests/test_fuzz.py draws them)."""
     from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm
 
+    if "fuzz" in case:
+        K, M, T, prob, seed = case["fuzz"]
+        hmm, y = make_sparse_hmm(K=K, M=M, T=T, prob=prob, seed=seed)
+        rng = np.random.RandomState(seed)
+        return hmm, y, np.stack([np.asarray(y, np.int32),
+                                 rng.randint(0, M, size=T).astype(np.int32)])
     hmm, y = make_sparse_hmm(**PROBLEMS[case.get("problem", "small")])
     if case.get("batch", "repeat") == "repeat":
         return hmm, y, np.stack([y] * 4).astype(np.int32)
@@ -83,10 +100,12 @@ def main() -> None:
 
     torch.set_num_threads(1)
     from flash_viterbi_tpu_torch.parallel import commtrace, multihost, sharded
+    from flash_viterbi_tpu_torch.parallel.batch import decode_batch
 
     multihost.initialize(init_method, world, rank, backend="gloo")
     meshes = {}
-    for name, case in CASES.items():
+    cases = FUZZ_CASES if os.environ.get("FVT_WORKER_CASES") == "fuzz" else CASES
+    for name, case in cases.items():
         if world_size(case) != world:
             continue
         shape = case["shape"]
@@ -101,10 +120,14 @@ def main() -> None:
                 json.dump(stats, f)
             continue
         hmm, _, ys = problem(case)
-        lh = hmm.log(device="cpu")
-        paths = sharded.flash_decode_sharded(mesh, lh.logA, lh.logB, lh.logPi, ys,
-                                             **case["opts"])
-        np.save(stem + ".npy", paths.numpy())
+        if "fuzz" in case:  # the public mesh path, which pads K to 128
+            paths = decode_batch(hmm, ys, mesh=mesh, device="cpu", warmup=False,
+                                 **case["opts"]).path
+        else:
+            lh = hmm.log(device="cpu")
+            paths = sharded.flash_decode_sharded(mesh, lh.logA, lh.logB, lh.logPi, ys,
+                                                 **case["opts"]).numpy()
+        np.save(stem + ".npy", paths)
     multihost.shutdown()
     with open(os.path.join(outdir, f"ok_{rank}"), "w") as f:
         f.write("ok")
