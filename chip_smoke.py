@@ -171,7 +171,13 @@ Phases, each fatal on failure:
    only its 256 MiB column shard.  Equal paths, in range, finite scores.
    Between the two, ``decode_batch(..., "flash_long", num_segments=16)``
    (the batched pipeline) on the same tables equals ``decode_batch(...,
-   "flash")``; its time and peak above the tables are printed.
+   "flash")``; its time and peak above the tables are printed.  Then
+   ``scripts/torch_config5.py``'s functions on the same tables, T cut to
+   2048, at 1 and 4 segments: 4 sequences in batches of 2 into a
+   temporary score file, gates 1-3 holding; a resumed call to 6 sequences
+   decodes only sequences 4 and 5 (half the first call's launches); the
+   resumed file's scores and paths equal a fresh 6-sequence run's.  The
+   step's time is printed.
 
 12. The command line and tools (its wall time printed), at the headline:
    ``cli.main(["decode", "-a", "fused", ...])`` (the reference stdout
@@ -226,8 +232,11 @@ Phases, each fatal on failure:
    10's rank worlds also run the first 3 sharded draws of distinct meshes
    of their size (``scripts/torch_fuzz_sharded.py``), each rank against
    the single-device flash decode on the card.
-13. Last, ``device_trace`` around one fused decode: a Chrome trace holding
-   its kernels (host timings after a profiler session run slower).
+13. Last, ``device_trace`` around one fused decode, in a fresh process
+   (this script with ``--trace``): a Chrome trace holding each launch of
+   its two hand kernels (host timings after a profiler session run
+   slower, and a session after the earlier phases in this process has
+   recorded only some of the decode's kernels, or none).
 
 The kernel phase also holds ``maxplus_step_block`` bit-exact on nine
 fixtures: the (1, 1, 1) boundary step (N=1, Ks=Kd=3968), 16 phase-2 lanes
@@ -351,7 +360,13 @@ CONFIG5 = dict(K=16384, M=50, T=4096, prob=0.112, seed=1)
 CONFIG5_BATCH = 2
 CONFIG5_MICROBATCH = 2
 CONFIG5_MESH = (1, 1, 4)
+# scripts/torch_config5.py on those tables: T cut to 2048, a first call of
+# 4 sequences in batches of 2, a resumed call to 6, at each segment count
+CONFIG5_SCRIPT = dict(T=2048, first=4, resumed=6, batch=2, segments=(1, 4))
 RANK_TIMEOUT_S = 300.0
+# the fused decode's hand kernels, each wrapper's counter against the
+# name its kernel has in the profiler's trace
+TRACE_KERNELS = {"maxplus_scan": "scan_persistent", "backtrack_batched": "backtrack_kernel"}
 # the fold at sieve_mp's top level: the rows after the midpoint of a T=256
 # request; the phase-1 chunk under these forced cluster sizes
 FOLD_TOP_ROWS = 128
@@ -2500,7 +2515,8 @@ def config5_phase(device) -> list[dict[str, int]]:
     process, then ``decode_batch(..., "flash_long", num_segments=16)``
     (the batched pipeline) against ``decode_batch(..., "flash")`` on the same
     tables, its time and peak above the tables printed beside ``memory:``,
-    then CONFIG5_MESH as ranks on the card, each uploading only its
+    then ``config5_script_step`` on those tables, then CONFIG5_MESH as
+    ranks on the card, each uploading only its
     column shard of the tables, memory-mapped from .npy files.  Equal paths,
     in range, finite fp32 scores.  Returns the launches of the (1, 1, 1) run
     and of the flash_long batch."""
@@ -2569,13 +2585,61 @@ def config5_phase(device) -> list[dict[str, int]]:
               f"({peak / 2**30:.2f} GiB) above the tables against memory: {r.memory_bytes}; "
               f"equal to flash's decode_batch, launches {nonzero(r.extra['launches'])}",
               flush=True)
-        del logA, logB, logPi, dev_tables
+        del dev_tables
+        config5_script_step(logA, logB, logPi, tables, y, device)
+        del logA, logB, logPi
         torch.cuda.empty_cache()
         recs, wall = run_ranks({"mesh": CONFIG5_MESH, "problem": tables,
                                 "segments": SEGMENTS, "microbatch": CONFIG5_MICROBATCH,
                                 "warmup": False})
     check_ranks(f"config-5 {CONFIG5_MESH}, no warmup", recs, want, wall)
     return [launches, long_launches]
+
+
+def config5_script_step(logA, logB, logPi, tables: str, y, device) -> None:
+    """``scripts/torch_config5.py``'s functions on config-5's tables (on the
+    card; the scores read the ``.npy`` copies in ``tables``), T cut to
+    CONFIG5_SCRIPT["T"], at each segment count: a first call into a
+    temporary score file, gates 1-3; a resumed call that decodes only the
+    new batch (its launches half the first call's, every kernel alike);
+    the resumed scores and paths equal a fresh run's."""
+    from scripts import torch_config5 as c5
+
+    t0 = time.perf_counter()
+    cfg = CONFIG5_SCRIPT
+    host = tuple(np.load(os.path.join(tables, f"{name}.npy"), mmap_mode="r")
+                 for name in ("logA", "logB", "logPi"))
+    prob = c5.Problem(logA, logB, logPi, host=host, y0=np.asarray(y[:cfg["T"]]),
+                      device=device, card=c5.card_line())
+    group = c5.longform.GROUP_STEPS
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for N in cfg["segments"]:
+            out, fresh_out = (os.path.join(tmp, f"{name}{N}.jsonl") for name in ("run", "fresh"))
+            label = f"config-5 script K={prob.K}, T={prob.T}, {N} segments"
+            first, launches = drive(f"{label}, {cfg['first']} sequences", LONG_BATCH_NEEDS,
+                                    lambda: c5.decode_all(prob, cfg["batch"], cfg["first"], N,
+                                                          group, out, lines.append))
+            verdicts = c5.gates(prob, first, N, None, lines.append)
+            require(all(v[0] for v in verdicts.values()),
+                    f"{label}: gates {verdicts}")
+            resumed, more = drive(f"{label}, resumed to {cfg['resumed']}", LONG_BATCH_NEEDS,
+                                  lambda: c5.decode_all(prob, cfg["batch"], cfg["resumed"], N,
+                                                        group, out, lines.append))
+            require(resumed.decoded == [(cfg["first"], cfg["resumed"])]
+                    and all(launches[k] == 2 * more[k] for k in launches),
+                    f"{label}: the resumed call decoded {resumed.decoded}, launches "
+                    f"{nonzero(more)} against the first call's {nonzero(launches)}")
+            fresh = c5.decode_all(prob, cfg["batch"], cfg["resumed"], N, group, fresh_out,
+                                  lines.append)
+            require(np.array_equal(fresh.scores, resumed.scores)
+                    and fresh.hashes == resumed.hashes,
+                    f"{label}: resumed scores {resumed.scores} against fresh {fresh.scores}")
+            print(f"{label}: gates {({g: v[0] for g, v in verdicts.items()})}, the resumed "
+                  f"call decoded sequences {resumed.decoded} (launches {nonzero(more)} against "
+                  f"{nonzero(launches)}), its f64 scores {resumed.scores.tolist()} equal a "
+                  f"fresh run's", flush=True)
+    print(f"config-5 script step: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def peak_run(dec, args, device):
@@ -3773,32 +3837,67 @@ def fuzz_phase(device, witness) -> list[dict[str, int]]:
     return launches
 
 
-def trace_phase(hmm, y, device) -> dict[str, int]:
-    """``device_trace`` around one fused decode (its warmup and timed call),
-    last in the script: host timings after a torch.profiler session run
-    slower.  The Chrome trace must be written and hold the decode's
-    kernels.  Returns the launches."""
+def trace_phase() -> dict[str, int]:
+    """``device_trace`` around one fused decode (its warmup and timed call)
+    of the headline's request 0, in a fresh process on the card
+    (``trace_main``: this script with ``--trace``), last in the script: host
+    timings after a torch.profiler session run slower, and a session in
+    this process after the earlier phases has recorded only some of the
+    decode's kernels, or none.  The Chrome trace must be written and hold
+    each launch of the decode's two hand kernels.  Returns the launches."""
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace", out],
+                              capture_output=True, text=True, timeout=RANK_TIMEOUT_S)
+        print(proc.stdout, end="", flush=True)
+        require(proc.returncode == 0, f"device_trace: the process exited with "
+                f"{proc.returncode}: {proc.stderr[-4000:]}")
+        with open(os.path.join(out, "trace.json")) as f:
+            rec = json.load(f)
+    launches, kernels = rec["launches"], rec["kernels"]
+    count = {name: sum(n for k, n in kernels.items() if pattern in k)
+             for name, pattern in TRACE_KERNELS.items()}
+    require(rec["bytes"] > 0 and all(count[n] == launches[n] for n in TRACE_KERNELS),
+            f"device_trace: {rec['bytes']} bytes; hand kernel events {count} against "
+            f"launches {nonzero(launches)}; kernel events {kernels}")
+    print(f"device_trace of one fused decode (warmup and timed call, a fresh process, "
+          f"{time.perf_counter() - t0:.1f} s): {rec['bytes']} bytes, {rec['events']} events, "
+          f"{sum(kernels.values())} kernels ({count}), {rec['busy_ms']:.3f} ms of kernel time",
+          flush=True)
+    return launches
+
+
+def trace_main(outdir: str) -> None:
+    """The ``--trace`` process of ``trace_phase``: load the built kernels,
+    run one fused decode of the headline's request 0 under ``device_trace``
+    between a reset and a read of the launch counters, and write the
+    launches and the trace's kernel events by name to ``outdir``."""
     from flash_viterbi_tpu_torch import decode
+    from flash_viterbi_tpu_torch.runtime import build
     from flash_viterbi_tpu_torch.utils.profiling import device_trace
 
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    build.kernels()
+    hmm, requests = headline()
     with tempfile.TemporaryDirectory() as log_dir:
         def run():
-            with device_trace(log_dir) as prof:
-                decode(hmm, y, "fused", device=device)
-            return prof
+            with device_trace(log_dir):
+                decode(hmm, requests[0], "fused", device=device)
 
-        _, launches = drive("device_trace", ("maxplus_scan", "backtrack_batched"), run)
+        _, launches = drive("device_trace", TRACE_KERNELS, run)
         trace = os.path.join(log_dir, "trace.json")
         size = os.path.getsize(trace) if os.path.exists(trace) else 0
         with open(trace) as f:
             events = json.load(f).get("traceEvents", [])
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    require(size > 0 and kernels, f"device_trace: {size} bytes, {len(kernels)} kernel events")
-    busy = sum(e.get("dur", 0) for e in kernels) / 1e3
-    print(f"device_trace of one fused decode (warmup and timed call): {size} bytes, "
-          f"{len(events)} events, {len(kernels)} kernels, {busy:.3f} ms of kernel time",
-          flush=True)
-    return launches
+    by_name: dict[str, int] = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0) + 1
+    with open(os.path.join(outdir, "trace.json"), "w") as f:
+        json.dump({"launches": launches, "bytes": size, "events": len(events),
+                   "kernels": by_name, "busy_ms": sum(e.get("dur", 0) for e in kernels) / 1e3},
+                  f)
 
 
 def headline() -> tuple:
@@ -3930,7 +4029,7 @@ def phases(device, witness: Witness, t_start: float) -> None:
     bf16_recs, bf16_launches = bf16_phase(hmm, requests, oracles, device, witness)
     launches += bf16_launches
     launches += fuzz_phase(device, witness)
-    launches.append(trace_phase(hmm, y1, device))  # last: a profiler session slows the host
+    launches.append(trace_phase())  # last: a profiler session slows the host
     recs.update(probe_recs)
     recs.update(bf16_recs)
     table = {**KERNELS, **PROBE_KERNELS}
@@ -3954,5 +4053,7 @@ if __name__ == "__main__":
         rank_main(*sys.argv[1:])
     elif sys.argv[1:2] == ["--cpu-witness"]:  # a Witness worker
         witness_main(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--trace"]:  # the process of trace_phase
+        trace_main(*sys.argv[2:])
     else:
         main()

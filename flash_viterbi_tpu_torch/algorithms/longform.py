@@ -179,20 +179,31 @@ def flash_decode_long_batched(logA, logB, logPi, ys, num_segments: int = 4,
       within ``PHASE2_BYTES``.
     """
     transposed = transposed or (lambda a: a.t().contiguous())
-    Bs, T = ys.shape
-    K = int(logA.shape[0])
-    N, mids = _segments(T, num_segments)
+    T = int(ys.shape[1])
+    _, mids = _segments(T, num_segments)
     layout = _layout(mids, T, ys.device)
     logBT = logB.t()
     logAT = transposed(logA)
     err = error_word(logA.device)
+    path, last = _phase1_batched(logA, logAT, logPi, logBT, ys, group_steps, err)
+    if layout is not None:
+        path = _phase2_batched(logA, logAT, logPi, logBT, ys, path[:, layout[0]], last, layout,
+                               group_steps, err)
+    raise_on_error(err, "flash_long")
+    return path
 
+
+def _phase1_batched(logA, logAT, logPi, logBT, ys, group_steps, err):
+    """Phases A and B of :func:`flash_decode_long_batched`: the (Bs, T)
+    paths of the one-segment decode and the (Bs,) last states."""
+    T = int(ys.shape[1])
     d = logPi[None, :] + logBT[ys[:, 0]]
     groups = _groups(T - 1, group_steps)
     ckpts = []
     for j, n in groups:
         ckpts.append(d)
-        d, _ = maxplus_scan_deltas(logA, _emissions(logBT, ys[:, j:j + n]), d, err=err)
+        # the history is dropped here, not held until the next group's is made
+        d = maxplus_scan_deltas(logA, _emissions(logBT, ys[:, j:j + n]), d, err=err)[0]
     last = mp.first_argmax(d, 1)[1]
 
     state, pieces = last, []
@@ -203,18 +214,23 @@ def flash_decode_long_batched(logA, logB, logPi, ys, num_segments: int = 4,
         pieces.append(w[:, 1:])
         state = w[:, 0].contiguous()
     pieces.append(state[:, None])
-    path = torch.cat(pieces[::-1], dim=1)
-    if layout is not None:
-        del ckpts, pieces
-        anchors = path[:, layout[0]]
-        Lmax = layout[1].shape[1]
-        sub = max(1, PHASE2_BYTES // (max(Lmax - 1, 1) * N * K * 4))
-        path = torch.cat([_phase2(logA, logAT, logPi, logBT, ys[b0:b0 + sub],
-                                  anchors[b0:b0 + sub], last[b0:b0 + sub], layout, group_steps,
-                                  err)
-                          for b0 in range(0, Bs, sub)])
-    raise_on_error(err, "flash_long")
-    return path
+    return torch.cat(pieces[::-1], dim=1), last
+
+
+def phase2_sequences(layout, K: int) -> int:
+    """The sequences a phase-2 sub-batch holds: as many as keep their
+    segment lanes' carry parts within ``PHASE2_BYTES``, at least one."""
+    N, Lmax = layout[1].shape
+    return max(1, PHASE2_BYTES // (max(Lmax - 1, 1) * N * K * 4))
+
+
+def _phase2_batched(logA, logAT, logPi, logBT, ys, anchors, last, layout, group_steps, err):
+    """Phase 2 of :func:`flash_decode_long_batched` in sub-batches of
+    :func:`phase2_sequences` sequences: the (Bs, T) paths."""
+    sub = phase2_sequences(layout, int(logA.shape[0]))
+    return torch.cat([_phase2(logA, logAT, logPi, logBT, ys[b0:b0 + sub], anchors[b0:b0 + sub],
+                              last[b0:b0 + sub], layout, group_steps, err)
+                      for b0 in range(0, int(ys.shape[0]), sub)])
 
 
 def flash_decode_long_batch(logA, logB, logPi, ys, num_segments: int = 4,

@@ -27,14 +27,18 @@ def path_score_f64(A, B_mat, Pi, y, path) -> float:
 
 
 def log_path_score_f64(logA, logB, logPi, y, path) -> float:
-    """f64 log-score of ``path`` under (possibly fp32) log tables."""
-    lA = np.asarray(logA, np.float64)
-    lB = np.asarray(logB, np.float64)
-    lP = np.asarray(logPi, np.float64)
+    """f64 log-score of ``path`` under (possibly fp32) log tables.
+
+    The path's entries are gathered first and only they are widened: the
+    same float64 values summed in the same order as the JAX package's
+    widening of whole tables, so the same bits, without a float64 copy of
+    a (K, K) table a call (2 GiB at K=16384)."""
+    lA, lB, lP = np.asarray(logA), np.asarray(logB), np.asarray(logPi)
     p = np.asarray(path)
     yv = np.asarray(y)
-    return float(lP[p[0]] + lB[p[0], yv[0]]
-                 + lA[p[:-1], p[1:]].sum() + lB[p[1:], yv[1:]].sum())
+    f64 = np.float64
+    return float(f64(lP[p[0]]) + f64(lB[p[0], yv[0]])
+                 + lA[p[:-1], p[1:]].astype(f64).sum() + lB[p[1:], yv[1:]].astype(f64).sum())
 
 
 def score_tolerance_f64(T: int, ref_score: float) -> float:

@@ -146,6 +146,32 @@ def test_one_scan_call_a_group_and_contiguous_kernel_inputs(batch, monkeypatch):
         + [("argmax_walk", None)] * 2
 
 
+def test_batched_phase_one_holds_one_carry_history_at_a_time(monkeypatch):
+    """Phases A and B drop each group's carry history before the next scan
+    call makes another: at config-5 a history at 32 lanes is 8 GiB, and
+    phase A once held the previous group's until the next was made."""
+    import weakref
+
+    histories = []
+    scan = tlong.maxplus_scan_deltas
+
+    def spy(*args, **kw):
+        alive = [h for h in histories if h() is not None]
+        assert not alive, f"{len(alive)} carry histories alive at scan call {len(histories)}"
+        d, deltas = scan(*args, **kw)
+        histories.append(weakref.ref(deltas))
+        return d, deltas
+
+    monkeypatch.setattr(tlong, "maxplus_scan_deltas", spy)
+    hmm, y0 = tfv.make_sparse_hmm(K=64, M=8, T=50, prob=0.3, seed=7)
+    port, _ = _tables(hmm)
+    ys = torch.as_tensor(_seqs(y0, 50, 8, 3, seed=4))
+    got = tlong.flash_decode_long_batched(*port, ys, num_segments=1, group_steps=8)
+    assert len(histories) == 2 * 7  # phases A and B, 7 groups each
+    assert torch.equal(got, tlong.flash_decode_long_batched(*port, ys, num_segments=1,
+                                                            group_steps=64))
+
+
 def test_decode_and_decode_batch_match_jax_and_flash():
     """The registered decoder: paths of JAX's ``flash_long`` and of the port's
     ``flash`` at the same segments, the reference ``memory:`` of flash
