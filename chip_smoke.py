@@ -342,6 +342,16 @@ GRID_K = (64, 1024, 3965, 4096, 16384)
 GRID_N = (1, 16, 64)
 GRID_TM = 8
 GRID_TM_LARGE = 4
+# backtrack_batched's shapes (T', N, K) on the main path: fused and flash at
+# the headline, fused at T=16384, checkpoint's segments at T=256 (16 rows and
+# a last of 15) and T=16384 (256 and 255), beam (K = B = 64), the store
+# batches of 16 and 64, a flash_long group at config-5's K=16384; the lane
+# counts whose paths meet planted entries; the grid's T' besides a plan's L
+BACKTRACK_SHAPES = ((255, 1, 3968), (16383, 1, 3968), (16, 1, 3968), (15, 1, 3968),
+                    (256, 1, 3968), (255, 1, 64), (255, 16, 3968), (255, 64, 3968),
+                    (4096, 1, 16384))
+BACKTRACK_PLANTED = ((255, 1, 3968), (255, 16, 3968), (15, 16, 3968), (1024, 4, 16384))
+BACKTRACK_GRID_TM = (1, 255)
 # (K, N, SMs) whose plans walk several tiles a block; the combine turns' shapes
 LOOPED_PLANS = ((3000, 16, 4), (3000, 20, 4), (3001, 1, 1))
 COMBINE_SHAPES = ((3968, 1), (3968, 2), (3968, 4), (3968, 8), (3968, 16), (16384, 1),
@@ -703,10 +713,15 @@ def work_emitgather(args, outs):
 
 
 def work_backtrack(args, outs):
-    """The pointer walk: one 4-byte pointer per (step, lane) it follows."""
+    """The pointer walk: the 4-byte entries its paths follow (row t's entry
+    of each lane whose state at t+1 is in [0, K): this run's data decides
+    where a path leaves the table), the last states and the paths once.
+    The whole table once, as the TPU kernel's cost estimate counts it
+    (backtrack.py:135-137), is printed beside it as information."""
     ptrs, last = args
-    Tm, N, _ = ptrs.shape
-    return Tm * N * 4 + nbytes(last, *outs), 0
+    later = outs[0][:, 1:]
+    followed = int(((later >= 0) & (later < ptrs.shape[2])).sum())
+    return followed * 4 + nbytes(last, *outs), 0
 
 
 def work_walk(args, outs):
@@ -1255,22 +1270,126 @@ def walk_checks(head, y, device) -> tuple[list[dict], dict]:
     return recs, times
 
 
-def chase_latency_us(device) -> float:
-    """The card's dependent-load latency: ``backtrack_batched`` (one
-    thread, each load's address from the previous load) through a table of
-    random pointers of 60 MiB, the size of the headline's logA, at K=3968;
-    microseconds a load, the median of 5 runs."""
+def pointer_table(Tm: int, N: int, K: int, device, seed: int):
+    """(T', N, K) int32 pointers in [0, K) and (N,) last states in [0, K),
+    drawn on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ptrs = torch.randint(0, K, (Tm, N, K), generator=g, device=device, dtype=torch.int32)
+    last = torch.randint(0, K, (N,), generator=g, device=device, dtype=torch.int32)
+    return ptrs, last
+
+
+def plant(ptrs, last):
+    """Put -5, -1, K and K+3 (lane by lane, in turn) on each lane's walk at
+    a row of its own, and end lanes 1 and 2 (where there are 3 lanes) in K+7
+    and -2: the table's entries are read as the TPU kernel reads them (-1
+    below -1; K and above as they are, then -1)."""
+    from flash_viterbi_tpu_torch.ops.cuda import backtrack as kb
+
+    Tm, N, K = ptrs.shape
+    path = kb.backtrack_batched_plain(ptrs, last)
+    lanes = torch.arange(N, device=ptrs.device)
+    t_hit = (lanes * 7919 + Tm // 3) % Tm
+    values = torch.tensor((-5, -1, K, K + 3), dtype=torch.int32, device=ptrs.device)
+    ptrs[t_hit, lanes, path[lanes, t_hit + 1].long()] = values[lanes % 4]
+    if N >= 3:
+        last[1], last[2] = K + 7, -2
+    return ptrs, last
+
+
+def backtrack_checks(device) -> list[dict]:
+    """backtrack_batched against its plain version, bit for bit, one launch
+    a call: at BACKTRACK_SHAPES under the card's plan (timed back to back
+    against the serial plan, the parent's design, on the same inputs); with
+    planted entries and out-of-range last states (BACKTRACK_PLANTED) under
+    the card's plan, a chunk a row, chunks of 5 rows in 8 slices and the
+    serial plan; on the GRID_K x GRID_N grid at T' = 1, L-1, L, L+1 and 255
+    (L the card's chunk at T'=255, else 16) under the card's plan and under
+    a chunked plan of L rows (fewer where T' <= L).  Returns the
+    comparisons' records."""
+    import functools
+
     from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.ops.cuda import backtrack as kb
+    from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
+
+    t0 = time.perf_counter()
+    sms = km.sm_count(device)
+    recs, plans = [], 0
+
+    def hold(ptrs, last, plan=None) -> None:
+        nonlocal plans
+        walk = functools.partial(k.backtrack_batched, plan=plan)
+        before = k.backtrack_batched.launches
+        recs.append(compare("backtrack_batched", walk, kb.backtrack_batched_plain,
+                            (ptrs, last), device))
+        require(k.backtrack_batched.launches - before == 1,
+                f"backtrack_batched made {k.backtrack_batched.launches - before} launches "
+                f"at {tuple(ptrs.shape)} under {plan}")
+        plans += 1
+
+    for i, (Tm, N, K) in enumerate(BACKTRACK_SHAPES):
+        ptrs, last = pointer_table(Tm, N, K, device, seed=40 + i)
+        hold(ptrs, last)
+        plan, serial = kb.backtrack_plan(Tm, N, K, sms), kb.serial_plan(Tm, N)
+        walk = k.backtrack_batched
+        ms = queued_ms(lambda: walk(ptrs, last), device)
+        serial_ms = queued_ms(lambda: walk(ptrs, last, plan=serial), device)
+        moved, _ = work_backtrack((ptrs, last), (walk(ptrs, last),))
+        print(f"backtrack_batched at (T', N, K) = ({Tm}, {N}, {K}): {ms:.4f} ms of device "
+              f"time back to back under G={plan.G}, L={plan.L}, S={plan.S}, "
+              f"blocks={plan.blocks}, E={plan.E}; the serial walk {serial_ms:.4f} ms "
+              f"({serial_ms / ms:.2f}x); bound {bound(moved, 0)[0]:.7f} ms by bytes (the "
+              f"entries the paths follow); the table once {bound(nbytes(ptrs), 0)[0]:.5f} ms "
+              f"(information)", flush=True)
+        del ptrs, last
+    for i, (Tm, N, K) in enumerate(BACKTRACK_PLANTED):
+        ptrs, last = plant(*pointer_table(Tm, N, K, device, seed=60 + i))
+        S = -(-K // (kb.THREADS * kb.E_MAX))
+        for plan in (None, kb.backtrack_plan(Tm, N, K, sms, L=1, S=S),
+                     kb.backtrack_plan(Tm, N, K, sms, L=5, S=8 * S), kb.serial_plan(Tm, N)):
+            hold(ptrs, last, plan)
+        del ptrs, last
+    for K in GRID_K:
+        for N in GRID_N:
+            top = kb.backtrack_plan(255, N, K, sms)
+            L = 16 if top.serial else top.L
+            S = max(top.S, -(-K // (kb.THREADS * kb.E_MAX)))  # E_MAX entries a thread
+            for Tm in sorted({*BACKTRACK_GRID_TM, L - 1, L, L + 1} - {0}):
+                ptrs, last = pointer_table(Tm, N, K, device, seed=K + N + Tm)
+                hold(ptrs, last)
+                if Tm >= 2:
+                    hold(ptrs, last, kb.backtrack_plan(Tm, N, K, sms, L=min(L, Tm - 1), S=S))
+                del ptrs, last
+        torch.cuda.empty_cache()
+    print(f"backtrack_batched: bit-exact under {plans} plans and fixtures, one launch each "
+          f"(shapes {BACKTRACK_SHAPES}; planted -5 / -1 / K / K+3 entries and last states "
+          f"K+7, -2 at {BACKTRACK_PLANTED}; the grid K = {GRID_K} x N = {GRID_N} at T' = 1, "
+          f"L-1, L, L+1, 255); {time.perf_counter() - t0:.1f} s", flush=True)
+    return recs
+
+
+def chase_latency_us(device) -> float:
+    """The card's dependent-load latency: ``probes/copy.py:probe_chase_rows``
+    (one thread, each load's address from the previous load: the serial
+    pointer walk, kept as a probe of its own since backtrack_batched's
+    chunked plans no longer chase) through a table of random pointers of
+    60 MiB, the size of the headline's logA, at K=3968; held to its plain
+    version; microseconds a load, the median of 5 runs."""
+    from flash_viterbi_tpu_torch.probes import copy as pc
 
     K = 3968
     Tm = 60 * 2**20 // (K * 4)
     g = torch.Generator(device=device).manual_seed(21)
     ptrs = torch.randint(0, K, (Tm, 1, K), generator=g, device=device, dtype=torch.int32)
     last = torch.zeros(1, dtype=torch.int32, device=device)
-    k.backtrack_batched(ptrs, last)
-    us = elapsed_ms(lambda: k.backtrack_batched(ptrs, last), device, 5) / Tm * 1e3
-    print(f"pointer chase: {us:.4f} us a dependent load ({Tm} loads through {Tm * K * 4} bytes)",
-          flush=True)
+    require(torch.equal(pc.probe_chase_rows(ptrs, last).cpu(),
+                        pc.probe_chase_rows_plain(ptrs.cpu(), last.cpu())),
+            "probe_chase_rows differs from its plain version")
+    us = elapsed_ms(lambda: pc.probe_chase_rows(ptrs, last), device, 5) / Tm * 1e3
+    print(f"pointer chase (probe_chase_rows): {us:.4f} us a dependent load ({Tm} loads "
+          f"through {Tm * K * 4} bytes; through the serial backtrack_batched that chased it "
+          f"before, PERF.md's row 7, 0.1971 us)", flush=True)
     return us
 
 
@@ -1515,6 +1634,7 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
 
     from flash_viterbi_tpu_torch.ops import beam as bp
     from flash_viterbi_tpu_torch.ops import cuda as k
+    from flash_viterbi_tpu_torch.ops.cuda import backtrack as kbt
     from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
     from flash_viterbi_tpu_torch.ops.cuda.fold import fold_planes_plain as fold_plain
 
@@ -1583,7 +1703,8 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
               f"({r['bytes']} bytes, {r['operations']} operations)", flush=True)
     walk_recs, _ = walk_checks(head, y, device)
     others += (beam_select_checks(device, head, y) + walk_recs + scan_grid_checks(device)
-               + looped_plan_checks(device) + fold_checks(fold_in, fold_round, fold_top, device))
+               + looped_plan_checks(device) + fold_checks(fold_in, fold_round, fold_top, device)
+               + backtrack_checks(device))
     fold_times(fold_in, fold_round, fold_top, device)
     # attribution: at B=1 the fold reads one row a step, so the time is the
     # select and the step's fixed cost
@@ -1598,11 +1719,19 @@ def kernel_phase(hmm, y, device) -> dict[str, dict]:
         rec = recs[r["name"]]
         rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
         rec["fixtures"] += 1
-    # the walks' floor: their dependent round trips at the chased latency
+    # the walks' floor: their dependent round trips at the chased latency;
+    # the pointer walk's, its plan's G + L loads (the serial walk's T' and
+    # the table read once for comparison: information)
     lat_us = chase_latency_us(device)
-    for name, trips in (("backtrack_batched", len(y) - 1), ("argmax_walk", valid_rows(walk_valid)),
+    bt_plan = kbt.backtrack_plan(len(y) - 1, 1, head.Kp, km.sm_count(device))
+    bt_trips = len(y) - 1 if bt_plan.serial else bt_plan.G + bt_plan.L
+    for name, trips in (("backtrack_batched", bt_trips), ("argmax_walk", valid_rows(walk_valid)),
                         ("beam_scan", len(y) - 1)):
         recs[name]["latency_floor_ms"] = trips * lat_us / 1e3
+    print(f"backtrack_batched's dependent floor at the headline: {bt_trips} loads under "
+          f"{bt_plan} = {bt_trips * lat_us / 1e3:.4f} ms; the serial walk's {len(y) - 1} loads "
+          f"{(len(y) - 1) * lat_us / 1e3:.4f} ms; the table read once "
+          f"{bound((len(y) - 1) * head.Kp * 4, 0)[0]:.6f} ms by bytes", flush=True)
     for name, r in recs.items():
         floor = (f"; latency floor {r['latency_floor_ms']:.4f} ms" if "latency_floor_ms" in r
                  else "")

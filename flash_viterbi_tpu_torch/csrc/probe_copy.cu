@@ -61,8 +61,12 @@
 // (bench/bounds.py).  chase_kernel<MODE> measures those latencies: a chain
 // of dependent shared-memory loads, loads from a peer CTA's shared memory,
 // shuffles, or fvt_better compares.  CTA 0 of each kernel records
-// clock64() around its chain (cycles a step or a call).  empty_kernel is
-// the launch floor that every one-launch probe pays.
+// clock64() around its chain (cycles a step or a call).  chase_rows_kernel
+// chases global memory: backtrack.cu's serial walk (pointer_walk.cuh), one
+// thread a lane, each load's address from the last, so over a table larger
+// than L2 it times a dependent load through device memory
+// (chip_smoke.py:chase_latency_us).  empty_kernel is the
+// launch floor that every one-launch probe pays.
 //
 // Every mbarrier wait spins at most FVT_WAIT_CYCLES clock cycles (about a
 // second, async_copy.cuh) and then sets a bit of the error flag and
@@ -79,6 +83,7 @@
 
 #include "argmax.cuh"
 #include "async_copy.cuh"
+#include "pointer_walk.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -524,6 +529,18 @@ __global__ void chase_kernel(const int* __restrict__ table, int n, int hops, int
     cluster.sync();  // CTA 1 stays until CTA 0's chase through it is done
 }
 
+// One thread a lane walks ptrs (Tm, N, K) back from last[n] by the walk's
+// own step (pointer_walk.cuh): out[n, Tm] = last[n], then out[n, t] for t
+// = Tm-1 down to 0.
+__global__ void chase_rows_kernel(const int* __restrict__ ptrs, const int* __restrict__ last,
+                                  int* __restrict__ out, int Tm, int N, int K) {
+    const int n = blockIdx.x * blockDim.x + threadIdx.x;
+    if (n >= N) return;
+    int* path = out + (size_t)n * (Tm + 1);
+    path[Tm] = last[n];
+    fvt_walk_rows(ptrs, path, last[n], 0, Tm, n, N, K);
+}
+
 __global__ void empty_kernel() {}
 
 int finish(long long* launches) {
@@ -648,6 +665,16 @@ extern "C" int fvt_probe_chase(const int* table, int n, int hops, int mode, int*
                            : chase_kernel<CH_BETTER>;
     return launch_clusters(kernel, 2, 2, 32, (size_t)n * 4, stream, launches, table, n, hops,
                            out, clocks);
+}
+
+// The global-memory chase: ptrs (Tm, N, K) int32, last (N,) int32, out
+// (N, Tm + 1) int32.  One launch of blocks of 32 threads, a thread a lane.
+extern "C" int fvt_probe_chase_rows(const int* ptrs, const int* last, int* out, int Tm, int N,
+                                    int K, void* stream, long long* launches) {
+    if (Tm < 0 || N < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+    chase_rows_kernel<<<(N + 31) / 32, 32, 0, static_cast<cudaStream_t>(stream)>>>(ptrs, last,
+                                                                                 out, Tm, N, K);
+    return finish(launches);
 }
 
 // An empty kernel, one block of 32: the launch floor.

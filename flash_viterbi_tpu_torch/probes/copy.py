@@ -22,7 +22,9 @@ clock around the chain (:func:`clock_buffer`, :func:`cycles`).  Their
 floor is a chain of dependent latencies (``bench/bounds.py``), which
 :func:`latencies` measures on the card with :func:`probe_chase`: dependent
 loads from shared memory and from a peer CTA's, shuffles, and the
-winner's compares.  :func:`probe_empty` is the launch floor.
+winner's compares; :func:`probe_chase_rows` chases global memory (the
+pointer walk, one thread a lane).  :func:`probe_empty` is the launch
+floor.
 
 Every mbarrier wait in the kernels gives up after about a second and sets
 an error flag, which the wrapper reads back (one synchronisation a call)
@@ -414,6 +416,41 @@ def latencies(device="cuda", n: int = CHASE_N, hops: int = CHASE_HOPS) -> dict[s
     return out
 
 
+def probe_chase_rows_plain(ptrs: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`probe_chase_rows`."""
+    Tm, N, K = ptrs.shape
+    table = ptrs.cpu().numpy()
+    out = np.empty((N, Tm + 1), dtype=np.int32)
+    for n in range(N):
+        s = out[n, Tm] = int(last[n])
+        for t in range(Tm - 1, -1, -1):
+            s = out[n, t] = max(int(table[t, n, s]), -1) if 0 <= s < K else -1
+    return torch.as_tensor(out, device=ptrs.device)
+
+
+def probe_chase_rows(ptrs: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """The pointer walk of one thread a lane through global memory
+    (``csrc/probe_copy.cu:chase_rows_kernel``): from ``last`` (N,) int32
+    back through ``ptrs`` (T', N, K) int32, each load's address from the
+    last, ``path[t] = max(ptrs[t, n, path[t+1]], -1)`` while the state is
+    in [0, K), else -1; (N, T'+1) int32.  Over a table larger than L2 its
+    time a step is the card's dependent-load latency through device memory
+    (``chip_smoke.py:chase_latency_us``); ``backtrack_batched``, whose
+    chunked plans no longer chase, keeps this walk as its serial plan."""
+    if ptrs.dim() != 3:
+        raise ValueError(f"ptrs must be (T', N, K), got {tuple(ptrs.shape)}")
+    Tm, N, K = ptrs.shape
+    expect("ptrs", ptrs, torch.int32, (Tm, N, K))
+    expect("last", last, torch.int32, (N,))
+    if not on_cuda(ptrs, last):
+        return probe_chase_rows_plain(ptrs, last)
+    expect_contiguous(ptrs=ptrs, last=last)
+    out = torch.empty((N, Tm + 1), dtype=torch.int32, device=ptrs.device)
+    launch("fvt_probe_chase_rows", probe_chase_rows, ptrs.device, ptrs.data_ptr(),
+           last.data_ptr(), out.data_ptr(), Tm, N, K)
+    return out
+
+
 def probe_empty(device="cuda") -> None:
     """Launch an empty kernel (one block of 32 threads): the launch floor."""
     dev = resolve_device(device)
@@ -429,6 +466,7 @@ probe_copy_p5.launches = 0
 probe_copy_p4_cluster.launches = 0
 probe_copy_p5_cluster.launches = 0
 probe_chase.launches = 0
+probe_chase_rows.launches = 0
 probe_empty.launches = 0
 
 

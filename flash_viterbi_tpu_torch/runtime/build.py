@@ -58,8 +58,8 @@ _SIGNATURES = {
                             _I, _P, _LL],
     # delta, logA_block, val, ptr, plan, N, Ks, Kd, stream, launches
     "fvt_maxplus_step_block": [_P, _P, _P, _P, _IP, _I, _I, _I, _P, _LL],
-    # ptrs, last, out, Tm, N, K, stream, launches
-    "fvt_backtrack": [_P, _P, _P, _I, _I, _I, _P, _LL],
+    # ptrs, last, out, scratch, ticket, plan, Tm, N, K, stream, launches
+    "fvt_backtrack": [_P, _P, _P, _P, _P, _IP, _I, _I, _I, _P, _LL],
     # deltas, logAT, last, valid, out, err, Tm, N, K, stream, launches
     "fvt_argmax_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL],
     # the same on a bf16 logAT
@@ -102,6 +102,8 @@ _SIGNATURES = {
     "fvt_probe_copy_p5_cluster": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _LL],
     # table, n, hops, mode, out, clocks, stream, launches
     "fvt_probe_chase": [_P, _I, _I, _I, _P, _P, _P, _LL],
+    # ptrs, last, out, Tm, N, K, stream, launches
+    "fvt_probe_chase_rows": [_P, _P, _P, _I, _I, _I, _P, _LL],
     # stream, launches
     "fvt_probe_empty": [_P, _LL],
 }

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the port's headline decodes spend their time on the GPU.
 
-    python3 scripts/torch_profile_decodes.py
+    python3 scripts/torch_profile_decodes.py [LABEL ...]
 
-On the headline problem (K=3965 padded to 3968, M=50, T=256, prob=0.112,
+With LABELs (as the output names the runs, e.g. ``fused`` or ``"T=16384
+checkpoint"``) only those runs.  On the headline problem (K=3965 padded to 3968, M=50, T=256, prob=0.112,
 seed=1), for each of ``flash`` (16 segments), ``checkpoint``, ``fused``,
 ``flash_bs`` (B=64, 8 segments), ``beam`` (B=64), ``flash`` lean (16
 segments, lean_leaf 64 and 0), ``auto``, ``sieve_mp`` (pruned and not),
@@ -127,7 +128,13 @@ def main() -> None:
     runs.append((f"T={LONG_T} flash lean, folds as gathers and selects", plain_folds,
                  functools.partial(build("flash", num_segments=16, mode="lean"),
                                    lh.logA, lh.logB, lh.logPi, y_long)))
+    wanted = sys.argv[1:]
+    unknown = sorted(set(wanted) - {name for name, _, _ in runs})
+    if unknown:
+        sys.exit(f"unknown runs {unknown}; have {[name for name, _, _ in runs]}")
     for name, ctx, run in runs:
+        if wanted and name not in wanted:
+            continue
         with ctx():
             profile_one(name, run)
 
