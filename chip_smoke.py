@@ -153,6 +153,14 @@ Phases, each fatal on failure:
    on the card and the C oracle under phase 4's rule, ``memory:`` flash's;
    T=16384 on the headline tables at ``group_steps`` 1024, 4096 and
    16384, each equal to flash pointer mode's path, with its time and peak.
+8f. Routes (its wall time printed): ``decode(..., "fused")`` at K=1280,
+   1536, 2048 and 2176, T=256, ``decode_batch(...,
+   "fused")`` at K=256, T=256, Bs=2 and 3 and K=8192, T=8, Bs=4 and 5,
+   and ``decode(..., "checkpoint")`` at K=1024, T=1024: each launches the
+   route ``fused.pointer_route`` names (both routes among each rule's
+   sides), or the chunks of ``checkpoint.snapshot_step``, and its path
+   equals the port's CPU decode; each one's two routes (steps) are timed
+   in turns.
 9. Sharded, one rank: ``decode_batch(hmm, requests, mesh=make_mesh(1, 1,
    1), num_segments=16, device="cuda")`` on the four headline requests;
    every row must equal the C oracle under the rule of phase 4, request 0
@@ -426,6 +434,13 @@ LONG_SEGMENTS = 4
 LONG_GROUPS = (1024, 4096, 16384)
 LONG_NEEDS = ("maxplus_scan", "maxplus_scan_deltas", "backtrack_batched", "argmax_walk")
 LONG_BATCH_NEEDS = ("maxplus_scan_deltas", "argmax_walk")
+# phase 8f: each routing threshold's two sides (fused.pointer_route,
+# checkpoint.snapshot_step), held to the port's CPU decode
+ROUTE_KERNELS = {"store": ("maxplus_scan", "backtrack_batched"),
+                 "recompute": ("maxplus_scan_deltas", "argmax_walk")}
+ROUTE_SINGLE = ((1280, 256), (1536, 256), (2048, 256), (2176, 256))  # (K, T)
+ROUTE_BATCH = ((256, 256, 2), (256, 256, 3), (8192, 8, 4), (8192, 8, 5))  # (K, T, Bs)
+ROUTE_SNAPSHOT = (1024, 1024, 32)  # (K, T, the step of the rule SNAPSHOT_MIN_STEP replaced)
 # the port's CPU decodes that the card's headline paths are held to bit for
 # bit, and the SIEVE mirror fixtures' oracles (request None), made by
 # worker processes (``witness_main``) while the card's phases run: (tag,
@@ -3476,6 +3491,111 @@ def flash_long_phase(hmm, requests, oracles, device) -> list[dict[str, int]]:
     return [launches, long_launches]
 
 
+def route_of(launches: dict) -> str:
+    """The fused route whose two kernels launched, and only they."""
+    took = [r for r, names in ROUTE_KERNELS.items() if all(launches[n] for n in names)]
+    other = [n for r, names in ROUTE_KERNELS.items() if r not in took for n in names]
+    require(len(took) == 1 and not any(launches[n] for n in other),
+            f"no single fused route launched: {nonzero(launches)}")
+    return took[0]
+
+
+def routes_phase(device) -> list[dict[str, int]]:
+    """Phase 8f: each routing rule on the two sides of its thresholds.
+    ``decode(..., "fused")`` at ROUTE_SINGLE, ``decode_batch(..., "fused")``
+    at ROUTE_BATCH and ``decode(..., "checkpoint")`` at ROUTE_SNAPSHOT on
+    the card: the launches show the route ``fused.pointer_route`` names
+    (both routes among the sides of each), and the snapshot step's chunks
+    (two gather scans and a walk each); every path equals the port's CPU
+    decode.  Then both routes (both steps) of each in turns (a, b, b, a,
+    ``scripts/torch_route_sweep.py``'s ``in_turns``), their medians
+    printed under the card's name and power limit.  Returns the launches."""
+    import functools
+
+    from flash_viterbi_tpu_torch import decode, decode_batch
+    from flash_viterbi_tpu_torch.algorithms import checkpoint, fused
+    from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm, observations
+    from scripts.torch_route_sweep import card_line, in_turns
+
+    t0 = time.perf_counter()
+    print(f"routes phase: {card_line()}; {spin_up(device)}", flush=True)
+    cpu = torch.device("cpu")
+    made = {}
+
+    def problem(K, T, Bs=1):
+        if K not in made:
+            made[K] = make_sparse_hmm(K=K, M=HEADLINE["M"], T=2, prob=HEADLINE["prob"],
+                                      seed=1)[0]
+        ys = np.stack([observations(T, HEADLINE["M"], seed=s) for s in range(1, Bs + 1)])
+        return made[K], ys
+
+    def turns(label, runs):
+        timed = in_turns(runs, device)
+        print(f"{label}, in turns: " + ", ".join(
+            f"{name} {statistics.median(t[0] + t[1]):.3f} ms" for name, (t, _) in timed.items()),
+            flush=True)
+
+    def forced(lh, ys, pointers):
+        yd = torch.as_tensor(ys.astype(np.int64), device=device)
+        if len(ys) > 1:
+            return lambda: fused.fused_decode_batch(lh.logA, lh.logB, lh.logPi, yd,
+                                                    pointers=pointers)
+        emits = lh.logB.t()[yd[0]]
+        return lambda: fused._walk(lh.logA, emits[1:].unsqueeze(1),
+                                   (lh.logPi + emits[0])[None, :], pointers)
+
+    all_launches, seen = [], {"single": set(), "batch": set()}
+    for kind, cases in (("single", [(K, T, 1) for K, T in ROUTE_SINGLE]),
+                        ("batch", ROUTE_BATCH)):
+        for K, T, Bs in cases:
+            hmm, ys = problem(K, T, Bs)
+            label = f"routes: fused K={K} T={T}" + (f" Bs={Bs}" if kind == "batch" else "")
+            if kind == "single":
+                r, launches = drive(label, (), lambda: decode(hmm, ys[0], "fused", device=device))
+                want = decode(hmm, ys[0], "fused", device=cpu, warmup=False).path
+            else:
+                r, launches = drive(label, (), lambda: decode_batch(hmm, ys, "fused",
+                                                                    device=device))
+                want = decode_batch(hmm, ys, "fused", device=cpu, warmup=False).path
+            all_launches.append(launches)
+            Kp = -(-K // 128) * 128
+            rule = fused.pointer_route(Kp, Bs)
+            took = route_of(launches)
+            require(took == rule, f"{label}: took {took}, the rule names {rule}")
+            require(np.array_equal(r.path, want.reshape(r.path.shape)),
+                    f"{label}: path differs from the port's CPU decode")
+            seen[kind].add(rule)
+            lh = tables(hmm, 128, device)
+            turns(f"{label} ({rule}, equal to the CPU decode)",
+                  {p: forced(lh, ys, p) for p in ROUTE_KERNELS})
+    require(all(v == set(ROUTE_KERNELS) for v in seen.values()),
+            f"routes: the sides do not reach both routes: {seen}")
+
+    K, T, old = ROUTE_SNAPSHOT
+    hmm, ys = problem(K, T)
+    step = checkpoint.snapshot_step(T)
+    chunks = len(range(0, T - 1, step))
+    r, launches = drive(f"routes: checkpoint K={K} T={T}",
+                        ("maxplus_scan_emitgather", "backtrack_batched"),
+                        lambda: decode(hmm, ys[0], "checkpoint", device=device))
+    all_launches.append(launches)
+    require(launches["maxplus_scan_emitgather"] == 4 * chunks
+            and launches["backtrack_batched"] == 2 * chunks,
+            f"checkpoint K={K} T={T}: {nonzero(launches)} for step {step} ({chunks} chunks, "
+            "a warmup and a timed decode)")
+    want = decode(hmm, ys[0], "checkpoint", device=cpu, warmup=False).path
+    require(np.array_equal(r.path, want), f"checkpoint K={K} T={T}: path differs from the "
+            "port's CPU decode")
+    lh = tables(hmm, 128, device)
+    yd = torch.as_tensor(ys[0].astype(np.int64), device=device)
+    turns(f"routes: checkpoint K={K} T={T}, step {step} ({chunks} chunks, equal to the CPU "
+          f"decode) against {old}",
+          {f"step={s}": functools.partial(checkpoint.checkpoint_decode, lh.logA, lh.logB,
+                                          lh.logPi, yd, step=s) for s in (step, old)})
+    print(f"routes phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return all_launches
+
+
 def captured(fn, *args):
     """(``fn(*args)``, what it wrote to standard output)."""
     buf = io.StringIO()
@@ -4151,6 +4271,7 @@ def phases(device, witness: Witness, t_start: float) -> None:
     launches += sieve_dyn_phase(hmm, requests, device, witness)
     print(f"CPU witness: the phases waited {witness.waited:.1f} s for it in all", flush=True)
     launches += flash_long_phase(hmm, requests, oracles, device)
+    launches += routes_phase(device)
     launches.append(tools_phase(hmm, requests, oracles, device, witness, beam_paths))
     sharded_paths, sharded_launches = sharded_phase(hmm, requests, oracles, device, cpu)
     multi_rank_phase(sharded_paths)

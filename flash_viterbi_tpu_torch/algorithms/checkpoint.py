@@ -34,12 +34,22 @@ from ..ops.cuda.maxplus import error_word, raise_on_error
 from .base import Decoder, register
 
 
+#: the least snapshot step, from scripts/torch_route_sweep.py's rows on
+#: NVIDIA H100 80GB HBM3, 700.00 W (results/torch_route_sweep.jsonl,
+#: PERF.md "Routing figures"): a chunk costs two scan launches and a walk
+#: whatever its length, so below this step the chunks cost more than the
+#: spread (K=3968, T=1024: step 64 29.285 ms against step 512's 27.998;
+#: T=4096: 115.554 against step 1024's 109.809); from it on every swept
+#: step lay within the fastest's spread, and √T has the least working set
+SNAPSHOT_MIN_STEP = 128
+
+
 def snapshot_step(T: int) -> int:
-    """Snapshot spacing the kernel path actually runs: √T chunks, but
-    per-kernel-call overhead dominates past ~100 chunks on the remote
-    runtime — the call count is capped at long T.  Exposed so working-set
-    models (``algorithms.auto``) see the same figure the decode uses."""
-    return max(int(math.floor(math.sqrt(max(T, 1)))), min(1024, T // 64))
+    """Snapshot spacing the decode runs by default: √T, the step of the
+    smallest working set, but at least ``SNAPSHOT_MIN_STEP`` (one chunk
+    below it).  Exposed so working-set models (``algorithms.auto``) see the
+    same figure the decode uses."""
+    return min(max(math.isqrt(max(T, 1)), SNAPSHOT_MIN_STEP), max(T - 1, 1))
 
 
 def checkpoint_decode(logA, logB, logPi, y, step: int = 0):

@@ -63,7 +63,18 @@ from ..ops.cuda.maxplus import error_word, raise_on_error, scan_scratch_bytes
 from .base import Decoder, register
 
 # lean-mode shape knobs, shared with the working-set formula
-# (lean_working_set, which algorithms.auto uses): changing one changes both
+# (lean_working_set, which algorithms.auto uses): changing one changes both.
+# Kept from scripts/torch_route_sweep.py's rows on NVIDIA H100 80GB HBM3,
+# 700.00 W (results/torch_route_sweep.jsonl, PERF.md "Routing figures"),
+# each varied alone at K in {3968, 8192, 16384} x T in {256, 2048, 16384}:
+# lean is the memory-lean mode, so memory comes first, and no value with a
+# working set as small was faster beyond the spread.  Larger chunks are
+# faster at long T for 2-4x the working set (K=3968, T=16384: chunk 128
+# 737.043 ms, peak 519,124,992 bytes, against 816.681 ms, 141,990,400;
+# chunk 32 988.587 ms, 74,129,408); 16 leaf lanes halve the leaves' tables
+# for +5-11% (T=2048: 88.027 against 78.971 ms); another leaf splits the
+# sequence elsewhere and may flip a path's fp32 tie (leaf 32 moved 4
+# positions at K=3968, T=16384), so the leaf stays.
 LEAN_CHUNK = 64   # steps of a lean scan call
 LEAN_LEAF = 64    # split intervals down to this length, then decode the leaves
 LEAF_LANES = 32   # leaf lanes a call at most
@@ -459,14 +470,15 @@ def _lean_decode(logA, logB, logPi, y, N: int, num_segments: int, lean_leaf: int
     logBT = logB.t()
     err = error_word(dev)
 
-    last, anchors = phase1_anchors_chunked(logA, logPi, logB, y, ix[h_mids], ix[h_prop], err)
+    last, anchors = phase1_anchors_chunked(logA, logPi, logB, y, ix[h_mids], ix[h_prop], err,
+                                           chunk=LEAN_CHUNK)
     ans = torch.zeros((T,), dtype=torch.int32, device=dev)
     ans[T - 1] = last
     if mids_l:
         ans[ix[h_mids]] = anchors
     del anchors
     for calls in round_calls:
-        ans = _lean_round(logA, logPi, logBT, y, ans, ix, calls, err)
+        ans = _lean_round(logA, logPi, logBT, y, ans, ix, calls, err, chunk=LEAN_CHUNK)
     if leaf_calls:
         ans = _decode_leaves(logA, transposed(logA), logPi, logBT, y, ans, ix, leaf_calls, err)
     raise_on_error(err, "flash")

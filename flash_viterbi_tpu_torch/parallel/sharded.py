@@ -40,8 +40,8 @@ version, which the tensors' device alone decides.  JAX takes phase 2's
 stored-pointer form where its walk kernel's VMEM bound refuses the shape;
 the port's walk takes every shape, so phase 2 always recomputes.
 
-``_CHUNK`` and ``_GROUP_BYTES`` are the JAX package's TPU memory figures,
-kept as they are: they bound transient memory and do not change results.
+``_CHUNK``, ``_GROUP_BYTES`` and ``_EMIT_BYTES`` bound transient memory
+and change no result; their values come from one card's rows (below).
 
 Paths are bit-identical to JAX's ``flash_decode_sharded`` and so to
 ``flash`` pointer mode (the same strict-'>' lowest-index argmax contract).
@@ -61,8 +61,18 @@ from . import commtrace
 
 AXES = ("data", "seq", "state")
 
+# From scripts/torch_route_sweep.py's rows on NVIDIA H100 80GB HBM3, 700.00 W
+# (results/torch_route_sweep.jsonl, PERF.md "Routing figures"), each varied
+# alone at config-5's cut (K=16384, T=4096, 2 sequences, 16 segments) on
+# (1, 1, 1), and at the headline on (1, 1, 2) and (1, 2, 1) as gloo ranks
+# sharing the one card (NCCL across cards is not measured): every value
+# lay within the spread of the fastest; only _EMIT_BYTES moved the peak
+# (1,644,727,808 bytes at 16 MiB, 1,695,059,456 at 64, 1,896,386,048 at
+# 256), so it takes the smallest.  The (1, 1, 2) mesh reads none of them
+# (n_state > 1 steps one at a time).
 _CHUNK = 512  # time chunk of the phase-1 scans (bounds live emissions)
 _GROUP_BYTES = 1 << 30  # stacked-pointer bound of one phase-1 chunk group
+_EMIT_BYTES = 16 * 1024 * 1024  # phase 2's gathered emissions a scan call
 
 
 class Mesh:
@@ -269,8 +279,8 @@ def _phase2_segments_kernel(logA_l, logAT_l, logBT_l, logPi, sym_all, entries,
     K = logA_l.shape[0]
     d = (torch.where(first[:, None], logPi[None, :].expand(NL, K), logA_l[entries])
          + logBT_l[sym_all[:, 0]])
-    # keep the gathered emissions transient <= 64 MB
-    Cp2 = min(_CHUNK, max(8, (64 * 1024 * 1024) // (NL * K * 4)))
+    # keep the gathered emissions transient <= _EMIT_BYTES
+    Cp2 = min(_CHUNK, max(8, _EMIT_BYTES // (NL * K * 4)))
     parts = []
     for c0 in range(1, Lseg, Cp2):
         d, deltas = maxplus_scan_deltas(logA_l, _emits(logBT_l, sym_all[:, c0:c0 + Cp2]), d)

@@ -11,6 +11,8 @@ import flash_viterbi_tpu_torch as tfv
 from flash_viterbi_tpu.algorithms import auto as jauto
 from flash_viterbi_tpu_torch.algorithms import auto as tauto
 from flash_viterbi_tpu_torch.algorithms import base as tbase
+from flash_viterbi_tpu_torch.algorithms import checkpoint as tck
+from flash_viterbi_tpu_torch.algorithms import flash as tflash
 from flash_viterbi_tpu_torch.oracle import framework as tfw
 
 torch.set_num_threads(2)
@@ -24,24 +26,35 @@ KWS = [("flash", {}), ("flash", {"num_segments": 16}), ("flash_long", {}),
 
 
 @pytest.mark.parametrize("name,kw", KWS)
-def test_device_working_set_matches_jax(name, kw):
+def test_device_working_set_matches_jax(name, kw, monkeypatch):
+    """JAX's formulas at the port's figures: checkpoint's default step is
+    the port's ``snapshot_step`` (passed to JAX explicitly), lean's chunk
+    and leaf lanes the port's (patched into JAX's module)."""
+    for n in ("LEAN_CHUNK", "LEAF_LANES", "LEAN_LEAF"):
+        monkeypatch.setattr(jauto, n, getattr(tflash, n))
     for K in (64, 1024, 3968, 16384):
         for T in (1, 16, 255, 256, 2048, 16384, 65536):
+            jkw = kw
+            if name == "checkpoint" and not kw.get("step"):
+                jkw = {**kw, "step": tck.snapshot_step(T)}
             assert (tauto.device_working_set(name, kw, K, T)
-                    == jauto.device_working_set(name, kw, K, T)), (K, T)
+                    == jauto.device_working_set(name, jkw, K, T)), (K, T)
 
 
 def test_h100_order():
     """rank's order as measured on the H100 (scripts/torch_auto_sweep.py,
-    PERF.md's "auto's order")."""
+    results/torch_auto_sweep.jsonl, PERF.md's "Routing figures")."""
     fused, ck, lean = ("fused", {}), ("checkpoint", {}), ("flash", {"mode": "lean"})
     flash = ("flash", {"num_segments": 16})
     for K, T, want in [
         (3968, 8, [fused, ck]),
         (256, 16, [fused, ck]),
         (16384, 16, [fused, ck]),
+        (256, 32, [fused, ck]),
         (3968, 256, [fused, flash, ck, lean]),
-        (8192, 32, [fused, flash, ck, lean]),
+        (8192, 32, [fused, ck]),
+        (6016, 64, [fused, flash, ck, lean]),
+        (12032, 64, [fused, flash, lean, ck]),
         (8192, 256, [fused, flash, lean, ck]),
         (16384, 1024, [fused, flash, lean, ck]),
         (16384, 2048, [fused, flash, ck, lean]),

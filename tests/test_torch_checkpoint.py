@@ -4,6 +4,8 @@ the plain pointer scan on gathered emissions; the port's checkpoint decode
 against JAX's kernel path and its lax.scan form (paths, analytic memory and
 the reference stdout lines); and the symbol range checks."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -134,8 +136,14 @@ def test_checkpoint_matches_jax(K, T, step, pad_to, pallas):
 
 
 def test_snapshot_step_and_memory_match_jax():
+    """The step is the port's rule (√T, at least ``SNAPSHOT_MIN_STEP``, one
+    chunk below it), equal to JAX's where both give √T; ``memory:`` is
+    JAX's (the reference's √T figure) at every step."""
     for T in (1, 2, 3, 63, 64, 256, 4095, 4096, 4160, 16384, 65536, 10**6):
-        assert tck.snapshot_step(T) == jck.snapshot_step(T)
+        want = min(max(math.isqrt(T), tck.SNAPSHOT_MIN_STEP), max(T - 1, 1))
+        assert tck.snapshot_step(T) == want, T
+    for T in (2**20, 2**22 + 5, 2**24):
+        assert tck.snapshot_step(T) == jck.snapshot_step(T) == math.isqrt(T), T
     for K in (1, 96, 3965):
         for T in (1, 2, 37, 256, 16384):
             for step in (0, 1, 5, 300):

@@ -35,9 +35,9 @@ def _batch(K: int, M: int, T: int, Bs: int, seed: int):
 
 
 @pytest.mark.parametrize("K,T,pallas", [
-    (96, 30, (True, False)),    # K <= 1024: carry history + recompute walk
+    (96, 30, (True, False)),    # the port stores pointers; JAX recomputes (K <= 1024)
     (200, 1, (True, False)),    # T = 1
-    (1152, 6, (False,)),        # K > 1024: pointer scan + backtrack
+    (1152, 6, (False,)),        # both store pointers (K > 1024)
 ])
 def test_fused_matches_jax(K, T, pallas):
     hmm, y = tfv.make_sparse_hmm(K=K, M=9, T=T, prob=0.2, seed=K + T)
@@ -52,15 +52,20 @@ def test_fused_matches_jax(K, T, pallas):
     np.testing.assert_array_equal(got.path, vanilla.path)
 
 
+STORE, RECOMPUTE = ("maxplus_scan", "backtrack_batched"), ("maxplus_scan_deltas", "argmax_walk")
+
+
 @pytest.mark.parametrize("K,Bs,pointers,route", [
-    (96, 0, None, ("maxplus_scan_deltas", "argmax_walk")),
-    (1152, 0, None, ("maxplus_scan", "backtrack_batched")),
-    (96, 3, "recompute", ("maxplus_scan_deltas", "argmax_walk")),
-    (96, 3, "store", ("maxplus_scan", "backtrack_batched")),
+    (96, 0, None, STORE),        # a single sequence: fused.pointer_route's route
+    (1152, 0, None, STORE),
+    (1536, 0, None, RECOMPUTE),  # inside the recompute band (1280, 2048]
+    (96, 3, "recompute", RECOMPUTE),
+    (96, 3, "store", STORE),
 ])
 def test_fused_routes_and_contiguous_kernel_inputs(K, Bs, pointers, route, monkeypatch):
     """Each route calls its two kernels, and hands them only contiguous
-    tensors (the CUDA wrappers refuse anything else)."""
+    tensors (the CUDA wrappers refuse anything else); a single sequence
+    takes ``pointer_route``'s."""
     called = []
 
     def spy(name, fn):
@@ -80,11 +85,13 @@ def test_fused_routes_and_contiguous_kernel_inputs(K, Bs, pointers, route, monke
     else:
         hmm, y = tfv.make_sparse_hmm(K=K, M=5, T=4, prob=0.3, seed=2)
         tfv.decode(hmm, y, "fused", device="cpu", warmup=False)
+        assert route == (RECOMPUTE if tfused.pointer_route(-(-K // 128) * 128) == "recompute"
+                         else STORE)
     assert tuple(called) == route
 
 
 @pytest.mark.parametrize("pointers", ["store", "recompute", "auto"])
-@pytest.mark.parametrize("Bs", [2, 5])  # auto: store below 4 lanes, recompute above
+@pytest.mark.parametrize("Bs", [2, 5])  # auto at K=128: store at 2 lanes, recompute at 5
 def test_fused_decode_batch_matches_jax(Bs, pointers):
     hmm, ys = _batch(K=120, M=7, T=11, Bs=Bs, seed=Bs)
     lh = hmm.log(device="cpu").padded(128)
