@@ -11,8 +11,8 @@ Phases, each fatal on failure:
    source, all at once.  Then four worker processes start (this script
    with ``--cpu-witness``, no card visible, 2 threads each) that make the
    port's CPU decodes phases 4, 8c, 8d and 12b hold the card's paths to,
-   the SIEVE mirror fixtures' oracles and phase 8d's DAG tables, while the
-   card's phases run.
+   the SIEVE mirror fixtures' oracles, phase 6's paper FLASH-BS and phase
+   8d's DAG tables, while the card's phases run.
 3. Kernels: each of the eight kernels against its plain PyTorch version on
    the card, bit-exact (tolerance 0: the kernels use only correctly
    rounded fp32 adds, maxes and compares), at the headline shapes, at an
@@ -76,8 +76,13 @@ Phases, each fatal on failure:
    beam_width=64, num_segments=8)`` and ``decode(..., "beam",
    beam_width=64)``; each path must equal the port's CPU decode and its
    numpy mirror exactly (-1 segments included), and ``memory:`` its
-   analytic value (12656 and 133120).  The f64 score gap to the C vanilla
-   oracle's path is printed, as information on beam quality.  Then one
+   analytic value (12656 and 133120); request 0's two paths must pass
+   ``beam_path_invariants`` (valid states or -1, a finite quirk-scored
+   f64).  The f64 score gap to the C vanilla oracle's path is printed, as
+   information on beam quality, and where request 0's flash_bs path equals
+   the paper's FLASH-BS (``oracle.reference.flash_bs``, the C program's
+   min-heap recursion at B=64 and 8 threads, made by a witness worker),
+   with both counts of -1.  Then one
    ``decode(..., "beam", beam_width=64)`` at K=17000, T=32, whose select
    does not fit a block's shared memory, against the port's CPU decode.
 7. Long T: T=16384 through the registered checkpoint and fused decoders on
@@ -223,8 +228,9 @@ Phases, each fatal on failure:
    both pointer modes, every row equal to its single bf16 decode on the
    card (rows 0-3, the requests, to the CPU's).  Last, fp32 against bf16
    in turns: the two scans' µs a step, the fused, flash, lean and
-   recompute Bs=16 decodes, the flash decoder's kept tables and peak, and
-   each decode's device busy ms (torch.profiler).
+   recompute Bs=16 decodes, and the flash decoder's kept tables and peak;
+   each decode's device busy ms (torch.profiler) is read in phase 13's
+   fresh process.
 12c. Fuzz (its wall time printed; after 12b): fixed draws of the port's
    fuzz scripts through the public decoders on the card, every path held as
    the scripts hold it (``scripts/torch_fuzz_midscale.py``: the C oracle,
@@ -240,11 +246,23 @@ Phases, each fatal on failure:
    10's rank worlds also run the first 3 sharded draws of distinct meshes
    of their size (``scripts/torch_fuzz_sharded.py``), each rank against
    the single-device flash decode on the card.
+12d. The paper's SIEVE-BS run: ``decode(..., "sieve_bs", beam_width=32)``
+   on request 0 (``scripts/torch_sieve_bs_witness.py``'s part 1; no hand
+   kernel may launch): its -1 sentinels, quirk-scored f64 score and
+   junction breaks must equal the JAX package's record,
+   ``results/sieve_bs_witness.log``, exactly.  It runs after the last
+   torch.profiler session of this process (8d's): a session records
+   fewer of its kernels the more the process launched before it
+   (``scripts/torch_profiler_records.py``), and the decode launches ~100k.
 13. Last, ``device_trace`` around one fused decode, in a fresh process
    (this script with ``--trace``): a Chrome trace holding each launch of
    its two hand kernels (host timings after a profiler session run
    slower, and a session after the earlier phases in this process has
-   recorded only some of the decode's kernels, or none).
+   recorded only some of the decode's kernels, or none: it records fewer
+   the more the process launched before it,
+   ``scripts/torch_profiler_records.py``).  The same process then reads
+   12b's device busy ms of the fused, flash, lean and recompute Bs=16
+   decodes in fp32 and bf16.
 
 The kernel phase also holds ``maxplus_step_block`` bit-exact on nine
 fixtures: the (1, 1, 1) boundary step (N=1, Ks=Kd=3968), 16 phase-2 lanes
@@ -341,6 +359,10 @@ BATCHES = (16, 64)
 BEAM_WIDTH = 64
 BEAM_SEGMENTS = 8
 BEAM_MEMORY = {"flash_bs": 12656, "beam": 133120}
+# the paper's FLASH-BS (the C program's min-heap recursion, its numpy mirror
+# oracle.reference.flash_bs) at flash_bs's beam and segments, on request 0:
+# printed beside the card's flash_bs, whose semantics are the framework's
+C_FLASH_BS = {"beam_width": BEAM_WIDTH, "threads": BEAM_SEGMENTS, "numerics": "f32"}
 # a beam decode above the K whose select fits one block (Kp <= 16384 at
 # B=64): the headline's M, prob and seed, T cut to 32
 BEAM_LARGE = dict(K=17000, M=50, T=32, prob=0.112, seed=1)
@@ -501,6 +523,7 @@ def _fuzz_jobs(worker: int) -> tuple:
 WITNESS_JOBS = (
     tuple((f"flash{i}", "flash", i, {"num_segments": SEGMENTS})
           for i in range(1 + len(EXTRA_SEEDS)))
+    + (("c_flash_bs0", "c_flash_bs", 0, C_FLASH_BS),)
     + tuple((f"mirror_{name}", name, None, SIEVE_STATIC[name]) for name in SIEVE_MIRROR_K)
     + _bf16_jobs("fused", range(4)) + _bf16_jobs("lean", (0,)) + _fuzz_jobs(0),
     (("sieve_mp", "sieve_mp", 0, {}), ("sieve_bs", "sieve_bs", 0, SIEVE_STATIC["sieve_bs"]),
@@ -532,6 +555,9 @@ TOOLS_MESHES = "1,1,2;1,2,2"
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "wall_s", "config",
               "exact_path_parity", "device")
 
+# torch.profiler sessions of device_profile at most: one thrown away, then
+# until one records device time
+PROFILE_SESSIONS = 4
 # the error word the kernel phase's timed beam scans and walks share
 SHARED_ERR = None
 
@@ -2277,17 +2303,20 @@ def checkpoint_phase(hmm, requests, oracles, device) -> list[dict[str, int]]:
     return [ck_launches, fu_launches]
 
 
-def beam_phase(hmm, requests, oracles, device, cpu_device,
+def beam_phase(hmm, requests, oracles, device, cpu_device, witness,
                keep: dict) -> list[dict[str, int]]:
     """Decode every request with flash_bs and with beam on ``device``; each
     path must equal the CPU decode and the numpy mirror exactly, and each
-    ``memory:`` its analytic value.  Prints the f64 score gap to the C
-    oracle's path.  Puts request 0's path of each into ``keep`` by name;
-    returns the launches of both."""
+    ``memory:`` its analytic value; request 0's paths must pass
+    ``beam_path_invariants``.  Prints the f64 score gap to the C oracle's
+    path, and, as information, where request 0's flash_bs path equals the
+    paper's FLASH-BS (``witness``'s "c_flash_bs0") and both counts of -1.
+    Puts request 0's path of each into ``keep`` by name; returns the
+    launches of both."""
     from flash_viterbi_tpu_torch import decode
     from flash_viterbi_tpu_torch.algorithms import beam, flash_bs
     from flash_viterbi_tpu_torch.oracle import framework
-    from flash_viterbi_tpu_torch.oracle.validate import path_score_f64
+    from flash_viterbi_tpu_torch.oracle.validate import beam_path_invariants, path_score_f64
 
     K, T = hmm.K, len(requests[0])
     print(f"beam phase: {spin_up(device)}", flush=True)
@@ -2322,6 +2351,16 @@ def beam_phase(hmm, requests, oracles, device, cpu_device,
                   f"launches {nonzero(r.extra['launches'])}, cpu decode "
                   f"{cpu.time_s:.2f} s; equal to the CPU decode and the mirror",
                   flush=True)
+        label = beam_path_invariants(hmm.A, hmm.B, hmm.Pi, requests[0], keep[name])
+        require(label.startswith("invariants-ok"), f"{name} request 0: {label}")
+        print(f"{name} request 0: {label}", flush=True)
+    paper, paper_s = witness.get("c_flash_bs0")
+    card_path = keep["flash_bs"]
+    print(f"flash_bs request 0 against the paper's FLASH-BS (the C program's min-heap "
+          f"recursion, {C_FLASH_BS}; {paper_s:.1f} s in the witness), as information: "
+          f"equal at {int((card_path == paper).sum())} of {T} positions; -1 positions "
+          f"{int((card_path == -1).sum())} on the card, {int((paper == -1).sum())} in the "
+          f"paper's", flush=True)
     return all_launches
 
 
@@ -2565,7 +2604,8 @@ def witness_main(outdir: str, k: str) -> None:
     decode of a headline request (or, "prefix", of request 0's first
     SIEVE_DYN_PREFIX symbols), the SIEVE decoder's oracle at its mirror
     fixture (request None), or a DYN_FIXTURES entry's path (request its
-    key), or a fuzz job: the C oracle's path of a wide draw, or an engine
+    key), the paper's FLASH-BS mirror ("c_flash_bs"), or a fuzz job: the
+    C oracle's path of a wide draw, or an engine
     draw's reference record (``<tag>.rec.json``: the port's CPU pair lists
     and the oracles'); each path saved as ``<tag>.npy`` and its seconds as
     ``<tag>.json``, which is renamed into place last."""
@@ -2586,6 +2626,10 @@ def witness_main(outdir: str, k: str) -> None:
             with open(os.path.join(outdir, f"{tag}.rec.json"), "w") as f:
                 json.dump(reference(draws(FUZZ_ENGINES, DEFAULT[1])[i], cpu_decode=True), f)
             path = np.zeros(0, dtype=np.int64)
+        elif name == "c_flash_bs":
+            from flash_viterbi_tpu_torch.oracle import reference
+
+            path = reference.flash_bs(hmm.A, hmm.B, hmm.Pi, requests[i], **static)
         elif i is None:
             path = sieve_mirror(name, *make_sparse_hmm(**dict(HEADLINE, K=SIEVE_MIRROR_K[name])))
         elif i == "prefix":
@@ -3134,22 +3178,49 @@ def sieve_headline(hmm, requests, oracles, device, witness, name, static):
     return launches, results[0].path
 
 
+def sieve_bs_paper_phase(hmm, y, device) -> dict[str, int]:
+    """Phase 12d: ``sieve_bs`` at the paper's beam of 32 on request 0
+    (``scripts/torch_sieve_bs_witness.py``'s part 1); its sentinels, f64
+    score and junction breaks must equal the JAX package's record.  No
+    hand kernel may launch.  Returns the launches."""
+    from scripts import torch_sieve_bs_witness as paper
+
+    # the paper's own SIEVE-BS run (src/run.py:8-25) is request 0 at a beam of 32
+    require(paper.CONFIG == HEADLINE, "the witness script's config is not request 0's")
+    label = f"sieve_bs beam_width={paper.BEAM_WIDTH} request 0 (the paper's SIEVE-BS config)"
+    (_, steps), launches = drive(label, SIEVE_NEEDS["sieve_bs"],
+                                 lambda: paper.decode_steps(hmm, y, device))
+    only(launches, SIEVE_NEEDS["sieve_bs"])
+    diffs = paper.differences(steps, paper.jax_record())
+    require(not diffs, f"{label}: {diffs}")
+    dec, score = steps
+    print(f"{label}: time_s {dec['wall_s']} s, {dec['elapsed_s']} s with the warmup, -1 "
+          f"sentinels {dec['sentinels']}, f64 score {score['score']!r}, junction breaks "
+          f"{score['junction_breaks']}: equal to the JAX package's record", flush=True)
+    return launches
+
+
 def device_profile(run, device) -> tuple[float, int, list]:
     """Device busy ms and kernel launches of one ``run()`` by torch.profiler,
     after one profiled run thrown away (a session right after many thousand
     kernels records only part of its own), and the four largest kernels
-    (name, ms, launches): (busy, launches, largest).  Host work timed after
-    a profiler session has run ~2.3x slower on the H100 machine, so time
-    first."""
+    (name, ms, launches): (busy, launches, largest).  A kept session that
+    recorded no device time at all (seen once among sessions that recorded
+    in full before and after it on the H100) is followed by another, up to
+    PROFILE_SESSIONS in all.  Host work timed after a profiler session has
+    run ~2.3x slower on the H100 machine, so time first."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for session in range(PROFILE_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize(device)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    require(bool(kernels), "the profiler recorded no device time")
+        kernels = [e for e in prof.key_averages() if e.device_type ==
+                   torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        if session > 0 and kernels:
+            break
+    require(bool(kernels), f"the profiler recorded no device time in {PROFILE_SESSIONS - 1} "
+            "sessions")
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     largest = [(e.key[:60], e.self_device_time_total / 1e3, e.count)
                for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]]
@@ -3868,14 +3939,9 @@ def bf16_turns(hmm, y, device) -> None:
     the phase-1 pointer scan (N=1, T'=255) and phase 2's deltas scan (N=16,
     T'=16) as µs a step, then the fused, flash N=16, lean and recompute
     Bs=16 decodes (the decoders built once, called on the tables on the
-    card: the median of 5 CUDA-event timings a turn), the flash decoder's
-    kept tables and peak (``kept_tables``), and last each decode's device
-    busy ms (torch.profiler, which slows later host timings; three decodes
-    a session, the sessions in turns)."""
-    import functools
-
-    from flash_viterbi_tpu_torch import build
-    from flash_viterbi_tpu_torch.algorithms.fused import fused_decode_batch
+    card: the median of 5 CUDA-event timings a turn), and the flash
+    decoder's kept tables and peak (``kept_tables``).  Each decode's device
+    busy ms is read in the fresh process of phase 13 (``bf16_busy``)."""
     from flash_viterbi_tpu_torch.ops import cuda as k
 
     head = tables(hmm, 128, device)
@@ -3892,6 +3958,31 @@ def bf16_turns(hmm, y, device) -> None:
         print(f"bf16 turns, {label}, T'={steps}: fp32 {fp:.4f} ms ({fp / steps * 1e3:.3f} us a "
               f"step), bf16 {bf:.4f} ms ({bf / steps * 1e3:.3f} us a step), bf16/fp32 "
               f"{bf / fp:.3f}; runs {runs}", flush=True)
+    cases = bf16_cases(head, y, device)
+    for label in dict.fromkeys(label for label, _ in cases):
+        runs = {"fp32": [], "bf16": []}
+        for p in order:
+            runs[p].append(elapsed_ms(cases[(label, p)], device, 5))
+        fp, bf = (statistics.mean(runs[p]) for p in ("fp32", "bf16"))
+        print(f"bf16 turns, {label} decode: fp32 {fp:.3f} ms, bf16 {bf:.3f} ms (bf16/fp32 "
+              f"{bf / fp:.3f}); runs {runs}", flush=True)
+    yd = torch.as_tensor(y.astype(np.int64), device=device)
+    for p in ("fp32", "bf16"):
+        kept, first, again = kept_tables(head, yd, p, device)
+        print(f"flash N={SEGMENTS} {p}: the decoder keeps {kept} bytes of tables across calls; "
+              f"the first call's peak +{first} bytes, a later call's +{again} bytes above them",
+              flush=True)
+
+
+def bf16_cases(head, y, device) -> dict:
+    """The fused, flash N=16, lean and recompute Bs=16 decodes on the
+    headline tables ``head`` at each precision, the decoders built once,
+    keyed (label, precision); each called once."""
+    import functools
+
+    from flash_viterbi_tpu_torch import build
+    from flash_viterbi_tpu_torch.algorithms.fused import fused_decode_batch
+
     yd = torch.as_tensor(y.astype(np.int64), device=device)
     ys = torch.as_tensor(batch_seqs()[:BF16_BATCH].astype(np.int64), device=device)
     cases = {}
@@ -3904,23 +3995,21 @@ def bf16_turns(hmm, y, device) -> None:
             precision=p)
     for run in cases.values():
         run()
-    labels = list(dict.fromkeys(label for label, _ in cases))
-    for label in labels:
-        runs = {"fp32": [], "bf16": []}
-        for p in order:
-            runs[p].append(elapsed_ms(cases[(label, p)], device, 5))
-        fp, bf = (statistics.mean(runs[p]) for p in ("fp32", "bf16"))
-        print(f"bf16 turns, {label} decode: fp32 {fp:.3f} ms, bf16 {bf:.3f} ms (bf16/fp32 "
-              f"{bf / fp:.3f}); runs {runs}", flush=True)
-    for p in ("fp32", "bf16"):
-        kept, first, again = kept_tables(head, yd, p, device)
-        print(f"flash N={SEGMENTS} {p}: the decoder keeps {kept} bytes of tables across calls; "
-              f"the first call's peak +{first} bytes, a later call's +{again} bytes above them",
-              flush=True)
+    return cases
+
+
+def bf16_busy(hmm, y, device) -> None:
+    """Each ``bf16_cases`` decode's device busy ms at both precisions
+    (torch.profiler: three decodes a session, the sessions in turns fp32,
+    bf16, bf16, fp32).  Run in a fresh process: a session records fewer of
+    its kernels the more the process launched before it
+    (``scripts/torch_profiler_records.py``), and after this script's
+    earlier phases some recorded none."""
+    cases = bf16_cases(tables(hmm, 128, device), y, device)
+    order = ("fp32", "bf16", "bf16", "fp32")
     # a session may record only part of its decodes (PERF.md), which can only
-    # lower a reading: three decodes a session, in turns, the larger reading
-    # of each precision kept
-    for label in labels:
+    # lower a reading: the larger reading of each precision kept
+    for label in dict.fromkeys(label for label, _ in cases):
         busy = {"fp32": [], "bf16": []}
         for p in order:
             run = cases[(label, p)]
@@ -4093,7 +4182,8 @@ def trace_phase() -> dict[str, int]:
     timings after a torch.profiler session run slower, and a session in
     this process after the earlier phases has recorded only some of the
     decode's kernels, or none.  The Chrome trace must be written and hold
-    each launch of the decode's two hand kernels.  Returns the launches."""
+    each launch of the decode's two hand kernels; the process's
+    ``bf16_busy`` lines are printed.  Returns the launches."""
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace", out],
@@ -4120,7 +4210,8 @@ def trace_main(outdir: str) -> None:
     """The ``--trace`` process of ``trace_phase``: load the built kernels,
     run one fused decode of the headline's request 0 under ``device_trace``
     between a reset and a read of the launch counters, and write the
-    launches and the trace's kernel events by name to ``outdir``."""
+    launches and the trace's kernel events by name to ``outdir``; then
+    ``bf16_busy`` (phase 12b's device busy readings)."""
     from flash_viterbi_tpu_torch import decode
     from flash_viterbi_tpu_torch.runtime import build
     from flash_viterbi_tpu_torch.utils.profiling import device_trace
@@ -4147,6 +4238,7 @@ def trace_main(outdir: str) -> None:
         json.dump({"launches": launches, "bytes": size, "events": len(events),
                    "kernels": by_name, "busy_ms": sum(e.get("dur", 0) for e in kernels) / 1e3},
                   f)
+    bf16_busy(hmm, requests[0], device)
 
 
 def headline() -> tuple:
@@ -4263,7 +4355,7 @@ def phases(device, witness: Witness, t_start: float) -> None:
     beam_paths = {}
     launches = ([slice_phase(hmm, requests, oracles, device, witness)]
                 + checkpoint_phase(hmm, requests, oracles, device)
-                + beam_phase(hmm, requests, oracles, device, cpu, beam_paths)
+                + beam_phase(hmm, requests, oracles, device, cpu, witness, beam_paths)
                 + [beam_large_phase(device, cpu), long_t_phase(hmm, device)]
                 + batch_phase(hmm, device))
     launches += lean_auto_harness_phase(hmm, requests, oracles, device, cpu)
@@ -4279,6 +4371,7 @@ def phases(device, witness: Witness, t_start: float) -> None:
     bf16_recs, bf16_launches = bf16_phase(hmm, requests, oracles, device, witness)
     launches += bf16_launches
     launches += fuzz_phase(device, witness)
+    launches.append(sieve_bs_paper_phase(hmm, y1, device))  # after every profiler session
     launches.append(trace_phase())  # last: a profiler session slows the host
     recs.update(probe_recs)
     recs.update(bf16_recs)

@@ -80,6 +80,16 @@ def forward_scan(delta0: torch.Tensor, logA: torch.Tensor, emits: torch.Tensor):
     return delta, ptrs
 
 
+def forward_scan_noptr(delta0: torch.Tensor, logA: torch.Tensor,
+                       emits: torch.Tensor) -> torch.Tensor:
+    """Score-only forward pass over ``emits`` (T', K) from ``delta0`` (K,):
+    the final (K,) scores, a loop of :func:`maxplus_step_noptr` (no kernel)."""
+    delta = delta0
+    for t in range(emits.shape[0]):
+        delta = maxplus_step_noptr(delta, logA, emits[t])
+    return delta
+
+
 def backtrack(ptrs: torch.Tensor, last_state: torch.Tensor) -> torch.Tensor:
     """Reverse pointer walk: ptrs (T', K) int32, scalar last state ->
     (T'+1,) int32 path ending in ``last_state``."""

@@ -5,7 +5,8 @@ Calls ``fv_viterbi_f32`` of the repository's ``csrc/fastio.c``, which
 directory (fp32 adds, emission after the max, strict '>' over ascending
 sources: lowest index on ties).  It runs the K^2 T recursion in compiled C, so parity checks at the
 headline shape do not wait on the numpy mirror (``oracle.framework``).
-There is no fallback: a missing compiler raises.
+There is no fallback: without a compiler :func:`vanilla` raises, and
+:func:`available` says beforehand whether it can run.
 """
 
 from __future__ import annotations
@@ -15,7 +16,13 @@ import ctypes
 import numpy as np
 
 from ..models.hmm import _log32
-from ..runtime.native import library
+from ..runtime.native import get_lib, library
+
+
+def available() -> bool:
+    """Whether the C library builds, loads and exports ``fv_viterbi_f32``."""
+    lib = get_lib()
+    return lib is not None and hasattr(lib, "fv_viterbi_f32")
 
 
 def vanilla(A, B, Pi, y) -> np.ndarray:

@@ -6,7 +6,9 @@ differently from a global sweep; at large T*K it may resolve an exact tie
 the other way.  Such a path differs from vanilla but scores the same in
 f64 up to :func:`score_tolerance_f64`, and equals the bit-exact f32 FLASH
 mirror (``oracle.reference.flash``) or ties with it
-(:func:`arbitrate_flash_tie_flip`).  Copied from
+(:func:`arbitrate_flash_tie_flip`).  Beam-family paths (SIEVE-BS and its
+kin) are rescored under the reference's own quirks instead
+(:func:`beam_family_score_f64`, :func:`beam_path_invariants`).  Copied from
 ``flash_viterbi_tpu/oracle/validate.py``.
 """
 
@@ -39,6 +41,60 @@ def log_path_score_f64(logA, logB, logPi, y, path) -> float:
     f64 = np.float64
     return float(f64(lP[p[0]]) + f64(lB[p[0], yv[0]])
                  + lA[p[:-1], p[1:]].astype(f64).sum() + lB[p[1:], yv[1:]].astype(f64).sum())
+
+
+def beam_family_score_f64(A, B_mat, Pi, y, path) -> tuple[float, int]:
+    """f64 log-score under the SIEVE-BS family's flattened-path semantics.
+
+    Quirks honored: a zero emission probability contributes 0, not -inf
+    (``SIEVE-BS.c:428``, ``sieve_beam_search.py:119-123``); -1 fallout
+    sentinels break the transition chain (``SIEVE-Mp.c:412-420``); and a
+    zero-probability transition in the flattened output is a junction
+    discontinuity -- beam pruning can force adjacent recursion nodes
+    through unconnected states, and the reference's own output does this
+    (the float64 SIEVE-BS oracle reproduces each one; the K=64, seed=7
+    fixture has two).  Discontinuities contribute 0 to the score and are
+    counted.  The same float64 operations in the same order as the JAX
+    package's, so the same bits.
+
+    Returns (score, junction_breaks).
+    """
+    with np.errstate(divide="ignore"):
+        lA = np.log(np.asarray(A, np.float64))
+        lB = np.log(np.asarray(B_mat, np.float64))
+        lP = np.log(np.asarray(Pi, np.float64))
+    lBq = np.where(np.isneginf(lB), 0.0, lB)
+    p = np.asarray(path)
+    yv = np.asarray(y)
+    ok = p >= 0
+    s = float(lP[p[0]] + lBq[p[0], yv[0]]) if ok[0] else 0.0
+    pair = ok[:-1] & ok[1:]
+    trans = lA[np.maximum(p[:-1], 0), np.maximum(p[1:], 0)]
+    breaks = int((pair & np.isneginf(trans)).sum())
+    s += float(np.where(pair & np.isfinite(trans), trans, 0.0).sum())
+    s += float(np.where(ok[1:], lBq[np.maximum(p[1:], 0), yv[1:]], 0.0).sum())
+    return s, breaks
+
+
+def beam_path_invariants(A, B_mat, Pi, y, path) -> str:
+    """Mirror-free sanity witness for a beam-family path at scales where no
+    oracle is affordable: every state must be a valid id or the -1
+    sentinel, and the quirk-scored f64 (:func:`beam_family_score_f64`) must
+    be finite.  Junction discontinuities are reported, not failed (a
+    property of the reference).  A sanity check, not a parity proof: the
+    heavyweight witness at the paper's SIEVE-BS config is
+    ``scripts/torch_sieve_bs_witness.py``.
+
+    Returns ``invariants-ok:score=<f64 to 3 places>,junction_breaks=<n>``
+    or ``invariants-VIOLATED``."""
+    p = np.asarray(path)
+    K = np.asarray(A).shape[0]
+    if not bool(((p >= -1) & (p < K)).all()):
+        return "invariants-VIOLATED"
+    s, breaks = beam_family_score_f64(A, B_mat, Pi, y, p)
+    if np.isfinite(s):
+        return f"invariants-ok:score={s:.3f},junction_breaks={breaks}"
+    return "invariants-VIOLATED"
 
 
 def score_tolerance_f64(T: int, ref_score: float) -> float:
