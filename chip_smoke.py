@@ -3211,12 +3211,13 @@ def device_profile(run, device) -> tuple[float, int, list]:
     run ~2.3x slower on the H100 machine, so time first."""
     from torch.profiler import ProfilerActivity, profile
 
+    from flash_viterbi_tpu_torch.utils.profiling import device_rows
+
     for session in range(PROFILE_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize(device)
-        kernels = [e for e in prof.key_averages() if e.device_type ==
-                   torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        kernels = device_rows(prof)
         if session > 0 and kernels:
             break
     require(bool(kernels), f"the profiler recorded no device time in {PROFILE_SESSIONS - 1} "

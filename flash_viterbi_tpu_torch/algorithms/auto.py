@@ -20,6 +20,7 @@ and is not ported: ``flash_long`` is reached only by name.
 
 from __future__ import annotations
 
+from ..utils.profiling import span
 from .base import Decoder, build, register
 from .checkpoint import snapshot_step
 from .flash import LEAN_LEAF, lean_working_set
@@ -140,12 +141,15 @@ def _build(memory_budget_bytes: int | None = None,
     cache: dict = {}
 
     def fn(logA, logB, logPi, y):
-        K, T = int(logA.shape[0]), int(y.shape[-1])
-        name, kw = choose(K, T, memory_budget_bytes, beam_width, static)
-        key = (name, tuple(sorted(kw.items())))
-        if key not in cache:
-            cache[key] = build(name, **kw)
-        return cache[key](logA, logB, logPi, y)
+        with span("fvt.decode.auto"):
+            with span("fvt.auto.choose"):
+                K, T = int(logA.shape[0]), int(y.shape[-1])
+                name, kw = choose(K, T, memory_budget_bytes, beam_width, static)
+                key = (name, tuple(sorted(kw.items())))
+                if key not in cache:
+                    cache[key] = build(name, **kw)
+            with span("fvt.auto." + name):
+                return cache[key](logA, logB, logPi, y)
 
     def memory(K: int, T: int, K_padded: int | None = None, **_) -> int:
         # chosen at the padded K, as the decode chose; reported at the logical K

@@ -218,7 +218,7 @@ class _Transposed:
 
     def __init__(self):
         self.cast = _Kept(mp.table_at)
-        self._logAT = _Kept(lambda a: a.t().contiguous())
+        self._logAT = _Kept(mp.transposed)
 
     def __call__(self, logA: torch.Tensor) -> torch.Tensor:
         return self._logAT(logA)

@@ -31,6 +31,7 @@ from ..ops import maxplus as mp
 from ..ops.cuda import (argmax_walk, backtrack_batched, maxplus_scan,
                         maxplus_scan_deltas)
 from ..ops.cuda.maxplus import error_word, raise_on_error
+from ..utils.profiling import span, traced
 from .base import Decoder, register
 
 POINTERS = ("auto", "store", "recompute")
@@ -85,7 +86,7 @@ def _walk(logA, emits, delta0, pointers: str):
     if pointers == "recompute":
         dfin, deltas = maxplus_scan_deltas(logA, emits, delta0, err=err)
         last = mp.first_argmax(dfin, 1)[1]
-        paths = argmax_walk(deltas, logA.t().contiguous(), last, err=err)
+        paths = argmax_walk(deltas, mp.transposed(logA), last, err=err)
     else:
         dfin, ptrs = maxplus_scan(logA, emits, delta0, err=err)
         last = mp.first_argmax(dfin, 1)[1]
@@ -94,15 +95,18 @@ def _walk(logA, emits, delta0, pointers: str):
     return paths
 
 
+@traced("fvt.decode.fused")
 def fused_decode(logA, logB, logPi, y, precision: str = "fp32"):
     """Decode the (T,) observations ``y``; returns the (T,) int32 path."""
     logA = mp.table_at(logA, precision)
-    emits = logB.t()[y]  # (T, K)
-    delta0 = logPi + emits[0]
+    with span("fvt.emissions"):
+        emits = logB.t()[y]  # (T, K)
+        delta0 = logPi + emits[0]
     pointers = pointer_route(logA.shape[0], 1, precision)
     return _walk(logA, emits[1:].unsqueeze(1), delta0[None, :], pointers)[0]
 
 
+@traced("fvt.decode.fused")
 def fused_decode_batch(logA, logB, logPi, ys, pointers: str = "auto",
                        precision: str = "fp32"):
     """Decode a (Bs, T) batch through the N-lane kernels; returns (Bs, T)
@@ -120,8 +124,9 @@ def fused_decode_batch(logA, logB, logPi, ys, pointers: str = "auto",
     Bs, T = ys.shape
     # indexing by the transposed symbols keeps their strides: copy so the
     # kernels get a contiguous (T, Bs, K)
-    emits = logB.t()[ys.t()].contiguous()
-    delta0 = logPi[None, :] + emits[0]
+    with span("fvt.emissions"):
+        emits = logB.t()[ys.t()].contiguous()
+        delta0 = logPi[None, :] + emits[0]
     if pointers == "auto":
         pointers = pointer_route(logA.shape[0], Bs, precision)
     return _walk(logA, emits[1:], delta0, pointers)

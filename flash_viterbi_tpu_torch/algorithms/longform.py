@@ -43,6 +43,7 @@ from ..ops import maxplus as mp
 from ..ops.cuda import argmax_walk, backtrack_batched, maxplus_scan, maxplus_scan_deltas
 from ..ops.cuda.maxplus import error_word, raise_on_error
 from ..oracle.validate import effective_flash_segments
+from ..utils.profiling import span, traced
 from .base import Decoder, register
 from .flash import _memory as _flash_memory
 from .flash import _Indices, _Transposed, flash_midpoints, segment_layout
@@ -87,6 +88,7 @@ def _layout(mids, T: int, dev):
     return tuple(ix[h] for h in handles)
 
 
+@traced("fvt.emissions")
 def _emissions(logBT, sym):
     """The (n, lanes, K) emission rows of the (lanes, n) symbols ``sym``."""
     return logBT.index_select(0, sym.t().reshape(-1)).view(sym.shape[1], sym.shape[0], -1)
@@ -134,34 +136,39 @@ def _phase2(logA, logAT, logPi, logBT, ys, anchors, last, layout, group_steps, e
     return paths.reshape(Bs, N * Lmax)[:, order]
 
 
+@traced("fvt.decode.flash_long")
 def flash_decode_long(logA, logB, logPi, y, num_segments: int = 4,
                       group_steps: int = GROUP_STEPS, transposed=None) -> torch.Tensor:
     """The (T,) int32 path of ``y`` by FLASH pointer mode in groups of
     ``group_steps`` trellis steps: the path of ``flash``'s pointer mode at
     ``num_segments``.  ``transposed(logA)`` gives the walk's transposed
     table (by default a fresh copy each call)."""
-    transposed = transposed or (lambda a: a.t().contiguous())
+    transposed = transposed or mp.transposed
     T = int(y.shape[0])
     _, mids = _segments(T, num_segments)
     layout = _layout(mids, T, y.device)
     logBT = logB.t()
     err = error_word(logA.device)
 
-    d = logPi[None, :] + logBT[y[:1]]
-    parts = []
-    for j, n in _groups(T - 1, group_steps):
-        d, ptrs = maxplus_scan(logA, _emissions(logBT, y[None, j:j + n]), d, err=err)
-        parts.append(ptrs)
-    last = mp.argmax_final(d[0])
-    path = _walk_chain(parts, last[None])[0]
+    with span("fvt.flash_long.phase_1"):
+        with span("fvt.emissions"):
+            d = logPi[None, :] + logBT[y[:1]]
+        parts = []
+        for j, n in _groups(T - 1, group_steps):
+            d, ptrs = maxplus_scan(logA, _emissions(logBT, y[None, j:j + n]), d, err=err)
+            parts.append(ptrs)
+        last = mp.argmax_final(d[0])
+        path = _walk_chain(parts, last[None])[0]
     if layout is not None:
         del parts
-        path = _phase2(logA, transposed(logA), logPi, logBT, y[None], path[layout[0]][None],
-                       last[None], layout, group_steps, err)[0]
+        with span("fvt.flash_long.phase_2"):
+            path = _phase2(logA, transposed(logA), logPi, logBT, y[None],
+                           path[layout[0]][None], last[None], layout, group_steps, err)[0]
     raise_on_error(err, "flash_long")
     return path
 
 
+@traced("fvt.decode.flash_long")
 def flash_decode_long_batched(logA, logB, logPi, ys, num_segments: int = 4,
                               group_steps: int = GROUP_STEPS, transposed=None) -> torch.Tensor:
     """The (Bs, T) int32 paths of the sequences ``ys`` (Bs, T), each the
@@ -178,7 +185,7 @@ def flash_decode_long_batched(logA, logB, logPi, ys, num_segments: int = 4,
       pipeline, as many sequences a sub-batch as keep its carry parts
       within ``PHASE2_BYTES``.
     """
-    transposed = transposed or (lambda a: a.t().contiguous())
+    transposed = transposed or mp.transposed
     T = int(ys.shape[1])
     _, mids = _segments(T, num_segments)
     layout = _layout(mids, T, ys.device)
@@ -187,8 +194,9 @@ def flash_decode_long_batched(logA, logB, logPi, ys, num_segments: int = 4,
     err = error_word(logA.device)
     path, last = _phase1_batched(logA, logAT, logPi, logBT, ys, group_steps, err)
     if layout is not None:
-        path = _phase2_batched(logA, logAT, logPi, logBT, ys, path[:, layout[0]], last, layout,
-                               group_steps, err)
+        with span("fvt.flash_long.phase_2"):
+            path = _phase2_batched(logA, logAT, logPi, logBT, ys, path[:, layout[0]], last,
+                                   layout, group_steps, err)
     raise_on_error(err, "flash_long")
     return path
 
@@ -197,24 +205,28 @@ def _phase1_batched(logA, logAT, logPi, logBT, ys, group_steps, err):
     """Phases A and B of :func:`flash_decode_long_batched`: the (Bs, T)
     paths of the one-segment decode and the (Bs,) last states."""
     T = int(ys.shape[1])
-    d = logPi[None, :] + logBT[ys[:, 0]]
     groups = _groups(T - 1, group_steps)
-    ckpts = []
-    for j, n in groups:
-        ckpts.append(d)
-        # the history is dropped here, not held until the next group's is made
-        d = maxplus_scan_deltas(logA, _emissions(logBT, ys[:, j:j + n]), d, err=err)[0]
-    last = mp.first_argmax(d, 1)[1]
+    with span("fvt.flash_long.phase_a"):
+        with span("fvt.emissions"):
+            d = logPi[None, :] + logBT[ys[:, 0]]
+        ckpts = []
+        for j, n in groups:
+            ckpts.append(d)
+            # the history is dropped here, not held until the next group's is made
+            d = maxplus_scan_deltas(logA, _emissions(logBT, ys[:, j:j + n]), d, err=err)[0]
+        last = mp.first_argmax(d, 1)[1]
 
-    state, pieces = last, []
-    for (j, n), ck in zip(reversed(groups), reversed(ckpts)):
-        _, deltas = maxplus_scan_deltas(logA, _emissions(logBT, ys[:, j:j + n]), ck, err=err)
-        w = argmax_walk(deltas, logAT, state, err=err)
-        del deltas
-        pieces.append(w[:, 1:])
-        state = w[:, 0].contiguous()
-    pieces.append(state[:, None])
-    return torch.cat(pieces[::-1], dim=1), last
+    with span("fvt.flash_long.phase_b"):
+        state, pieces = last, []
+        for (j, n), ck in zip(reversed(groups), reversed(ckpts)):
+            _, deltas = maxplus_scan_deltas(logA, _emissions(logBT, ys[:, j:j + n]), ck,
+                                            err=err)
+            w = argmax_walk(deltas, logAT, state, err=err)
+            del deltas
+            pieces.append(w[:, 1:])
+            state = w[:, 0].contiguous()
+        pieces.append(state[:, None])
+        return torch.cat(pieces[::-1], dim=1), last
 
 
 def phase2_sequences(layout, K: int) -> int:

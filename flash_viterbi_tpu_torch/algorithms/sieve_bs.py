@@ -62,6 +62,7 @@ import torch
 
 from ..ops.beam import beam_topk
 from ..ops.maxplus import first_argmax
+from ..utils.profiling import span
 from .base import Decoder, register
 from .sieve import BEAM_STEP_BYTES, NEG, TOUCHED_NEG, UNTOUCHED_NEG
 
@@ -93,7 +94,9 @@ def _bhop_counts(A_posF: torch.Tensor, hops: int):
         frontier = eye
         for h in range(hops):
             new = ((frontier @ adjF) > 0) & ~visited
-            if not bool(new.any()):
+            with span("fvt.sync"):
+                grew = bool(new.any())
+            if not grew:
                 return visited.sum(dim=1).to(torch.float32), h
             visited |= new
             frontier = new.to(torch.float32)
@@ -304,12 +307,14 @@ def sieve_bs_decode_many(logA, logB_raw, logPi, ys, beam_width: int, b_hops: int
     dev = logA.device
 
     A_posF = (logA > NEG).to(torch.float32)
-    A_pos_np = (logA > NEG).cpu().numpy()
     emitQT = torch.where(logB_raw > NEG, logB_raw, 0.0).t().contiguous()  # (M, K)
     # logical (non-padding) states: padded states are all -inf everywhere;
     # the model-Pi prior is -inf there too, so padding cannot flip a tie
     real = (torch.isfinite(logA).any(dim=1) | torch.isfinite(logB_raw).any(dim=1)
-            | torch.isfinite(logPi)).cpu().numpy()
+            | torch.isfinite(logPi))
+    with span("fvt.sync"):
+        A_pos_np = (logA > NEG).cpu().numpy()
+        real = real.cpu().numpy()
     b = T if b_hops is None else int(b_hops)
     # a visited-gated BFS saturates after at most K productive hops, so
     # capping at K changes nothing
@@ -355,7 +360,8 @@ def sieve_bs_decode_many(logA, logB_raw, logPi, ys, beam_width: int, b_hops: int
         out, tokens_right = _level_forward(
             logA, A_posF, emitQT, anc_cnt, desc_cnt, logPi, torch.as_tensor(sym, device=dev),
             lengths, masks, tokens0, last_f, B)
-        xa, xb, nl, lr = out.cpu().numpy()  # the level's one read back
+        with span("fvt.sync"):
+            xa, xb, nl, lr = out.cpu().numpy()  # the level's one read back
         nxt: list[int] = []
         t0 = time.perf_counter()
         for i, nid in enumerate(ready):

@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from ..ops.maxplus import first_argmax
+from ..utils.profiling import span
 from .base import Decoder, register
 from .sieve_bs import DENSE_STEP_BYTES, _bhop_counts, _flatten_pairs
 
@@ -120,7 +121,9 @@ def _dag_counts(A_posF: torch.Tensor, masks: torch.Tensor, hops: np.ndarray):
             visited = torch.zeros((c1 - c0, K, K), dtype=torch.bool, device=dev)
             for h in range(int(hops[c0:c1].max())):
                 new = (torch.bmm(frontier, a) > 0) & ~visited & (h < lim[c0:c1])[:, None, None]
-                if not bool(new.any()):
+                with span("fvt.sync"):
+                    grew = bool(new.any())
+                if not grew:
                     break
                 visited |= new
                 frontier = new.to(torch.float32)
@@ -206,7 +209,9 @@ def _reach(adjF: torch.Tensor, masks: torch.Tensor, src: np.ndarray, hops: np.nd
     visited = torch.zeros((c, K), dtype=torch.bool, device=dev)
     for h in range(int(hops.max())):
         new = ((frontier @ adjF) > 0) & masks & ~visited & (h < lim)
-        if not bool(new.any()):
+        with span("fvt.sync"):
+            grew = bool(new.any())
+        if not grew:
             break
         visited |= new
         frontier = new.to(torch.float32)
@@ -244,7 +249,8 @@ def sieve_dynamic_decode_many(logA, logB, logPi, ys, b_hops: int | None = None,
     # logical (non-padding) states: padded states are all -inf everywhere
     real = fin.any(dim=1) | torch.isfinite(logB).any(dim=1) | torch.isfinite(logPi)
     logu = _log_uniform(K)
-    n_real = int(real.sum())
+    with span("fvt.sync"):
+        n_real = int(real.sum())
     t0 = _mark(dev)
     if dag:
         bhop = None
@@ -292,7 +298,8 @@ def sieve_dynamic_decode_many(logA, logB, logPi, ys, b_hops: int | None = None,
         out = _level_forward(
             logA, emitT, anc, desc, torch.as_tensor(sym, device=dev), lengths, masks, init,
             torch.as_tensor(logu[[nodes[nid]["msum"] for nid in ready]], device=dev), last)
-        xa, xb, nl, _ = out.cpu().numpy()  # the level's one read back
+        with span("fvt.sync"):
+            xa, xb, nl, _ = out.cpu().numpy()  # the level's one read back
         # the children, left ones first: (side, parent, lane, search source,
         # hops, lo, L, forced end, forced entry)
         kids = {"left": [], "right": []}
@@ -320,7 +327,8 @@ def sieve_dynamic_decode_many(logA, logB, logPi, ys, b_hops: int | None = None,
                 found.append(_reach(adjF, masks.index_select(0, torch.as_tensor(lane, device=dev)),
                                     src, hops))
         level_masks = torch.cat(found) if len(found) > 1 else found[0]
-        msums = level_masks.sum(dim=1).cpu().numpy()
+        with span("fvt.sync"):
+            msums = level_masks.sum(dim=1).cpu().numpy()
         bfs_marks.append((m0, _mark(dev)))
         level = []
         for r, (side, parent, _, _, _, lo, L, end, entry) in enumerate(ordered):

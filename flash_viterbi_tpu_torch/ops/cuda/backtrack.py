@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils.profiling import traced
 from ..maxplus import first_argmax
 from .common import expect, expect_contiguous, launch, on_cuda
 from .maxplus import TABLE_DTYPES, error_word, raise_on_error, sm_count
@@ -180,6 +181,7 @@ def backtrack_batched_plain(ptrs: torch.Tensor, last_states: torch.Tensor):
     return out
 
 
+@traced("fvt.kernel.backtrack_batched")
 def backtrack_batched(ptrs: torch.Tensor, last_states: torch.Tensor, *,
                       plan: BacktrackPlan | None = None) -> torch.Tensor:
     """Reverse pointer walk over N independent lanes.
@@ -239,6 +241,7 @@ def argmax_walk_plain(deltas: torch.Tensor, logAT: torch.Tensor,
     return out
 
 
+@traced("fvt.kernel.argmax_walk")
 def argmax_walk(deltas: torch.Tensor, logAT: torch.Tensor,
                 last_states: torch.Tensor, valid: torch.Tensor | None = None, *,
                 err: torch.Tensor | None = None) -> torch.Tensor:
@@ -264,6 +267,7 @@ def argmax_walk(deltas: torch.Tensor, logAT: torch.Tensor,
     return _walk(deltas, logAT, last_states, valid, err, TABLE_DTYPES)
 
 
+@traced("fvt.kernel.argmax_walk_bf16")
 def argmax_walk_bf16(deltas: torch.Tensor, logAT: torch.Tensor,
                      last_states: torch.Tensor, valid: torch.Tensor | None = None, *,
                      err: torch.Tensor | None = None) -> torch.Tensor:

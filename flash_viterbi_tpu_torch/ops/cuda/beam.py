@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ...runtime import build
+from ...utils.profiling import traced
 from ..beam import beam_scan_plain
 from .common import SMEM_LIMIT, expect, expect_contiguous, launch, on_cuda
 from .maxplus import error_word, raise_on_error, sm_count
@@ -150,6 +151,7 @@ def _check(logA, emits, vals0, states0, valid, prop) -> tuple[int, int, int, int
     return Tm, N, Kp, B, P
 
 
+@traced("fvt.kernel.beam_scan")
 def beam_scan(logA: torch.Tensor, emits: torch.Tensor, vals0: torch.Tensor,
               states0: torch.Tensor, valid: torch.Tensor | None = None,
               prop: torch.Tensor | None = None, *, plan: BeamPlan | None = None,

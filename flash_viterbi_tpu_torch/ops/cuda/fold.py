@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ...runtime import build
+from ...utils.profiling import traced
 from .common import SMEM_LIMIT, expect, expect_contiguous, launch, on_cuda
 from .maxplus import error_word, raise_on_error, sm_count
 
@@ -135,6 +136,7 @@ def _card_plan(index: int, sms: int, P: int, c: int, R: int, K: int) -> FoldPlan
     return fold_plan(P, c, R, K, sms, active=active)
 
 
+@traced("fvt.kernel.fold_planes")
 def fold_planes(planes: torch.Tensor, rows: torch.Tensor, prop: torch.Tensor, *,
                 plan: FoldPlan | None = None, err: torch.Tensor | None = None) -> torch.Tensor:
     """Fold ``c`` pointer rows into ``P`` index planes.

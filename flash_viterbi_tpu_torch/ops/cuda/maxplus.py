@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils.profiling import span, traced
 from .. import maxplus as mp
 from .common import SMEM_LIMIT, expect, expect_contiguous, launch, on_cuda
 
@@ -359,7 +360,8 @@ def raise_on_error(err: torch.Tensor, what: str) -> None:
     """Read ``err`` (a host synchronisation on the card) and raise if a
     kernel that shared it timed out at a grid barrier (the scans) or at a
     copy's barrier (the beam scan, the argmax walk)."""
-    code = int(err[0])
+    with span("fvt.sync"):
+        code = int(err[0])
     if code:
         raise RuntimeError(f"{what}: a grid barrier or a copy barrier of a kernel timed out "
                            f"(error word {code}); the outputs are not valid")
@@ -452,6 +454,7 @@ def _bf16_table(logA: torch.Tensor) -> torch.Tensor:
     return logA.clone() if logA.data_ptr() % 16 else logA
 
 
+@traced("fvt.kernel.maxplus_scan")
 def maxplus_scan(logA: torch.Tensor, emits: torch.Tensor, delta0: torch.Tensor, *,
                  plan: ScanPlan | None = None, err: torch.Tensor | None = None):
     """Run the N-lane forward scan.
@@ -478,6 +481,7 @@ def maxplus_scan(logA: torch.Tensor, emits: torch.Tensor, delta0: torch.Tensor, 
                       {"logA": logA, "emits": emits}, delta0, emits.shape[0], True, plan, err)
 
 
+@traced("fvt.kernel.maxplus_scan_bf16")
 def maxplus_scan_bf16(logA: torch.Tensor, emits: torch.Tensor, delta0: torch.Tensor, *,
                       plan: ScanPlan | None = None, err: torch.Tensor | None = None):
     """:func:`maxplus_scan` on a (K, K) bfloat16 ``logA``, its own kernel
@@ -491,6 +495,7 @@ def maxplus_scan_bf16(logA: torch.Tensor, emits: torch.Tensor, delta0: torch.Ten
                       plan, err)
 
 
+@traced("fvt.kernel.maxplus_scan_deltas")
 def maxplus_scan_deltas(logA: torch.Tensor, emits: torch.Tensor,
                         delta0: torch.Tensor, *, plan: ScanPlan | None = None,
                         err: torch.Tensor | None = None):
@@ -511,6 +516,7 @@ def maxplus_scan_deltas(logA: torch.Tensor, emits: torch.Tensor,
                       {"logA": logA, "emits": emits}, delta0, emits.shape[0], False, plan, err)
 
 
+@traced("fvt.kernel.maxplus_scan_deltas_bf16")
 def maxplus_scan_deltas_bf16(logA: torch.Tensor, emits: torch.Tensor, delta0: torch.Tensor,
                              *, plan: ScanPlan | None = None, err: torch.Tensor | None = None):
     """:func:`maxplus_scan_deltas` on a (K, K) bfloat16 ``logA``, its own
@@ -523,6 +529,7 @@ def maxplus_scan_deltas_bf16(logA: torch.Tensor, emits: torch.Tensor, delta0: to
                       plan, err)
 
 
+@traced("fvt.kernel.maxplus_scan_emitgather")
 def maxplus_scan_emitgather(logA: torch.Tensor, logBT: torch.Tensor,
                             ys: torch.Tensor, delta0: torch.Tensor, *,
                             plan: ScanPlan | None = None, err: torch.Tensor | None = None):
@@ -579,6 +586,7 @@ def maxplus_step_block_plain(delta, logA_block):
     return val, ptr
 
 
+@traced("fvt.kernel.maxplus_step_block")
 def maxplus_step_block(delta: torch.Tensor, logA_block: torch.Tensor, *,
                        plan: StepPlan | None = None):
     """One trellis step against a column shard of logA.

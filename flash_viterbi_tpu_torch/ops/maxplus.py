@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
+
 #: the transition table's precisions a decoder takes: "bf16" rounds logA to
 #: bfloat16 (JAX's ``logA.astype(jnp.bfloat16)``) and leaves every sum, max
 #: and carry in fp32 -- an approximate mode, exact for the rounded table
@@ -30,6 +32,13 @@ def table_at(logA: torch.Tensor, precision: str) -> torch.Tensor:
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; have {PRECISIONS}")
     return logA.to(torch.bfloat16) if precision == "bf16" else logA
+
+
+def transposed(logA: torch.Tensor) -> torch.Tensor:
+    """A copy of ``logA`` transposed and contiguous, the layout
+    ``argmax_walk`` reads (row s holds the column of destination s)."""
+    with span("fvt.transpose"):
+        return logA.t().contiguous()
 
 
 def first_argmax(x: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -56,7 +56,7 @@ import torch.distributed as dist
 from ..algorithms.flash import flash_midpoints, prop_schedule, segment_layout
 from ..ops.cuda import (argmax_walk, backtrack_batched, maxplus_scan,
                         maxplus_scan_deltas, maxplus_step_block)
-from ..ops.maxplus import first_argmax
+from ..ops.maxplus import first_argmax, transposed
 from . import commtrace
 
 AXES = ("data", "seq", "state")
@@ -409,7 +409,7 @@ def _flash_decode_pipelined(mesh: Mesh, logA_l, logBT_l, logPi, ys_l, L: int,
     # ---- phase 2: forced-boundary decode of my segments -------------------
     NL = mb * spd
     first = (r == 0) & (torch.arange(NL, device=dev) % spd == 0)
-    logAT_l = logA_l.t().contiguous() if chunked else None
+    logAT_l = transposed(logA_l) if chunked else None
     out = torch.zeros((Bd, T), dtype=torch.int32, device=dev)
     for m in range(n_mb):
         planes_m, jr_m, jp_m = my_planes[m], jr[m], jprev[m]

@@ -13,19 +13,59 @@ analytic ``memory:`` figure every algorithm computes for itself
   trace.
 * :func:`memory_report` — the analytic working set beside the card's
   allocator statistics.
+* :func:`span`, :func:`traced` — the port's own ``fvt.*`` ranges, written
+  into any ``torch.profiler`` session (:func:`device_trace`'s too) on the
+  clock of the device's operations, and nothing when no session records.
+* :func:`device_rows` — a session's ``key_averages()`` rows of device
+  work, without the device-side projections of these ranges.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import time
 from dataclasses import dataclass, field
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from ..models.hmm import resolve_device
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler session
+    records, else one shared null context: off, a span costs one flag read.
+    The port's spans are named ``fvt.*``, and nest on the calling thread."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def traced(name: str):
+    """Decorator: each call of the function as a :func:`span` ``name``."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return wrapper
+    return deco
+
+
+def device_rows(prof) -> list:
+    """The rows of ``prof.key_averages()`` that hold device time: the
+    kernels, copies and fills.  A ``record_function`` range that launched
+    device work (each ``fvt.*`` span among them) also has a CUDA row, its
+    length on the device, flagged ``is_user_annotation``: it is left out,
+    as the profiler's own table leaves it out of its device total."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
 
 
 @dataclass

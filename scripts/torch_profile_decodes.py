@@ -48,6 +48,7 @@ from flash_viterbi_tpu_torch import build  # noqa: E402
 from flash_viterbi_tpu_torch.algorithms.fused import fused_decode_batch  # noqa: E402
 from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm, observations  # noqa: E402
 from flash_viterbi_tpu_torch.ops.cuda.fold import fold_planes_plain  # noqa: E402
+from flash_viterbi_tpu_torch.utils.profiling import device_rows  # noqa: E402
 
 DECODERS = (("flash", {"num_segments": 16}), ("checkpoint", {}), ("fused", {}),
             ("flash_bs", {"beam_width": 64, "num_segments": 8}), ("beam", {"beam_width": 64}),
@@ -150,9 +151,7 @@ def profile_one(name: str, run) -> None:
             for _ in range(reps):
                 run()
             torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    kernels = device_rows(prof)
     if not kernels:
         sys.exit(f"{name}: the profiler recorded no device time")
     busy = sum(e.self_device_time_total for e in kernels) / REPS / 1e3

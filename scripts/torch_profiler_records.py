@@ -44,6 +44,7 @@ def main() -> None:
     import chip_smoke
     from flash_viterbi_tpu_torch import build, decode
     from flash_viterbi_tpu_torch.runtime import build as kernels
+    from flash_viterbi_tpu_torch.utils.profiling import device_rows
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip(),
@@ -65,9 +66,7 @@ def main() -> None:
                 for _ in range(DECODES):
                     fused(lh.logA, lh.logB, lh.logPi, yd)
                 torch.cuda.synchronize(device)
-            counts.append(sum(e.count for e in prof.key_averages()
-                              if e.device_type == torch.autograd.DeviceType.CUDA
-                              and e.self_device_time_total > 0))
+            counts.append(sum(e.count for e in device_rows(prof)))
         print(json.dumps({"after": label, "fused_decodes_a_session": DECODES,
                           "kernels_a_session": counts}), flush=True)
 

@@ -133,6 +133,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "flash_viterbi_tpu_torch.runtime.native, scripts.torch_fuzz_midscale, "
             "scripts.torch_fuzz_engines, scripts.torch_fuzz_sharded, scripts.torch_config5, "
             "scripts.torch_route_sweep, scripts.torch_auto_sweep, scripts.torch_sieve_bs_witness, scripts.torch_profiler_records, "
+            "scripts.torch_trace_spans, "
             "flash_viterbi_tpu_torch.probes.alu, flash_viterbi_tpu_torch.probes.scan, "
             "flash_viterbi_tpu_torch.probes.beam, flash_viterbi_tpu_torch.probes.copy, "
             "flash_viterbi_tpu_torch.probes.__main__, flash_viterbi_tpu_torch.oracle.sieve, "

@@ -209,3 +209,8 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     with open(tmp_path / "trace" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert events
+    # the port's own spans are in the same file, on the same clock
+    spans = {e["name"] for e in events
+             if e.get("cat") == "user_annotation" and str(e.get("name")).startswith("fvt.")}
+    assert {"fvt.decode.fused", "fvt.emissions", "fvt.kernel.maxplus_scan",
+            "fvt.kernel.backtrack_batched", "fvt.sync"} <= spans
