@@ -1518,10 +1518,15 @@ def grid_inputs(K: int, N: int, Tm: int, device, seed: int, M: int = 50):
 
 def scan_grid_checks(device) -> list[dict]:
     """The three scans against their plain versions at every (K, N) of
-    GRID_K x GRID_N; returns the comparisons' records."""
+    GRID_K x GRID_N (the deltas scan at K=16384 from 16 lanes on the ring
+    route); returns the comparisons' records."""
     from flash_viterbi_tpu_torch.ops import cuda as k
     from flash_viterbi_tpu_torch.ops.cuda import maxplus as km
 
+    sms = km.sm_count(device)
+    ring = [(K, N) for K in GRID_K for N in GRID_N
+            if km.scan_plan(K, N, sms, deltas=True).ring_rows]
+    require((16384, 16) in ring, "the deltas scan at K=16384, N=16 is not on the ring route")
     t0 = time.perf_counter()
     recs = []
     for K in GRID_K:
@@ -1539,7 +1544,8 @@ def scan_grid_checks(device) -> list[dict]:
         torch.cuda.empty_cache()
     print(f"scan parity grid: maxplus_scan, maxplus_scan_deltas and maxplus_scan_emitgather "
           f"bit-exact at K = {GRID_K} x N = {GRID_N} (T' = {GRID_TM}, {GRID_TM_LARGE} at "
-          f"K > 4096); {time.perf_counter() - t0:.1f} s", flush=True)
+          f"K > 4096; the deltas scan on the ring route at (K, N) = {ring}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return recs
 
 

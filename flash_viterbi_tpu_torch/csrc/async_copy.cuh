@@ -63,6 +63,23 @@ __device__ __forceinline__ bool fvt_bar_wait(uint64_t* bar, uint32_t parity) {
     return true;
 }
 
+// True once the phase of this parity has completed.  Unlike fvt_bar_test
+// it may suspend the thread for a while before it answers, so a thread
+// that waits in a loop of it takes few of the issue slots its warp's
+// neighbours compute with (the ring scan's producer: a spin of
+// fvt_bar_test cost its step ~2% on an H100)
+__device__ __forceinline__ bool fvt_bar_try(uint64_t* bar, uint32_t parity) {
+    uint32_t done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(fvt_smem_addr(bar)), "r"(parity)
+        : "memory");
+    return done != 0;
+}
+
 // Order this thread's earlier shared-memory reads before later bulk copies
 // into the same buffer (the copies write through the async proxy)
 __device__ __forceinline__ void fvt_fence_proxy_async() {

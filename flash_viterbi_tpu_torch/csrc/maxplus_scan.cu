@@ -76,6 +76,26 @@
 //     lanes of K=3968, two-phase from 4 lanes up and at K=16384 from 2
 //     (chip_smoke.py:combine_turns times both).
 //
+// The ring route.  Where a range's carry fills shared memory (the plan
+// holds no tile row there: 16 lanes at K >= 14341, 8 at 28421, 4 at 55861,
+// every block one tile), the scheme above streams every row each step by
+// __ldg, 8 rows ahead a thread, and that prefetch drains at each carry
+// pass, combine and grid barrier: on an H100 at K=16384, N=16 the reads
+// (1.07 GB a step, 0.32 ms at 3.35 TB/s) and the fold (4.3 G cells, 0.26
+// ms) took turns, 0.576 ms a step.  Nothing there needs the stream to
+// stop: logA does not depend on the carry.  So the fp32 deltas scan has an
+// instance of its own there (RING, ring_scan): one producer warp beside the
+// 512 folding threads copies each tile row's slice into a ring of stages in
+// shared memory by bulk copies (cp.async.bulk, an mbarrier a stage for
+// "full" and one for "empty"), waits only for stages the folders released,
+// and never joins their barriers (named barrier BAR_FOLD, not
+// __syncthreads), so it streams on through the carry passes, the combine
+// and the grid barriers, the next step's first rows in flight while this
+// one combines.  A folding thread owns 2 columns from 8 lanes (tiles of
+// 1024 columns: R=8 x C=16 at K=16384, a 128 KiB carry in one pass, 96 KiB
+// of ring in 3 stages of 8 rows), 4 at 4 lanes; the plan is scan_plan(...,
+// deltas=True)'s.
+//
 // Barrier: an arrival counter in global memory.  Each block's first thread
 // adds one with release semantics (red.release.gpu) and polls with acquire
 // loads until every block of this step has arrived, at most WAIT_CYCLES
@@ -155,6 +175,7 @@
 #include <stdint.h>
 
 #include "argmax.cuh"
+#include "async_copy.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -180,7 +201,8 @@ enum Part {
 
 constexpr int PT = 512;                      // threads of a block
 constexpr long long WAIT_CYCLES = 1ll << 31; // longest wait at a barrier
-constexpr unsigned int ERR_TIMEOUT = 1;      // a grid barrier timed out
+constexpr unsigned int ERR_TIMEOUT = 1;      // a grid barrier (or a ring stage's copy) timed out
+constexpr int BAR_FOLD = 1;                  // the named barrier of the PT folding threads
 
 // destination columns a thread owns at LG lanes
 template <int LG>
@@ -208,12 +230,13 @@ struct Plan {
     int carry_rows; // source rows whose carry shared memory holds at once
     int team;       // threads that combine one carry entry's R partials
     int two_phase;  // combine once per entry between two barriers, not on read
+    int ring;       // table rows the ring route's shared-memory ring holds (0: another route)
 };
 
 // fields of the int array the C entry points take, in this order
 enum PlanField {
     PF_LANES, PF_R, PF_C, PF_BLOCKS, PF_ROWS_SMEM, PF_STRIDE, PF_CARRY_ROWS, PF_TEAM,
-    PF_TWO_PHASE, PF_SMEM, PF_COUNT
+    PF_TWO_PHASE, PF_SMEM, PF_RING, PF_COUNT
 };
 
 __device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
@@ -227,15 +250,27 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
 }
 
+// The PT threads that fold meet; the ring route's producer warp never
+// waits with them (a named barrier, not __syncthreads)
+__device__ __forceinline__ void fold_sync() {
+    asm volatile("bar.sync %0, %1;" ::"n"(BAR_FOLD), "n"(PT) : "memory");
+}
+
 // Every block of the grid has arrived: count reaches target = blocks x
 // barriers passed.  One release-add a block, then its first thread polls
 // with an acquire load.  False (and the error word set) when the wait timed
-// out, or another block's did.
+// out, or another block's did.  FOLDERS: the block's folding threads meet
+// by fold_sync alone (the ring route), and a word already set when the
+// block arrives stops the scan here.
+template <bool FOLDERS = false>
 __device__ bool grid_barrier(unsigned int* count, unsigned int target, unsigned int* err) {
     __shared__ int s_ok;
-    __syncthreads();  // the block's writes precede its arrival
+    // the block's writes precede its arrival
+    if constexpr (FOLDERS) fold_sync(); else __syncthreads();
     if (threadIdx.x == 0) {
         asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count) : "memory");
+        unsigned int preset = 0;
+        if constexpr (FOLDERS) preset = *reinterpret_cast<volatile unsigned int*>(err);
         const long long t0 = clock64();
         int ok = 1;
         for (unsigned int i = 0; ld_acquire(count) < target; ++i) {
@@ -245,9 +280,10 @@ __device__ bool grid_barrier(unsigned int* count, unsigned int target, unsigned 
                 break;
             }
         }
+        if constexpr (FOLDERS) ok = ok && preset == 0;
         s_ok = ok;
     }
-    __syncthreads();
+    if constexpr (FOLDERS) fold_sync(); else __syncthreads();
     return s_ok != 0;
 }
 
@@ -483,6 +519,336 @@ __device__ __forceinline__ Tile tile_of(int q, int K, int units, const Plan& p) 
     return tl;
 }
 
+// ---- the ring route: the fp32 deltas scan with no tile row on chip ----
+
+constexpr int RING_PT = PT + 32;        // the folding threads and the producer warp
+constexpr int RING_STAGE_ROWS = 8;      // table rows of a ring stage (ops/cuda/maxplus.py)
+constexpr int RING_STAGES_MAX = 32;     // stages the ring's barriers allow
+
+// destination columns a folding thread owns on the ring route: 2 from 8
+// lanes (at 16 a tile of 1024 columns halves the ranges' carry; at 8, 4
+// columns spilled under the ring's 96 registers), 4 at 4 lanes
+template <int LG>
+__host__ __device__ constexpr int ring_cols() {
+    return LG >= 8 ? 2 : 4;
+}
+
+// The bulk copy of one tile row's slice (width floats from row): from the
+// 16-byte boundary at or below its first value to the one at or above its
+// end, as a bulk copy takes 16-byte-aligned addresses and sizes.  Returns
+// the bytes; src is the copy's first byte.
+__device__ __forceinline__ uint32_t ring_span(const float* row, int width, const char*& src) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(row) & ~uintptr_t(15);
+    const uintptr_t e = (reinterpret_cast<uintptr_t>(row + width) + 15) & ~uintptr_t(15);
+    src = reinterpret_cast<const char*>(a);
+    return static_cast<uint32_t>(e - a);
+}
+
+// Where a row's first value lies in its ring slot: 0 to 3 floats past the
+// slot's start (0 for every row where logA is 16-byte aligned, K % 4 == 0)
+__device__ __forceinline__ int ring_offset(const float* row) {
+    return static_cast<int>((reinterpret_cast<uintptr_t>(row) >> 2) & 3);
+}
+
+// The producer (one thread): every row the folding threads fold, in their
+// order (each lane group's T' steps, each step the tile's rows kr from
+// logA row r0), copied into the ring's stages of RING_STAGE_ROWS rows.  It
+// waits only for a stage the folders have released (empty), announces the
+// stage's bytes on full and never joins the folders' barriers, so it
+// streams on through their carry passes, combines and grid barriers.  It
+// stops when the folders left (stop) or a wait timed out (the error word
+// set), after the copies it issued have landed.  Its work a stage is kept
+// short (it shares its SM's issue slots with the folding warps): where
+// every row starts 16-byte aligned (aligned) a row is a fixed-size copy
+// from the previous row's source plus K floats.
+__device__ void ring_produce(const float* logA, int K, int r0, int kr, int c0, int width,
+                             bool aligned, long long steps, float* ring, int stride,
+                             int stages, uint64_t* full, uint64_t* empty, volatile int* stop,
+                             unsigned int* err) {
+    constexpr int SR = RING_STAGE_ROWS;
+    int s = 0;
+    uint32_t phase = 0;
+    long long issued = 0;
+    const float* tile = logA + (size_t)r0 * K + c0;
+    const uint32_t row_bytes = 4u * width;
+    for (long long st = 0; st < steps; ++st) {
+        const float* row = tile;
+        for (int lr = 0; lr < kr; lr += SR) {
+            if (!fvt_bar_try(&empty[s], phase ^ 1)) {
+                const long long t0 = clock64();
+                while (!fvt_bar_try(&empty[s], phase ^ 1)) {
+                    if (*stop) goto drain;
+                    if (clock64() - t0 > WAIT_CYCLES) {
+                        atomicOr(err, ERR_TIMEOUT);
+                        goto drain;
+                    }
+                }
+            }
+            fvt_fence_proxy_async();  // the folders' reads of the stage precede its refill
+            const int rows = min(SR, kr - lr);
+            float* dst = ring + s * SR * stride;
+            if (aligned) {
+                fvt_bar_arrive_expect(&full[s], rows * row_bytes);
+                for (int i = 0; i < rows; ++i, row += K, dst += stride) {
+                    fvt_bulk_load(dst, row, row_bytes, &full[s]);
+                }
+            } else {
+                const char* src[SR];
+                uint32_t bytes[SR], total = 0;
+#pragma unroll
+                for (int i = 0; i < SR; ++i) {
+                    bytes[i] = i < rows ? ring_span(row + (size_t)i * K, width, src[i]) : 0;
+                    total += bytes[i];
+                }
+                fvt_bar_arrive_expect(&full[s], total);
+#pragma unroll
+                for (int i = 0; i < SR; ++i) {
+                    if (i < rows) fvt_bulk_load(dst + i * stride, src[i], bytes[i], &full[s]);
+                }
+                row += (size_t)rows * K;
+            }
+            ++issued;
+            if (++s == stages) {
+                s = 0;
+                phase ^= 1;
+            }
+        }
+    }
+    return;
+drain:
+    // the last copy into each stage has landed before the block may leave
+    for (int j = 0; j < stages && j < issued; ++j) {
+        fvt_bar_wait(&full[j], static_cast<uint32_t>(((issued - 1 - j) / stages) & 1));
+    }
+}
+
+// CPT table values of one ring row at a folding thread's column (slot: the
+// row's slot plus the thread's column in the tile)
+template <int CPT, bool ALIGNED>
+__device__ __forceinline__ void ring_values(float (&a)[CPT], const float* slot, int off) {
+    if constexpr (ALIGNED) {
+        load_tile<CPT>(a, slot);
+    } else {
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) a[j] = slot[off + j];
+    }
+}
+
+// Fold ROWS ring rows (logA rows from rowp, K floats apart; their carry at
+// sd, lane-minor; their values at st, stride floats apart) into the
+// partials, in ascending order, with no test between them, so that one
+// row's loads fly while another folds.  ALIGNED: every row's first value
+// starts its slot; else each row's offset is read off its address.
+template <int LG, int CPT, bool ALIGNED, int ROWS>
+__device__ __forceinline__ void ring_fold(float (&best)[LG][CPT], const float* sd,
+                                          const float* st, int stride, const float* rowp,
+                                          int K) {
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+        float d[LG], a[CPT];
+        load_carry<LG>(d, sd + i * LG);
+        ring_values<CPT, ALIGNED>(a, st + i * stride,
+                                  ALIGNED ? 0 : ring_offset(rowp + (size_t)i * K));
+#pragma unroll
+        for (int n = 0; n < LG; ++n) {
+#pragma unroll
+            for (int j = 0; j < CPT; ++j) best[n][j] = fmaxf(best[n][j], d[n] + a[j]);
+        }
+    }
+}
+
+// Fold a ring stage of rows rows: a whole stage unrolled U rows at a time,
+// a range's last (shorter) one a row at a time.  A 544-thread block leaves
+// ptxas 96 registers: 8 rows at once at 16 lanes (on an H100 the fastest),
+// 4 below
+template <int LG, int CPT, bool ALIGNED>
+__device__ __forceinline__ void ring_fold_stage(float (&best)[LG][CPT], const float* sd,
+                                                const float* st, int stride, int rows,
+                                                const float* rowp, int K) {
+    constexpr int U = LG >= 16 ? RING_STAGE_ROWS : RING_STAGE_ROWS / 2;
+    if (rows == RING_STAGE_ROWS) {
+#pragma unroll 1
+        for (int i = 0; i < RING_STAGE_ROWS; i += U) {
+            ring_fold<LG, CPT, ALIGNED, U>(best, sd + i * LG, st + i * stride, stride,
+                                           rowp + (size_t)i * K, K);
+        }
+    } else {
+        for (int i = 0; i < rows; ++i) {
+            ring_fold<LG, CPT, ALIGNED, 1>(best, sd + i * LG, st + i * stride, stride,
+                                           rowp + (size_t)i * K, K);
+        }
+    }
+}
+
+// The deltas scan (fp32 logA, emission rows, every part) where the plan
+// holds no tile row in shared memory and every block has one tile: shared
+// memory goes to the carry of the tile's range (in passes of carry_rows
+// rows where it is too tall) and to a ring of p.ring table rows, stride
+// floats each, which one producer warp fills by bulk copies while the PT
+// folding threads fold.  The tile's columns are whole quads of 4 (its slice
+// of a row is one copy); a folding thread owns ring_cols<LG>() of them for
+// every lane.  Each thread still walks its rows in ascending order, and the
+// partials, the two-phase combine and the history are those of the
+// resident route, so the result is the plain scan's bit for bit.  The
+// arguments are scan_persistent's.
+template <int LG>
+__device__ __forceinline__ void ring_scan(const float* __restrict__ logA,
+                                          const float* __restrict__ emit,
+                                          const float* __restrict__ delta0,
+                                          float* __restrict__ dfin, float* __restrict__ deltas,
+                                          float* part_v, float* carry, unsigned int* count,
+                                          unsigned int* err, int Tm, int N, int K,
+                                          const Plan& p) {
+    constexpr int CPT = ring_cols<LG>();
+    constexpr int SR = RING_STAGE_ROWS;
+    extern __shared__ __align__(16) float smem[];
+    __shared__ __align__(8) uint64_t full[RING_STAGES_MAX], empty[RING_STAGES_MAX];
+    __shared__ int s_stop;
+
+    const int tid = threadIdx.x;
+    const int nb = gridDim.x;
+    const int stages = p.ring / SR;
+    float* s_d = smem;                                       // carry_rows x LG, lane-minor
+    float* ring = smem + (p.carry_rows * LG + 3) / 4 * 4;    // p.ring rows x p.stride
+    // tile blockIdx.x: source range r (rows r0 .. r0 + kr), columns c0 .. c1
+    // in whole quads, and the slice w0 .. w1 of the range's rows whose
+    // history it writes
+    const int r = blockIdx.x / p.C, c = blockIdx.x - r * p.C;
+    const int r0 = (int)((long long)r * K / p.R);
+    const int kr = (int)((long long)(r + 1) * K / p.R) - r0;
+    const int quads = (K + 3) / 4;
+    const int c0 = (int)((long long)c * quads / p.C) * 4;
+    const int c1 = min(K, (int)((long long)(c + 1) * quads / p.C) * 4);
+    const int w0 = (int)((long long)c * kr / p.C), w1 = (int)((long long)(c + 1) * kr / p.C);
+    if (tid == 0) {
+        for (int s = 0; s < stages; ++s) {
+            fvt_bar_init(&full[s], 1);
+            fvt_bar_init(&empty[s], PT / 32);  // a folding warp releases a stage at once
+        }
+        s_stop = 0;
+    }
+    __syncthreads();
+    const bool aligned = K % 4 == 0 && (reinterpret_cast<uintptr_t>(logA) & 15) == 0;
+    if (tid >= PT) {
+        if (tid == PT) {
+            ring_produce(logA, K, r0, kr, c0, c1 - c0, aligned,
+                         (long long)((N + LG - 1) / LG) * Tm, ring, p.stride, stages, full,
+                         empty, &s_stop, err);
+        }
+        return;
+    }
+
+    const int my_c = c0 + tid * CPT;     // this thread's first column
+    const bool active = my_c < c1;
+    const int lc = active ? tid * CPT : 0;  // its column in a ring slot
+    const size_t part_buf = (size_t)p.R * LG * K;
+    int s = 0;              // the stage folded next
+    uint32_t phase = 0;     // the parity of its fill
+    bool waiting = true;    // false once a stage's copies timed out: no further wait
+    unsigned int steps = 0, arrivals = 0;
+    for (int g0 = 0; g0 < N; g0 += LG) {
+        const int nl = min(LG, N - g0);
+        for (int t = 0; t < Tm; ++t) {
+            float best[LG][CPT];
+#pragma unroll
+            for (int n = 0; n < LG; ++n) {
+#pragma unroll
+                for (int j = 0; j < CPT; ++j) best[n][j] = -INFINITY;
+            }
+            for (int p0 = 0; p0 < kr; p0 += p.carry_rows) {
+                const int p1 = min(kr, p0 + p.carry_rows), np = p1 - p0;
+                if (p0 > 0) fold_sync();  // the previous pass is done with s_d
+                // the carry of the pass's rows: delta0 (whose slice of the
+                // history's first row this tile writes out), else the carry
+                // the last combine published
+                for (int i = tid; i < np * LG; i += PT) {
+                    const int n = i / np, lr = p0 + i - n * np, k = r0 + lr;
+                    float v = -INFINITY;
+                    if (n < nl && t == 0) {
+                        v = __ldg(delta0 + (size_t)(g0 + n) * K + k);
+                        if (lr >= w0 && lr < w1) deltas[(size_t)(g0 + n) * K + k] = v;
+                    } else if (n < nl) {
+                        v = __ldcg(carry + (size_t)n * K + k);
+                    }
+                    s_d[(lr - p0) * LG + n] = v;
+                }
+                fold_sync();
+                for (int lr = p0; lr < p1; lr += SR) {
+                    if (waiting && !fvt_bar_wait(&full[s], phase)) {
+                        atomicOr(err, ERR_TIMEOUT);
+                        waiting = false;
+                    }
+                    const int rows = min(SR, p1 - lr);
+                    const float* st = ring + s * SR * p.stride + lc;
+                    const float* rowp = logA + (size_t)(r0 + lr) * K + c0;
+                    if (aligned) {
+                        ring_fold_stage<LG, CPT, true>(best, s_d + (lr - p0) * LG, st, p.stride,
+                                                       rows, rowp, K);
+                    } else {
+                        ring_fold_stage<LG, CPT, false>(best, s_d + (lr - p0) * LG, st, p.stride,
+                                                        rows, rowp, K);
+                    }
+                    __syncwarp();
+                    if ((tid & 31) == 0) fvt_bar_arrive(&empty[s]);
+                    if (++s == stages) {
+                        s = 0;
+                        phase ^= 1;
+                    }
+                }
+            }
+            if (active) {
+                float* wv = part_v + (steps & 1) * part_buf + (size_t)r * LG * K;
+#pragma unroll
+                for (int n = 0; n < LG; ++n) {
+#pragma unroll
+                    for (int j = 0; j < CPT; ++j) {
+                        if (my_c + j < c1) wv[(size_t)n * K + my_c + j] = best[n][j];
+                    }
+                }
+            }
+            ++steps;
+            if (!grid_barrier<true>(count, ++arrivals * nb, err)) {
+                // the producer stops too
+                if (tid == 0) *reinterpret_cast<volatile int*>(&s_stop) = 1;
+                return;
+            }
+            // two-phase combine, as the resident route's: this block's share
+            // of the carry entries of step t from their R partials, then the
+            // emission; the second barrier publishes them
+            const float* pv = part_v + ((steps - 1) & 1) * part_buf;
+            const int e0 = (int)((long long)blockIdx.x * nl * K / nb);
+            const int e1 = (int)((long long)(blockIdx.x + 1) * nl * K / nb);
+            const int team = p.team;
+            const int tasks = ((e1 - e0) * team + 31) / 32 * 32;  // whole warps: shuffles
+            for (int i = tid; i < tasks; i += PT) {
+                const int m = i % team;
+                const int e = e0 + i / team;
+                const bool live = e < e1;
+                const int n = live ? e / K : 0, k = live ? e - n * K : 0;
+                const float em = live && m == 0
+                    ? emission<EMIT_ROWS>(emit, nullptr, (size_t)t * N + g0 + n, K, k) : 0.0f;
+                float bv;
+                int ba;
+                combine<LG, false>(pv, nullptr, p.R, K, team, m, n, k, live, true, bv, ba);
+                if (live && m == 0) {
+                    const float d = bv + em;
+                    const size_t o = (size_t)(g0 + n) * K + k;
+                    carry[(size_t)n * K + k] = d;
+                    if (t == Tm - 1) {
+                        dfin[o] = d;
+                    } else {
+                        deltas[(size_t)(t + 1) * N * K + o] = d;
+                    }
+                }
+            }
+            if (!grid_barrier<true>(count, ++arrivals * nb, err)) {
+                if (tid == 0) *reinterpret_cast<volatile int*>(&s_stop) = 1;
+                return;
+            }
+        }
+    }
+}
+
 // The whole scan for every group of LG lanes.  emit is emits (Tm, N, K)
 // (EMIT_ROWS) or logBT (M, K) with the (Tm, N) symbols ys (EMIT_GATHER).
 // part_v / part_i: 2 x R x LG x K partials, two buffers by step parity
@@ -498,14 +864,22 @@ __device__ __forceinline__ Tile tile_of(int q, int K, int units, const Plan& p) 
 // first one and a sink of the partials keeps the fold alive; with no part
 // a step is its grid barriers alone.  Only P_ALL, and P_ALL less P_HIST
 // for dfin, compute the scan.  TA: logA's element type, float or
-// __nv_bfloat16 (the tile in shared memory is of the same type).
-template <int LG, bool WITH_PTR, Emit EMIT, int PARTS, typename TA = float>
-__global__ void __launch_bounds__(PT, 1)
+// __nv_bfloat16 (the tile in shared memory is of the same type).  RING:
+// the ring route (ring_scan, RING_PT threads), an fp32 deltas scan of every
+// part under a plan whose p.ring is set.
+template <int LG, bool WITH_PTR, Emit EMIT, int PARTS, typename TA = float, bool RING = false>
+__global__ void __launch_bounds__(RING ? RING_PT : PT, 1)
 scan_persistent(const TA* __restrict__ logA, const float* __restrict__ emit,
                 const int* __restrict__ ys, const float* __restrict__ delta0,
                 float* __restrict__ dfin, int* __restrict__ ptrs,
                 float* __restrict__ deltas, float* part_v, int* part_i, float* carry,
                 unsigned int* count, unsigned int* err, int Tm, int N, int K, Plan p) {
+    if constexpr (RING) {
+        static_assert(!WITH_PTR && EMIT == EMIT_ROWS && PARTS == P_ALL && sizeof(TA) == 4,
+                      "the ring route is the fp32 deltas scan");
+        ring_scan<LG>(logA, emit, delta0, dfin, deltas, part_v, carry, count, err, Tm, N, K, p);
+        return;
+    }
     constexpr int CPT = cols_per_thread<LG>();
     constexpr int UNROLL = unroll_rows<LG, sizeof(TA)>();
     constexpr bool HIST = PARTS & P_HIST, STREAM = PARTS & P_STREAM, FOLD = PARTS & P_FOLD,
@@ -766,23 +1140,24 @@ scan_persistent(const TA* __restrict__ logA, const float* __restrict__ emit,
     if (!COMBINE && WORK && sink == INFINITY) part_v[blockIdx.x] = sink;
 }
 
-template <int LG, bool WITH_PTR, Emit EMIT, int PARTS, typename TA = float>
+template <int LG, bool WITH_PTR, Emit EMIT, int PARTS, typename TA = float, bool RING = false>
 int launch_persistent(const TA* logA, const float* emit, const int* ys,
                       const float* delta0, float* dfin, int* ptrs, float* deltas,
                       float* part_v, int* part_i, float* carry, unsigned int* count,
                       unsigned int* err, int Tm, int N, int K, const int* plan,
                       cudaStream_t stream) {
-    const auto kernel = scan_persistent<LG, WITH_PTR, EMIT, PARTS, TA>;
+    const auto kernel = scan_persistent<LG, WITH_PTR, EMIT, PARTS, TA, RING>;
     const int smem = plan[PF_SMEM];
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     Plan p{plan[PF_R], plan[PF_C], plan[PF_ROWS_SMEM], plan[PF_STRIDE], plan[PF_CARRY_ROWS],
-           plan[PF_TEAM], plan[PF_TWO_PHASE]};
+           plan[PF_TEAM], plan[PF_TWO_PHASE], plan[PF_RING]};
     void* args[] = {&logA, &emit, &ys, &delta0, &dfin, &ptrs, &deltas, &part_v, &part_i,
                     &carry, &count, &err, &Tm, &N, &K, &p};
     e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(plan[PF_BLOCKS]),
-                                    dim3(PT), args, static_cast<size_t>(smem), stream);
+                                    dim3(RING ? RING_PT : PT), args, static_cast<size_t>(smem),
+                                    stream);
     return static_cast<int>(e);
 }
 
@@ -793,17 +1168,32 @@ int run_scan(const TA* logA, const float* emit, const int* ys, const float* delt
              int N, int K, void* stream, long long* launches) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     int rc;
-#define FVT_SCAN(LG) \
-    rc = launch_persistent<LG, WITH_PTR, EMIT, P_ALL, TA>(logA, emit, ys, delta0, dfin, ptrs, \
-                                                          deltas, part_v, part_i, carry, count, \
-                                                          err, Tm, N, K, plan, s)
-    switch (plan[PF_LANES]) {
-        case 1: FVT_SCAN(1); break;
-        case 2: FVT_SCAN(2); break;
-        case 4: FVT_SCAN(4); break;
-        case 8: FVT_SCAN(8); break;
-        case 16: FVT_SCAN(16); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
+#define FVT_SCAN(LG, RING) \
+    rc = launch_persistent<LG, WITH_PTR, EMIT, P_ALL, TA, RING>(logA, emit, ys, delta0, dfin, \
+                                                                ptrs, deltas, part_v, part_i, \
+                                                                carry, count, err, Tm, N, K, \
+                                                                plan, s)
+    if (plan[PF_RING] != 0) {
+        // the ring route: the fp32 deltas scan at 4, 8 and 16 lanes only
+        if constexpr (!WITH_PTR && EMIT == EMIT_ROWS && sizeof(TA) == 4) {
+            switch (plan[PF_LANES]) {
+                case 4: FVT_SCAN(4, true); break;
+                case 8: FVT_SCAN(8, true); break;
+                case 16: FVT_SCAN(16, true); break;
+                default: return static_cast<int>(cudaErrorInvalidValue);
+            }
+        } else {
+            return static_cast<int>(cudaErrorInvalidValue);
+        }
+    } else {
+        switch (plan[PF_LANES]) {
+            case 1: FVT_SCAN(1, false); break;
+            case 2: FVT_SCAN(2, false); break;
+            case 4: FVT_SCAN(4, false); break;
+            case 8: FVT_SCAN(8, false); break;
+            case 16: FVT_SCAN(16, false); break;
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        }
     }
 #undef FVT_SCAN
     if (rc != 0) return rc;
@@ -1089,7 +1479,8 @@ int launch_step_block(const float* delta, const float* logA, float* val, int* pt
 // The whole scan, one cooperative launch.  Layouts are those of the JAX
 // functions: logA (K, K), emits (Tm, N, K), delta0 (N, K), dfin (N, K),
 // ptrs (Tm, N, K) int32 or deltas (Tm, N, K) float32 -- pass exactly one
-// of the two; the other is null.  plan: the PF_COUNT ints of scan_plan;
+// of the two; the other is null.  plan: the PF_COUNT ints of scan_plan (a
+// plan with PF_RING set, the ring route's, takes deltas at 4, 8 or 16 lanes);
 // scratch: part_v / part_i 2 x R x lanes x K floats / ints (part_i with
 // ptrs only), carry lanes x K floats (two-phase plans only, else null);
 // count: one zeroed uint32, the barrier's; err: the error word (nonzero
@@ -1171,7 +1562,7 @@ extern "C" int fvt_maxplus_step_block(const float* delta, const float* logA_bloc
 // order; ptrs and part_i null, deltas (Tm, N, K) wherever the variant
 // writes the history) as variant `variant` of ABLATION, one cooperative
 // launch.  The plan's lanes are 1 or 16: the ablation instantiates those
-// two (a group of 16 also runs fewer live lanes).  Only "full",
+// two (a group of 16 also runs fewer live lanes); it takes no ring plan.  Only "full",
 // "all-streamed" and, for dfin, "no-hist" compute the scan; the others'
 // outputs are undefined.  Returns the launch error, or
 // cudaErrorInvalidValue for another variant, lane count or a null deltas
@@ -1184,7 +1575,7 @@ extern "C" int fvt_maxplus_scan_deltas_ablation(const float* logA, const float* 
                                                 int N, int K, int variant, void* stream,
                                                 long long* launches) {
     if (variant < 0 || variant >= N_ABLATION || ptrs != nullptr || part_i != nullptr ||
-        (deltas == nullptr && (ABLATION[variant].parts & P_HIST) != 0)) {
+        plan[PF_RING] != 0 || (deltas == nullptr && (ABLATION[variant].parts & P_HIST) != 0)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const cudaStream_t s = static_cast<cudaStream_t>(stream);

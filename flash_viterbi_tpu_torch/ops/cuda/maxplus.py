@@ -19,6 +19,7 @@ result is the fp32 scan of the table rounded to bf16, bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -54,6 +55,15 @@ STEP_MIN_ROWS = 4       # source rows a warp's slice keeps at least: small Ks ta
 # Ks=3968 one lane ran fastest on 124-128 tiles (Kd = 1984, 3968) and 16
 # lanes on 248 or more (Kd = 992, 1984) (scripts/torch_step_variants.py)
 STEP_DENSE_LANES = 8
+# The ring route (scan_plan(..., deltas=True)): the fp32 deltas scan where
+# the plan above would hold no tile row in shared memory, at these lanes a
+# group (csrc: the RING instances of scan_persistent)
+RING_LANES = (4, 8, 16)
+RING_STAGE_ROWS = 8     # table rows of a ring stage (csrc: RING_STAGE_ROWS)
+RING_STAGES_MAX = 32    # stages the ring's barriers allow (csrc: RING_STAGES_MAX)
+# table bytes a block keeps in flight at least: one lane's 512 threads x 8
+# rows x 16 bytes, which streamed a 1 GiB logA at ~3.1 TB/s on an H100
+RING_MIN_BYTES = 65536
 
 
 class ScanPlan(NamedTuple):
@@ -75,7 +85,13 @@ class ScanPlan(NamedTuple):
     once and publishes them behind a second barrier; ``team`` threads
     combine an entry.  ``smem`` is the dynamic shared memory of a block, in
     bytes.  The table's values are ``elem_bytes`` bytes each (4 fp32, 2
-    bf16): the tile rows in shared memory are of that size."""
+    bf16): the tile rows in shared memory are of that size.
+
+    ``ring_rows`` > 0 marks the ring route (:func:`ring_plan`): no tile row
+    in shared memory, every block one tile whose columns are whole quads of
+    4, and a ring of ``ring_rows`` table rows (``stride`` floats each, in
+    stages of ``RING_STAGE_ROWS``) that a producer warp fills beside the
+    folding threads; always two-phase."""
 
     lanes: int
     cols: int
@@ -92,6 +108,7 @@ class ScanPlan(NamedTuple):
     two_phase: bool
     smem: int
     elem_bytes: int = 4
+    ring_rows: int = 0
 
     @property
     def tiles(self) -> int:
@@ -100,7 +117,7 @@ class ScanPlan(NamedTuple):
     def c_args(self):
         """The int array the C entry points take (csrc: PlanField)."""
         fields = (self.lanes, self.R, self.C, self.blocks, self.rows_smem, self.stride,
-                  self.carry_rows, self.team, int(self.two_phase), self.smem)
+                  self.carry_rows, self.team, int(self.two_phase), self.smem, self.ring_rows)
         return (ctypes.c_int * len(fields))(*fields)
 
 
@@ -123,7 +140,8 @@ def combine_team(entries: int, R: int) -> int:
 
 
 def scan_plan(K: int, N: int, sm_count: int, smem_bytes: int = SMEM_LIMIT,
-              two_phase: bool | None = None, elem_bytes: int = 4) -> ScanPlan:
+              two_phase: bool | None = None, elem_bytes: int = 4,
+              deltas: bool = False) -> ScanPlan:
     """The tiling of a (K, K) logA for an N-lane scan on ``sm_count`` SMs
     with ``smem_bytes`` of shared memory a block.
 
@@ -138,7 +156,8 @@ def scan_plan(K: int, N: int, sm_count: int, smem_bytes: int = SMEM_LIMIT,
     ``TWO_PHASE_BYTES`` of partials.  ``elem_bytes`` is the size of a table
     value, 4 (fp32) or 2 (bf16): shared memory then holds twice the rows,
     and a bf16 tile's ``stride`` is even, so that the kernel copies the
-    tile in 4-byte pairs."""
+    tile in 4-byte pairs.  ``deltas``: the plan is for the deltas scan,
+    which takes :func:`ring_plan` where :func:`ring_route` says so."""
     if K < 1 or N < 1 or sm_count < 1:
         raise ValueError(f"need K, N, sm_count >= 1, got {K}, {N}, {sm_count}")
     if elem_bytes not in (2, 4):
@@ -169,11 +188,71 @@ def scan_plan(K: int, N: int, sm_count: int, smem_bytes: int = SMEM_LIMIT,
     # the entries a block combines: its share of all, or its range's a pass
     entries = -(-lanes * K // blocks) if two_phase else carry_rows * lanes
     team = combine_team(entries, R)
-    return ScanPlan(lanes=lanes, cols=cols, R=R, C=C, blocks=blocks, row_edges=row_edges,
+    plan = ScanPlan(lanes=lanes, cols=cols, R=R, C=C, blocks=blocks, row_edges=row_edges,
                     col_edges=col_edges, stride=stride, rows_smem=rows_smem,
                     rows_streamed=kr_max - rows_smem, carry_rows=carry_rows, team=team,
                     two_phase=two_phase, smem=carry + rows_smem * stride * elem_bytes,
                     elem_bytes=elem_bytes)
+    if deltas and ring_route(plan):
+        return ring_plan(K, N, sm_count, smem_bytes) or plan
+    return plan
+
+
+def ring_route(plan: ScanPlan) -> bool:
+    """Whether the fp32 deltas scan leaves ``plan`` (a resident-route
+    plan) for the ring: where the range's carry fills shared memory, so no
+    tile row is held there and every row streams every step, and every
+    block has one tile; two-phase, at ``RING_LANES`` lanes."""
+    return (plan.elem_bytes == 4 and plan.lanes in RING_LANES and plan.two_phase
+            and plan.rows_smem == 0 and plan.tiles == plan.blocks)
+
+
+def ring_plan(K: int, N: int, sm_count: int, smem_bytes: int = SMEM_LIMIT) -> ScanPlan | None:
+    """The ring route's tiling of a (K, K) fp32 logA for an N-lane deltas
+    scan, or None where it does not fit ``sm_count`` SMs and ``smem_bytes``.
+
+    A thread owns 2 columns from 8 lanes (at 16, halving the ranges' carry
+    against the resident route's 1) and 4 at 4; column groups are whole
+    quads of 4 columns, so that a tile row's slice is one bulk copy of
+    16-byte-aligned bytes wherever K % 4 == 0.  Ranges as in :func:`scan_plan`.  A ring row
+    takes ``stride`` floats: the slice and up to 3 floats on each side, where
+    the slice's ends fall between 16-byte boundaries.  Shared memory holds
+    the range's carry in one pass where a ring of ``RING_MIN_BYTES`` still
+    fits beside it, the ring taking the rest (whole stages, at most
+    ``RING_STAGES_MAX``); else a ring of ``RING_MIN_BYTES`` and the carry in
+    passes of whole stages."""
+    lanes = plan_lanes(N)
+    cols = 2 if lanes >= 8 else 4
+    quads = -(-K // 4)
+    C = -(-quads // (THREADS * cols // 4))
+    if C > sm_count:
+        return None
+    R = max(1, min(sm_count // C, K // MIN_TILE_ROWS))
+    row_edges = tuple(r * K // R for r in range(R + 1))
+    col_edges = tuple(min(K, (c * quads // C) * 4) for c in range(C + 1))
+    width = max(b - a for a, b in zip(col_edges, col_edges[1:]))
+    stride = -(-(width + 6) // 4) * 4
+    row_bytes = stride * 4
+    kr_max = -(-K // R)
+    room = smem_bytes - STATIC_SMEM
+    sr = RING_STAGE_ROWS
+    ring_min = -(-RING_MIN_BYTES // (width * 4 * sr)) * sr
+    one_pass = -(-kr_max * lanes // 4) * 16
+    if one_pass + ring_min * row_bytes <= room:
+        carry_rows = kr_max
+        ring_rows = min((room - one_pass) // row_bytes // sr * sr, RING_STAGES_MAX * sr)
+    else:
+        ring_rows = ring_min
+        carry_rows = (room - ring_rows * row_bytes) // (lanes * 4) // sr * sr
+        if carry_rows < sr:
+            return None
+    blocks = R * C
+    return ScanPlan(lanes=lanes, cols=cols, R=R, C=C, blocks=blocks, row_edges=row_edges,
+                    col_edges=col_edges, stride=stride, rows_smem=0, rows_streamed=kr_max,
+                    carry_rows=carry_rows, team=combine_team(-(-lanes * K // blocks), R),
+                    two_phase=True,
+                    smem=-(-carry_rows * lanes // 4) * 16 + ring_rows * row_bytes,
+                    ring_rows=ring_rows)
 
 
 def streamed_bytes(plan: ScanPlan) -> int:
@@ -371,13 +450,14 @@ def scan_scratch_bytes(K: int, N: int, device, with_ptr: bool) -> int:
     """Bytes of scratch one N-lane scan call on ``device`` allocates beside
     its outputs: the plan's partials (with their indices for a pointer
     scan), a two-phase plan's carry and the barrier words.  0 on the CPU,
-    whose plain version keeps none past a step.  The same for a bf16 table:
-    the partials and the carry are fp32, and the plan's ranges, lanes and
-    combine do not depend on the table's element size."""
+    whose plain version keeps none past a step.  For the fp32 table's plan
+    (a deltas scan's may take the ring route); a bf16 table's partials and
+    carry are fp32 too, under the resident route's ranges, which are never
+    more than the ring's: the count bounds them."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return 0
-    plan = _cached_plan(K, N, sm_count(dev))
+    plan = _cached_plan(K, N, sm_count(dev), deltas=not with_ptr)
     part = 2 * plan.R * plan.lanes * K * 4
     return (part * (2 if with_ptr else 1) + (plan.lanes * K * 4 if plan.two_phase else 0)
             + (SYNC_ERR + 1) * 4)
@@ -400,13 +480,15 @@ def _scan_cuda(fn_name: str, counter, inputs: dict, delta0, Tm: int,
         return delta0, hist
     elem = inputs["logA"].element_size()
     if plan is None:
-        plan = _cached_plan(K, N, sm_count(dev), elem_bytes=elem)
+        plan = _cached_plan(K, N, sm_count(dev), elem_bytes=elem, deltas=not with_ptr)
     elif plan.row_edges[-1] != K or plan.col_edges[-1] != K or plan.lanes != plan_lanes(N):
         raise ValueError(f"the plan is for K={plan.row_edges[-1]} at {plan.lanes} lanes, "
                          f"not for K={K}, N={N}")
     elif plan.elem_bytes != elem:
         raise ValueError(f"the plan is for {plan.elem_bytes}-byte table values, logA has "
                          f"{elem}-byte ones")
+    elif plan.ring_rows and with_ptr:
+        raise ValueError("a ring plan is for the fp32 deltas scan alone")
     return launch_scan(fn_name, counter, inputs, delta0, hist, plan, err)
 
 
@@ -436,13 +518,14 @@ def launch_scan(fn_name: str, counter, inputs: dict, delta0, hist, plan: ScanPla
     # 128 bytes on, where the caller passed none
     sync = torch.zeros(SYNC_ERR + 1, dtype=torch.int32, device=dev)
     err_ptr = sync[SYNC_ERR:].data_ptr() if err is None else err.data_ptr()
-    launch(fn_name, counter, dev, *(t.data_ptr() for t in inputs.values()),
-           delta0.data_ptr(), dfin.data_ptr(),
-           hist.data_ptr() if with_ptr else None,
-           None if with_ptr else hist.data_ptr(),
-           part_v.data_ptr(), None if part_i is None else part_i.data_ptr(),
-           None if carry is None else carry.data_ptr(), sync.data_ptr(), err_ptr,
-           plan.c_args(), Tm, N, K, *extra)
+    with span("fvt.scan.ring") if plan.ring_rows else contextlib.nullcontext():
+        launch(fn_name, counter, dev, *(t.data_ptr() for t in inputs.values()),
+               delta0.data_ptr(), dfin.data_ptr(),
+               hist.data_ptr() if with_ptr else None,
+               None if with_ptr else hist.data_ptr(),
+               part_v.data_ptr(), None if part_i is None else part_i.data_ptr(),
+               None if carry is None else carry.data_ptr(), sync.data_ptr(), err_ptr,
+               plan.c_args(), Tm, N, K, *extra)
     if err is None:
         raise_on_error(sync[SYNC_ERR:], fn_name)
     return dfin, hist

@@ -10,7 +10,9 @@ template's ``PARTS`` cut as each variant of :data:`VARIANTS` says, one
 cooperative launch a call under the card's plan
 (``ops/cuda/maxplus.py:scan_plan``).  An N of 2 to 15 runs as one group of
 16 with N live lanes (the production scan would group them at their power
-of two).
+of two).  Where the production deltas scan takes the ring route (K=16384 at
+16 lanes: ``scan_plan(..., deltas=True)``), the probe still times the
+resident route's instance.
 
 ==================  ========================================  ====================
 variant             what runs                                 held to

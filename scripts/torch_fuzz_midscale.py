@@ -144,7 +144,7 @@ class Coverage:
         groups (and whether a block walks several tiles), how a tile's rows
         are held, the combine, the table's element size and the streamed
         rows' load.  The source ranges, which follow K, are left out."""
-        rows = ("smem" if plan.rows_streamed == 0 else
+        rows = ("ring" if plan.ring_rows else "smem" if plan.rows_streamed == 0 else
                 "streamed" if plan.rows_smem == 0 else "smem+streamed")
         several = "+multi" if plan.R * plan.C > plan.blocks else ""
         load = "vec" if K % plan.cols == 0 else "clamped"

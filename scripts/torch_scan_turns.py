@@ -66,18 +66,20 @@ import sys
 
 
 SCAN = re.compile(r"scan_persistentILi(\d+)ELb(\d)ELNS_4EmitE(\d)E(?:Li(\d+)E)?"
-                  r"(13__nv_bfloat16)?")
+                  r"(?:(13__nv_bfloat16)|f)?(Lb1E)?")
 
 
 def scan_key(fn: str) -> str | None:
     """``<LG,WITH_PTR,EMIT,PARTS>`` of a mangled scan_persistent name, with
     ``,bf16`` before the ``>`` for a bf16-table instance (an fp32 one keys
-    as in checkouts that have no table type)."""
+    as in checkouts that have no table type) and ``,ring`` for a ring-route
+    instance (the others key as in checkouts that have no ring)."""
     q = SCAN.search(fn)
     if not q:
         return None
-    return "<{},{},{},{}{}>".format(*q.groups()[:3], q.group(4) or 15,
-                                    ",bf16" if q.group(5) else "")
+    return "<{},{},{},{}{}{}>".format(*q.groups()[:3], q.group(4) or 15,
+                                      ",bf16" if q.group(5) else "",
+                                      ",ring" if q.group(6) else "")
 
 
 def sass_lengths(lib: str) -> dict[str, int]:

@@ -34,6 +34,10 @@ device operation runs):
   (``fvt.kernel.maxplus_scan``: store, ``maxplus_scan_deltas``:
   recompute) and the transposed tables made; ``syncs_per_seq``: the
   ``fvt.sync`` spans (the host waiting on the device) a sequence;
+* ``ring_share``: of the port's kernels launched inside a
+  ``fvt.kernel.maxplus_scan_deltas`` span, the share launched inside a
+  ``fvt.scan.ring`` span too (the deltas scan's ring route); None where no
+  deltas scan ran;
 * ``lost_records``: the port's kernels launched in the window (the
   meta's launches) that the session did not record (``fvbench.trace.
   lost_records``); where it is not empty, a lost kernel's time reads as
@@ -176,7 +180,7 @@ def read(tr: dict, sequences: int, port_rx: re.Pattern) -> dict:
         if any(c.start <= mid <= c.end for c in calls):
             call_idle += a1 - b0
     device: dict[str, float] = {}
-    unmatched = 0
+    unmatched = deltas_launches = ring_launches = 0
     for o in ops:
         launch = tr["launches"].get(o.corr)
         if launch is None:
@@ -184,8 +188,12 @@ def read(tr: dict, sequences: int, port_rx: re.Pattern) -> dict:
             continue
         for root, kids in requests:
             if root.start <= launch.start <= root.end:
-                for n in {s.name for s in kids if s.start <= launch.start <= s.end}:
+                names = {s.name for s in kids if s.start <= launch.start <= s.end}
+                for n in names:
                     device[n] = device.get(n, 0.0) + o.dur
+                if port_rx.search(o.name) and "fvt.kernel.maxplus_scan_deltas" in names:
+                    deltas_launches += 1
+                    ring_launches += "fvt.scan.ring" in names
                 break
     n = max(len(requests), 1)
     seqs = max(sequences, 1)
@@ -201,6 +209,7 @@ def read(tr: dict, sequences: int, port_rx: re.Pattern) -> dict:
         "device_ms_per_seq": {k: 1e3 * v / seqs for k, v in by_value(device)},
         "spans_per_request": {k: v / n for k, v in sorted(counts.items())},
         "syncs_per_seq": counts.get("fvt.sync", 0) / seqs,
+        "ring_share": ring_launches / deltas_launches if deltas_launches else None,
         "ops": len(ops), "ops_without_launch": unmatched,
     }
 

@@ -10,6 +10,7 @@ plan, its scratch and contiguous inputs, count one launch a call and raise
 when a grid barrier timed out, at once or, with an error word shared by a
 decode's scans, where the decode reads it."""
 
+import contextlib
 import ctypes
 
 import jax.numpy as jnp
@@ -239,7 +240,7 @@ def test_cuda_branches_pass_plan_scratch_and_count_one_launch_a_call(monkeypatch
         c_plan = args[-4]
         assert list(c_plan) == [plan.lanes, plan.R, plan.C, plan.blocks, plan.rows_smem,
                                 plan.stride, plan.carry_rows, plan.team, int(plan.two_phase),
-                                plan.smem]
+                                plan.smem, plan.ring_rows]
         assert args[-5] == args[-6] + 4 * km.SYNC_ERR  # the call's own error word
         assert args[-3:] == (3, 20, 64)
         assert all(isinstance(a, int) for a in args[-9:-4] if a is not None)
@@ -358,3 +359,230 @@ def test_beam_scan_takes_a_scratch_above_a_blocks_memory(Kp, scratch, monkeypatc
     assert (args[9] is not None) == scratch == (not plan.state_smem)
     need = plan.state_words * 4
     assert (need + plan.rg * plan.cw * 4 > SMEM_LIMIT - kbeam.STATIC_SMEM) == scratch
+
+
+# ---- the deltas scan's ring route ----
+
+# The resident route's plans of the benchmark's cells that bypass the ring,
+# field for field as they were before it: (K, N): lanes, cols, R, C, blocks,
+# stride, rows_smem, rows_streamed, carry_rows, team, two_phase, smem
+CELL_PLANS = {
+    (3968, 1): (1, 4, 66, 2, 132, 1984, 29, 32, 61, 8, False, 230400),
+    (3968, 16): (16, 1, 16, 8, 128, 496, 108, 140, 248, 1, True, 230144),
+    (16384, 1): (1, 4, 16, 8, 128, 2048, 27, 997, 1024, 4, True, 225280),
+}
+
+
+@pytest.mark.parametrize("K,N", list(CELL_PLANS))
+@pytest.mark.parametrize("deltas", [False, True])
+def test_cells_off_the_route_keep_their_plans(K, N, deltas):
+    """Cells 1, 3 and 4 (the N=1 pointer scans, the 16-lane deltas scan at
+    K=3968) keep the resident route's plan, whichever scan asks."""
+    p = km.scan_plan(K, N, SMS, deltas=deltas)
+    assert (p.lanes, p.cols, p.R, p.C, p.blocks, p.stride, p.rows_smem, p.rows_streamed,
+            p.carry_rows, p.team, p.two_phase, p.smem) == CELL_PLANS[K, N]
+    assert p.row_edges == tuple(r * K // p.R for r in range(p.R + 1))
+    units = -(-K // p.cols)
+    assert p.col_edges == tuple(min(K, (c * units // p.C) * p.cols) for c in range(p.C + 1))
+    assert p.elem_bytes == 4 and p.ring_rows == 0
+
+
+@pytest.mark.parametrize("lanes,K,on", [(16, 14336, False), (16, 14464, True),
+                                         (8, 28416, False), (8, 28544, True),
+                                         (4, 55808, False), (4, 55936, True),
+                                         (2, 65536, False), (1, 65536, False)])
+def test_ring_route_at_its_edges(lanes, K, on):
+    """The deltas scan takes the ring where the resident plan keeps no tile
+    row in shared memory and every block has one tile, at 4, 8 and 16
+    lanes; off the route the deltas plan is the resident one."""
+    resident = km.scan_plan(K, lanes, SMS)
+    p = km.scan_plan(K, lanes, SMS, deltas=True)
+    assert km.ring_route(resident) == on
+    assert (p.ring_rows > 0) == on
+    assert resident.ring_rows == 0
+    if not on:
+        assert p == resident
+
+
+def test_bf16_pointer_and_forced_combines_stay_off_the_route():
+    """At K=16384 x 16 lanes the bf16 table, the pointer scan and an
+    on-read combine keep the resident plan; a forced two-phase one does
+    not change the ring."""
+    resident = km.scan_plan(16384, 16, SMS)
+    assert km.scan_plan(16384, 16, SMS, elem_bytes=2, deltas=True).ring_rows == 0
+    assert km.scan_plan(16384, 16, SMS, elem_bytes=2, deltas=True) == km.scan_plan(
+        16384, 16, SMS, elem_bytes=2)
+    assert resident.ring_rows == 0 and resident.rows_smem == 0
+    assert km.scan_plan(16384, 16, SMS, two_phase=False, deltas=True).ring_rows == 0
+    assert km.scan_plan(16384, 16, SMS, two_phase=True, deltas=True) == km.scan_plan(
+        16384, 16, SMS, deltas=True)
+    # the shared memory of a block too small for a ring: the resident plan
+    small = km.STATIC_SMEM + 64 * 1024
+    assert km.scan_plan(16384, 16, SMS, smem_bytes=small, deltas=True) == km.scan_plan(
+        16384, 16, SMS, smem_bytes=small)
+
+
+def _span_bytes(addr: int, width: int) -> tuple[int, int]:
+    """ring_span's copy of a slice of ``width`` floats at byte ``addr``:
+    (the copy's bytes, the slice's first float within it)."""
+    a, e = addr & ~15, (addr + 4 * width + 15) & ~15
+    return e - a, (addr - a) // 4
+
+
+RING_SHAPES = [(16, K) for K in (14341, 14464, 16383, 16384, 32768, 67584)] + [
+    (8, K) for K in (28544, 65536, 135168)] + [(4, K) for K in (55936, 131072, 270336)]
+
+
+@pytest.mark.parametrize("lanes,K", RING_SHAPES)
+def test_ring_plan_fits_and_keeps_64_kib_in_flight(lanes, K):
+    """The ring plan: one tile a block over every cell once, columns in
+    whole quads a block's threads own, the carry and the ring within a
+    block's shared memory, at least RING_MIN_BYTES of table a block in
+    flight, the carry in passes of whole stages where it is tall."""
+    p = km.scan_plan(K, lanes, SMS, deltas=True)
+    assert p.ring_rows > 0 and p.two_phase and p.rows_smem == 0
+    assert p.tiles == p.blocks <= SMS
+    rows, cols = np.array(p.row_edges), np.array(p.col_edges)
+    assert rows[0] == 0 and rows[-1] == K and (np.diff(rows) > 0).all()
+    assert cols[0] == 0 and cols[-1] == K and (np.diff(cols) > 0).all()
+    assert all(c % 4 == 0 for c in cols[:-1])
+    width = int(np.diff(cols).max())
+    assert width <= km.THREADS * p.cols and p.cols == (4 if lanes == 4 else 2)
+    assert p.stride % 4 == 0 and p.stride >= width + 6
+    assert p.ring_rows % km.RING_STAGE_ROWS == 0
+    assert p.ring_rows <= km.RING_STAGE_ROWS * km.RING_STAGES_MAX
+    assert p.ring_rows * width * 4 >= km.RING_MIN_BYTES
+    kr_max = int(np.diff(rows).max())
+    assert p.rows_streamed == kr_max
+    assert p.carry_rows == kr_max or p.carry_rows % km.RING_STAGE_ROWS == 0
+    carry = -(-p.carry_rows * p.lanes // 4) * 16
+    assert p.smem == carry + p.ring_rows * p.stride * 4
+    assert p.smem + km.STATIC_SMEM <= SMEM_LIMIT
+    assert p.team == km.combine_team(-(-lanes * K // p.blocks), p.R)
+    assert km.streamed_bytes(p) == K * K * 4
+    if K == 16384:  # R=8 x C=16, the carry in one pass; partials within 16 MiB
+        assert (p.R, p.C, p.carry_rows, p.ring_rows) == (8, 16, 2048, 24)
+        assert 2 * p.R * p.lanes * K * 4 <= 16 * 2**20
+    # every row's copy fits its slot, wherever logA's base lies
+    for base in (0, 4, 8, 12):
+        for r in range(p.R):
+            for k in (p.row_edges[r], p.row_edges[r + 1] - 1):
+                for c0, c1 in zip(p.col_edges, p.col_edges[1:]):
+                    nbytes, off = _span_bytes(base + 4 * (k * K + c0), c1 - c0)
+                    assert nbytes % 16 == 0 and nbytes <= 4 * p.stride
+                    # the last thread's columns (CPT from lc) stay in the slot
+                    last = -(-(c1 - c0) // p.cols) * p.cols
+                    assert off + last <= p.stride
+                    if base == 0 and K % 4 == 0:
+                        assert off == 0 and nbytes == 4 * (c1 - c0)
+
+
+def _ring_orders(kr: int, carry_rows: int, stages: int, steps: int):
+    """The ring's stage sequence as the producer fills it (chunks of
+    RING_STAGE_ROWS rows from each step's first row) and as the folding
+    threads take it (each carry pass's rows in chunks): (slot, parity,
+    first row, rows) each."""
+    sr = km.RING_STAGE_ROWS
+
+    def walk(chunks):
+        out, s, ph = [], 0, 0
+        for lr, n in chunks:
+            out.append((s, ph, lr, n))
+            s, ph = (0, ph ^ 1) if s + 1 == stages else (s + 1, ph)
+        return out
+
+    fill = [(lr, min(sr, kr - lr)) for _ in range(steps) for lr in range(0, kr, sr)]
+    take = [(lr, min(sr, p1 - lr)) for _ in range(steps)
+            for p0 in range(0, kr, carry_rows) for p1 in [min(kr, p0 + carry_rows)]
+            for lr in range(p0, p1, sr)]
+    return walk(fill), walk(take)
+
+
+@pytest.mark.parametrize("lanes,K", RING_SHAPES)
+def test_ring_stages_are_filled_and_folded_in_one_order(lanes, K):
+    """Producer and folding threads agree on every stage's slot, parity and
+    rows (so a carry pass never splits a stage), and each row of a tile
+    folds once a step, in ascending order."""
+    p = km.scan_plan(K, lanes, SMS, deltas=True)
+    stages = p.ring_rows // km.RING_STAGE_ROWS
+    for r in {0, p.R - 1}:
+        kr = p.row_edges[r + 1] - p.row_edges[r]
+        fill, take = _ring_orders(kr, p.carry_rows, stages, steps=2)
+        assert fill == take
+        rows = [lr + i for _, _, lr, n in take[:len(take) // 2] for i in range(n)]
+        assert rows == list(range(kr))
+
+
+def test_ring_emulated_decomposition_equals_plain(monkeypatch):
+    """The ring plan's tiling (quads of columns, 2 a thread at 16 lanes,
+    the carry in passes) run through the kernel's decomposition equals the
+    plain deltas scan bit for bit, on a small card (16 threads a block, a
+    few rows a tile) whose shared memory forces the passes."""
+    monkeypatch.setattr(km, "THREADS", 16)
+    monkeypatch.setattr(km, "MIN_TILE_ROWS", 3)
+    monkeypatch.setattr(km, "RING_MIN_BYTES", 512)
+    K, N, Tm = 131, 20, 4
+    plan = km.ring_plan(K, N, 64, smem_bytes=km.STATIC_SMEM + 1700)
+    assert plan is not None and plan.carry_rows < plan.rows_streamed and plan.C > 1
+    logA, emits, delta0, _, _ = (torch.from_numpy(x) for x in _ties(K, N, Tm, 5, seed=8))
+    got = _emulate(logA, delta0, lambda t, lanes: emits[t, lanes], Tm, plan, False)
+    want = km.maxplus_scan_deltas_plain(logA, emits, delta0)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+def _big_spy(monkeypatch, K):
+    """The CUDA branch faked as in _spy, for a (K, K) table that is never
+    allocated (an expanded row: the fake launch reads nothing), with the
+    ``fvt.*`` spans the wrapper opens recorded."""
+    calls = _spy(monkeypatch)
+    spans = []
+
+    def record(name):
+        spans.append(name)
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(km, "span", record)
+    monkeypatch.setattr(km, "expect_contiguous", lambda **t: None)
+    return calls, spans
+
+
+@pytest.mark.parametrize("K,N,kind,ring", [(16384, 16, "deltas", True),
+                                           (16384, 9, "deltas", True),
+                                           (16384, 16, "scan", False),
+                                           (16384, 16, "deltas_bf16", False),
+                                           (3968, 16, "deltas", False),
+                                           (16384, 1, "deltas", False)])
+def test_the_wrapper_opens_the_ring_span_only_on_the_route(K, N, kind, ring, monkeypatch):
+    """The deltas wrapper hands the kernel the ring plan and opens
+    ``fvt.scan.ring`` around its launch exactly where the route is taken."""
+    calls, spans = _big_spy(monkeypatch, K)
+    dtype = torch.bfloat16 if kind.endswith("bf16") else torch.float32
+    logA = torch.zeros((K, 1), dtype=dtype).expand(K, K)
+    emits, delta0 = torch.zeros((1, N, K)), torch.zeros((N, K))
+    fn = km.maxplus_scan if kind == "scan" else km.maxplus_scan_deltas
+    fn(logA, emits, delta0)
+    (_, args), = calls
+    plan = km.scan_plan(K, N, SMS, elem_bytes=2 if dtype == torch.bfloat16 else 4,
+                        deltas=kind != "scan")
+    assert list(args[-4]) == list(plan.c_args())
+    assert (plan.ring_rows > 0) == ring
+    assert ("fvt.scan.ring" in spans) == ring
+
+
+def test_a_ring_plan_is_refused_but_by_the_fp32_deltas_scan(monkeypatch):
+    """A ring plan handed to the pointer scan or to the bf16 deltas scan is
+    refused before any launch; the fp32 deltas scan takes it."""
+    K, N = 16384, 16
+    calls, spans = _big_spy(monkeypatch, K)
+    plan = km.ring_plan(K, N, SMS)
+    logA = torch.zeros((K, 1)).expand(K, K)
+    emits, delta0 = torch.zeros((1, N, K)), torch.zeros((N, K))
+    with pytest.raises(ValueError, match="ring plan"):
+        km.maxplus_scan(logA, emits, delta0, plan=plan)
+    with pytest.raises(ValueError, match="4-byte table values"):
+        km.maxplus_scan_deltas(logA.to(torch.bfloat16), emits, delta0, plan=plan)
+    assert calls == [] and spans == []
+    km.maxplus_scan_deltas(logA, emits, delta0, plan=plan)
+    assert list(calls[0][1][-4]) == list(plan.c_args())
+    assert spans == ["fvt.scan.ring", "fvt.sync"]  # the call reads its own error word

@@ -315,6 +315,37 @@ def test_trace_spans_reads_a_made_up_session():
         "fvt.emissions": approx(0.002)}
     assert got["spans_per_request"]["fvt.auto.fused"] == 1.0
     assert got["syncs_per_seq"] == 1.0
+    assert got["ring_share"] is None  # no deltas scan ran
+
+
+def test_trace_spans_reads_the_ring_share():
+    """Of the port's kernels launched in a deltas scan's span, the share
+    launched in a ``fvt.scan.ring`` span: two deltas scans, one on the
+    ring; the walk and the gather launched beside them do not count."""
+    from scripts import torch_trace_spans as tts
+
+    events = [
+        _x("fvbench.call", "user_annotation", 0, 200),
+        _x("fvt.decode.flash_long", "user_annotation", 5, 190),
+        _x("fvt.emissions", "user_annotation", 6, 4),
+        _x("fvt.kernel.maxplus_scan_deltas", "user_annotation", 20, 20),
+        _x("fvt.scan.ring", "user_annotation", 25, 10),
+        _x("fvt.kernel.maxplus_scan_deltas", "user_annotation", 60, 20),
+        _x("fvt.kernel.argmax_walk", "user_annotation", 100, 10),
+        _x("cudaLaunchKernel", "cuda_runtime", 7, 1, corr=1),
+        _x("cudaLaunchCooperativeKernel", "cuda_runtime", 30, 2, corr=2),
+        _x("cudaLaunchCooperativeKernel", "cuda_runtime", 70, 2, corr=3),
+        _x("cudaLaunchKernel", "cuda_runtime", 105, 2, corr=4),
+        _x("index_elementwise_kernel", "kernel", 9, 2, corr=1),
+        _x("void scan_persistent<16, false, (Emit)1, 15, float, true>(...)", "kernel", 33, 40,
+           corr=2),
+        _x("void scan_persistent<16, false, (Emit)1, 15, float, false>(...)", "kernel", 73, 40,
+           corr=3),
+        _x("void walk_kernel<float>(...)", "kernel", 113, 5, corr=4),
+    ]
+    got = tts.read(tts.load(events), sequences=16, port_rx=tts.port_pattern())
+    assert got["ring_share"] == 0.5
+    assert got["spans_per_request"]["fvt.scan.ring"] == 1.0
 
 
 def test_trace_spans_reads_saved_traces_again(tmp_path, capsys):
