@@ -14,6 +14,12 @@ The floor is the larger of the two times.
 Unlike the program's bounds, this floor counts no re-read of ``logA``
 where it exceeds what the card holds on chip: a decode whose lanes or
 segments share each read of the table can beat that re-read floor.
+
+A FLASH-BS decode (:func:`beam_floor_s`) of a beam of B over N segments
+does B·K cells a step: phase 1's T−1 steps and the segments' Σ(lenₛ−1) =
+T−N.  Its bytes are the rows of ``logA`` its beams can reach, each read
+once (B a step, at most K), ``logB`` and ``Pi``, and the observations and
+paths moved once.
 """
 
 from __future__ import annotations
@@ -54,3 +60,21 @@ def floor_s(K: int, M: int, T: int, Bs: int = 1, on: Card = H100) -> tuple[float
     by_bytes = io_bytes(K, M, T, Bs) / on.bytes_per_s
     return max(by_cells, by_bytes), "operations" if by_cells >= by_bytes else "bytes"
 
+
+
+def beam_steps(T: int, N: int) -> int:
+    """Beam steps of one FLASH-BS decode of T positions in N segments (N as
+    the decode runs it): phase 1's T−1 and the segments' T−N."""
+    return max(T - 1, 0) + max(T - N, 0)
+
+
+def beam_floor_s(K: int, M: int, T: int, B: int, N: int, on: Card = H100,
+                 Bs: int = 1) -> tuple[float, str]:
+    """(seconds, what bounds it) of one FLASH-BS decode of Bs sequences with
+    a beam of B over N segments."""
+    B = min(B, K)
+    steps = beam_steps(T, N)
+    by_cells = Bs * steps * B * K / on.cells_per_s
+    rows = min(K, Bs * steps * B)
+    by_bytes = (4 * (rows * K + K * M + K) + 2 * 4 * Bs * T) / on.bytes_per_s
+    return max(by_cells, by_bytes), "operations" if by_cells >= by_bytes else "bytes"

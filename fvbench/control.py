@@ -7,9 +7,10 @@ run.
     python3 -m fvbench.control --workload <cell> --seeds 1,2,3 --control-seeds 4,5,6 \\
         [--out FILE]
 
-The control is the entry's own lower-precision path (``precision="bf16"``),
-or the reference at a bfloat16 table in the program's place where the entry
-has none (``run.prepare``).  Prints one JSON line a run: the side, the seed,
+The control is the entry's own: its lower-precision path
+(``precision="bf16"``), or, where the cell states a ``decoder``, the same
+decode at half the beam; the reference at a bfloat16 table takes the
+program's place where the entry has none (``run.prepare``).  Prints one JSON line a run: the side, the seed,
 the numbers compared and the run's end-to-end metrics; ``--out`` appends
 them to a file too.
 """

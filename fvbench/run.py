@@ -4,12 +4,18 @@
 
 A cell names a configuration (``configs/<config>.json``: the HMM's sizes)
 and a traffic mix (``traffic/<mix>.json``: the loop, the sequences a
-request, T, the pool and the entry); the entry (``entries/<entry>.py``)
+request, T, the pool, the entry and, where the cell promises a decode other
+than the exact optimum, its ``decoder``); the entry (``entries/<entry>.py``)
 calls one function of ``flash_viterbi_tpu_torch`` on tables uploaded once;
 ``cells/<cell>.json`` holds what the check samples and its limits; each
 metric is read by ``endtoend/<name>.py`` or ``metrics/<name>.py``.  All are
 found by name, so a cell, configuration, mix, entry or metric is added by
 adding files and entries.
+
+A ``decoder`` object, such as ``{"algorithm": "flash_bs", "beam_width": 64,
+"num_segments": 8}``, states the decode once: the entry builds it from
+these numbers, and the check decodes the sample again with the reference
+of that name (``reference.<algorithm>``) and the same numbers.
 
 Set-up draws the tables from ``--seed`` on the card, computes their float32
 logs, uploads them padded with the port's ``algorithms.base.upload``, builds
@@ -19,12 +25,10 @@ handing the port the host's observations to holding its paths on the host,
 until the first completion at or after ``--seconds``.  With ``--trace 1``
 a ``torch.profiler`` session covers the traffic's ``trace_requests``
 requests right after warm-up instead, and the per-layer metrics are read
-from it.  After the window the program's state is freed, every completed
-path is scored in float64 (a state outside [0, K) or an edge of
-probability 0 makes it invalid), and a sample of the completed sequences,
-drawn from the seed, is decoded again by the plain reference
-(``reference.py``): each sampled path the program returned must score
-within the cell's limit of the reference's best.
+from it.  After the window the program's state is freed and the paths are
+judged (:func:`judge`): every completed path is checked in float64, and a
+sample of the completed sequences, drawn from the seed, is decoded again by
+the plain reference (``reference.py``).
 
 Prints the result as the last line of standard output, the numbers
 compared beside their limits as the last lines of standard error.  Exits 2
@@ -97,7 +101,11 @@ CONFIG_KEYS = {"K", "M", "prob", "source", "deployment", "generator", "published
                "assumed"}
 #: what the harness reads from a traffic mix
 TRAFFIC_KEYS = {"loop", "clients", "entry", "sequences_per_request", "T", "pool",
-                "trace_requests"}
+                "trace_requests", "decoder"}
+#: the decodes a traffic mix's ``decoder`` may name, each with the numbers
+#: it must state: the keyword arguments of its reference,
+#: ``reference.<algorithm>``
+DECODERS = {"flash_bs": {"beam_width", "num_segments"}}
 
 
 def _implemented(kind: str, data: dict, keys: set) -> None:
@@ -117,6 +125,24 @@ class Cell:
     check: dict
     end_to_end: list
     per_layer: list
+
+    @property
+    def decoder(self) -> dict | None:
+        """The decode the cell promises where it is not the exact optimum."""
+        return self.traffic.get("decoder")
+
+
+def _decoder(dec: dict) -> None:
+    """Refuse a ``decoder`` the check cannot hold a run to: an algorithm
+    with no reference, or a number missing or not read."""
+    params = DECODERS.get(dec.get("algorithm"))
+    if params is None:
+        raise ValueError(f"decoder {dec.get('algorithm')!r}: the harness implements "
+                         f"{', '.join(sorted(DECODERS))}")
+    _implemented("decoder", dec, params | {"algorithm"})
+    missing = sorted(params - set(dec))
+    if missing:
+        raise ValueError(f"decoder {dec['algorithm']!r} states no {', '.join(missing)}")
 
 
 def load_cell(name: str, bench: dict | None = None, overrides: dict | None = None) -> Cell:
@@ -138,6 +164,8 @@ def load_cell(name: str, bench: dict | None = None, overrides: dict | None = Non
     if traffic.get("loop", "closed") != "closed" or int(traffic.get("clients", 1)) != 1:
         raise ValueError(f"traffic {spec['traffic']!r}: the harness runs a closed loop of one "
                          "client only")
+    if "decoder" in traffic:
+        _decoder(traffic["decoder"])
 
     def mine(metrics):
         return [m for m in metrics if name in m.get("workloads", [name])]
@@ -178,8 +206,10 @@ def prepare(cell: Cell, seed: int, device, control: bool = False) -> Setup:
     """Set-up: the tables, the upload, the entry, the pool and one warm-up
     request.  The tensors are made in one fixed order, so that the caching
     allocator places them alike in every run.  ``control`` builds the
-    entry's lower-precision control, or the reference at a bfloat16 table
-    where the entry has none."""
+    entry's control (its lower precision, or a narrower beam where the
+    cell states a ``decoder``), or the reference at a bfloat16 table where
+    the entry has none.  The entry takes the cell's ``decoder`` where it
+    states one."""
     from flash_viterbi_tpu_torch.algorithms.base import decode, upload
     from flash_viterbi_tpu_torch.models.hmm import LogHMM
 
@@ -195,7 +225,8 @@ def prepare(cell: Cell, seed: int, device, control: bool = False) -> Setup:
     sync(dev)
     base_bytes = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
     marks.append(("tables", time.perf_counter()))
-    call = _load("entries", tr["entry"]).make(lh, control=control)
+    stated = {"decoder": cell.decoder} if cell.decoder else {}
+    call = _load("entries", tr["entry"]).make(lh, control=control, **stated)
     in_place = call is None
     if in_place:
         if not control:
@@ -330,12 +361,19 @@ def sample(w: Window, n: int, seed: int) -> list[tuple[int, int, int]]:
     return picks
 
 
-def judge(s: Setup, w: Window, cell: Cell, seed: int) -> dict:
-    """The numbers compared, each ``{"value", "limit"}``: requests that
-    failed; returned sequences of the wrong shape, with a state outside
-    [0, K) or of probability 0 (every completed path scored in float64);
-    the widest float64 score gap between the reference's best path and a
-    sampled path the program returned."""
+def judge(s: Setup, w: Window, cell: Cell, seed: int) -> tuple[dict, dict]:
+    """(checks, readings): the numbers compared, each ``{"value",
+    "limit"}``, and numbers reported beside them without a limit.
+
+    A cell that states no ``decoder`` promises the exact optimum.  Its
+    checks: requests that failed; returned sequences of the wrong shape,
+    with a state outside [0, K) or of probability 0 (every completed path
+    scored in float64); the widest float64 score gap between the
+    reference's best path (``reference.viterbi``) and a sampled path the
+    program returned.  A cell that states one is judged by
+    :func:`judge_decoder`."""
+    if cell.decoder:
+        return judge_decoder(s, w, cell, seed)
     K, T, Bs = s.K, w.T, w.Bs
     shaped = [(r, p) for r, (_, p) in enumerate(w.paths) if p.shape == (Bs, T)]
     invalid = Bs * (len(w.paths) - len(shaped))
@@ -363,7 +401,53 @@ def judge(s: Setup, w: Window, cell: Cell, seed: int) -> dict:
     limits = cell.check["limits"]
     return {"failed": {"value": w.failed, "limit": limits["failed"]},
             "invalid_paths": {"value": invalid, "limit": limits["invalid_paths"]},
-            "score_gap": {"value": gap, "limit": limits["score_gap"]}}
+            "score_gap": {"value": gap, "limit": limits["score_gap"]}}, {}
+
+
+def judge_decoder(s: Setup, w: Window, cell: Cell, seed: int) -> tuple[dict, dict]:
+    """The check of a cell that states a ``decoder``, which promises that
+    decode's own paths, not the optimum.  Checks: requests that failed;
+    returned sequences (every completed one) of the wrong shape, with a
+    state outside [-1, K), a run of -1 that is not a whole segment of the
+    decoder's layout (``reference.segments``), or an edge or emission of
+    probability 0 between positions that are not -1; sampled sequences
+    whose path differs in any position, -1 included, from the reference's
+    decode with the same numbers (limit 0: both sides make the same float32
+    roundings and tie choices).  Reading: the sampled sequences whose path
+    holds a -1 segment."""
+    dec = cell.decoder
+    params = {k: v for k, v in dec.items() if k != "algorithm"}
+    T, Bs = w.T, w.Bs
+    shaped = [(r, p) for r, (_, p) in enumerate(w.paths) if p.shape == (Bs, T)]
+    invalid = Bs * (len(w.paths) - len(shaped))
+    starts, lens = reference.segments(T, params["num_segments"])
+    per_block = max(1, 2**24 // (Bs * T))
+    for b in range(0, len(shaped), per_block):
+        block = shaped[b:b + per_block]
+        paths = np.concatenate([p for _, p in block]).astype(np.int64)
+        gone = np.add.reduceat((paths == -1).astype(np.int64), starts, axis=1)
+        partial = ((gone > 0) & (gone < np.asarray(lens))).any(axis=1)
+        ys = torch.from_numpy(np.concatenate([s.pool[w.paths[r][0]] for r, _ in block])
+                              .astype(np.int64)).to(s.device)
+        got = reference.path_scores(s.A, s.B, s.Pi, ys, torch.from_numpy(paths).to(s.device),
+                                    gaps=True).cpu().numpy()
+        invalid += int((partial | ~np.isfinite(got)).sum())
+    ok = {r for r, _ in shaped}
+    picks = [(r, lane, pi) for r, lane, pi in sample(w, int(cell.check["sample"]), seed)
+             if r in ok]
+    mismatch = dropped = None
+    if picks:
+        ys = torch.from_numpy(np.stack([s.pool[pi][lane] for _, lane, pi in picks])
+                              .astype(np.int64)).to(s.device)
+        mine = np.stack([w.paths[r][1][lane] for r, lane, _ in picks]).astype(np.int64)
+        want = getattr(reference, dec["algorithm"])(s.A, s.B, s.Pi, ys, **params).cpu().numpy()
+        mismatch = int((mine != want).any(axis=1).sum())
+        dropped = int((mine == -1).any(axis=1).sum())
+    limits = cell.check["limits"]
+    return ({"failed": {"value": w.failed, "limit": limits["failed"]},
+             "invalid_paths": {"value": invalid, "limit": limits["invalid_paths"]},
+             "path_mismatch": {"value": mismatch, "limit": limits["path_mismatch"]}},
+            {"sampled_with_dropped_segment": dropped})
 
 
 def passed(checks: dict) -> bool:
@@ -398,7 +482,8 @@ def card_facts(dev) -> dict:
 def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device="cuda",
              control: bool = False, requests: int | None = None) -> dict:
     """One run: set-up, the window, the check; returns the result line's
-    object (keys in the order printed, ``checks`` last).  ``requests`` ends
+    object (keys in the order printed, the judge's uncompared ``readings``
+    where it has any, ``checks`` last).  ``requests`` ends
     an untraced window after that many completions (the control's
     readings)."""
     s = prepare(cell, seed, device, control)
@@ -420,7 +505,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device="cuda",
         card = bounds.Card(sms=facts["sms"], clock_hz=facts["clock_hz"])
         floor, _ = bounds.floor_s(s.K, int(cell.config["M"]), w.T, w.Bs, card)
         tr = trace.Trace(ops=rec["ops"], spans=rec["spans"], window_s=w.seconds,
-                         sequences=w.sequences, floor_s=floor * len(w.paths))
+                         sequences=w.sequences, floor_s=floor * len(w.paths), K=s.K,
+                         M=int(cell.config["M"]), T=w.T, Bs=w.Bs, decoder=cell.decoder,
+                         card=card)
         lost = trace.lost_records(tr.ops, w.launches, _json("", "kernels"))
         if lost and s.device.type == "cuda":
             raise LostRecords("; ".join(lost))
@@ -442,12 +529,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device="cuda",
     if s.device.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    checks = judge(s, w, cell, seed)
+    checks, readings = judge(s, w, cell, seed)
     print(f"# reference check {time.perf_counter() - t_ref:.3f} s", file=sys.stderr)
     result["correct"] = passed(checks)
     result["metrics"] = metrics
     result["device"] = device_out
     result.update(extra)
+    if readings:
+        result["readings"] = readings
     result["checks"] = checks
     return result
 
@@ -482,8 +571,11 @@ def main(argv=None) -> int:
 
 
 def emit(result: dict) -> None:
-    """The numbers compared beside their limits as the last lines of
-    standard error, then the result as the last line of standard output."""
+    """The uncompared readings, then the numbers compared beside their
+    limits as the last lines of standard error; then the result as the last
+    line of standard output."""
+    for name, v in result.get("readings", {}).items():
+        print(f"reading {name} {v}", file=sys.stderr, flush=True)
     for name, c in result["checks"].items():
         print(f"check {name} {c['value']} limit {c['limit']}", file=sys.stderr, flush=True)
     print(json.dumps(result), flush=True)

@@ -4,9 +4,9 @@ the control at a size a test run holds.  (The cells run on one card, so no
 exchange between cards can be left out.)"""
 
 import pytest
-from conftest import CELLS, TINY
+from conftest import BEAM, CELLS, TINY, tiny
 
-from flash_viterbi_tpu_torch.algorithms import fused, longform
+from flash_viterbi_tpu_torch.algorithms import flash_bs, fused, longform
 from fvbench import control, run
 
 #: where each cell's entry produces its paths
@@ -15,6 +15,7 @@ PRODUCERS = {
     "config5_k16384.single_t4096": (fused, "fused_decode"),
     "paper_k3965.batch16_t256": (fused, "fused_decode_batch"),
     "config5_k16384.batch16_t4096": (longform, "flash_decode_long_batched"),
+    BEAM: (flash_bs, "flash_bs_decode"),
 }
 
 
@@ -45,13 +46,13 @@ FAULTS = {"altered": altered, "unchanged": unchanged, "half_left_out": half_left
 
 #: each cell with each fault it can have (a one-sequence request has no
 #: batch to halve)
-CASES = [(name, fault) for name in CELLS for fault in FAULTS
+CASES = [(name, fault) for name in CELLS + (BEAM,) for fault in FAULTS
          if fault != "half_left_out" or "batch" in name]
 
 
 @pytest.mark.parametrize("name, fault", CASES)
 def test_a_fault_fails_the_check(name, fault, monkeypatch):
-    cell = run.load_cell(name, overrides=TINY)
+    cell = run.load_cell(name, overrides=tiny(name))
     module, fn = PRODUCERS[name]
     sound = getattr(module, fn)
     monkeypatch.setattr(module, fn, lambda *a, **k: FAULTS[fault](sound(*a, **k)))
@@ -102,7 +103,9 @@ def test_a_fault_in_one_path_outside_the_sample_fails_the_check(name, monkeypatc
         return one_outside_the_sample(out) if calls["n"] == 4 else out
 
     monkeypatch.setattr(module, fn, once)
-    result = run.run_cell(cell, 2**31 + 43, 0.1, False, device="cpu")
+    # a fixed count of requests, not a clock: the fourth call (the third
+    # request after warm-up) is always made
+    result = run.run_cell(cell, 2**31 + 43, 3600.0, False, device="cpu", requests=6)
     assert result["checks"]["invalid_paths"]["value"] == 1, result["checks"]
     assert result["correct"] is False
 

@@ -1,6 +1,7 @@
 """What the benchmark loads: nothing of JAX or the JAX package (by whole
 top-level name) in a process that ran a cell, and nothing of the program
-either where only the reference, the generator and the floor are loaded."""
+either where only the reference (both decodes run), the generator and the
+floor are loaded."""
 
 import json
 import os
@@ -12,9 +13,9 @@ from conftest import ROOT
 RUN_A_CELL = """
 import json, sys
 from fvbench import run, control
-from conftest import CELLS, TINY
-for name in CELLS:
-    cell = run.load_cell(name, overrides=TINY)
+from conftest import BEAM, CELLS, tiny
+for name in CELLS + (BEAM,):
+    cell = run.load_cell(name, overrides=tiny(name))
     run.run_cell(cell, 5, 0.05, True, device="cpu")
     run.run_cell(cell, 5, 0.05, False, device="cpu", control=True)
 print(json.dumps(sorted(sys.modules)))
@@ -22,7 +23,12 @@ print(json.dumps(sorted(sys.modules)))
 
 REFERENCE_ONLY = """
 import json, sys
+import torch
 import fvbench.reference, fvbench.gen, fvbench.bounds
+A, B, Pi = fvbench.gen.tables(40, 5, 0.3, 1, "cpu")
+ys = torch.as_tensor(fvbench.gen.observations(2, 12, 5, 1)).long()
+fvbench.reference.viterbi(A, B, Pi, ys)
+fvbench.reference.flash_bs(A, B, Pi, ys, 4, 2)
 print(json.dumps(sorted(sys.modules)))
 """
 

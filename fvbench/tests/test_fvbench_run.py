@@ -6,15 +6,15 @@ import json
 import numpy as np
 import pytest
 import torch
-from conftest import CELLS, TINY
+from conftest import BEAM, CELLS, TINY, tiny
 
 from fvbench import run
 
 
 @pytest.mark.parametrize("traced", [False, True])
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", CELLS + (BEAM,))
 def test_cell_prints_a_well_formed_last_line(name, traced, capsys):
-    cell = run.load_cell(name, overrides=TINY)
+    cell = run.load_cell(name, overrides=tiny(name))
     result = run.run_cell(cell, 2**31 + 977, 0.2, traced, device="cpu")
     run.emit(result)
     out, err = capsys.readouterr()
@@ -23,7 +23,8 @@ def test_cell_prints_a_well_formed_last_line(name, traced, capsys):
     for key in ("correct", "attempted", "failed", "metrics", "device"):
         assert key in line
     assert line["correct"] is True and line["failed"] == 0 and line["attempted"] >= 1
-    assert err.strip().splitlines()[-1].startswith("check score_gap 0.0 limit")
+    last = "check path_mismatch 0 limit 0" if name == BEAM else "check score_gap 0.0 limit"
+    assert err.strip().splitlines()[-1].startswith(last)
     if traced:
         assert {"busy_s", "window_s"} <= set(line["device"]) and "breakdown" in line
     else:

@@ -5,7 +5,7 @@ import json
 
 import pytest
 
-from fvbench import run, trace
+from fvbench import bounds, run, trace
 from fvbench.trace import Event
 
 SCAN = "void scan_persistent<1, true, (Emit)0, 31u, float>(float const*, float*)"
@@ -42,6 +42,38 @@ def test_metric_readers(name, expected):
 def test_a_reader_that_finds_nothing_returns_nothing(name):
     empty = trace.Trace(ops=[], spans=[], window_s=1.0, sequences=3, floor_s=1e-3)
     assert run._load("metrics", name).read(empty) is None
+
+
+BEAM_KERNEL = "void beam_cluster_kernel<64, 16>(float const*, float const*, int*)"
+FLASH_BS = {"algorithm": "flash_bs", "beam_width": 64, "num_segments": 8}
+
+
+def beam_trace(decoder=FLASH_BS) -> trace.Trace:
+    """Two FLASH-BS sequences at paper_k3965.beam64_t256's shape: two beam
+    scans each (6.4 and 0.9 ms) and a walk."""
+    ops = []
+    for t0 in (0.0, 10e-3):
+        ops += [Event(BEAM_KERNEL, "kernel", t0, 6.4e-3),
+                Event(BEAM_KERNEL, "kernel", t0 + 6.5e-3, 0.9e-3),
+                Event(WALK, "kernel", t0 + 7.5e-3, 0.02e-3)]
+    return trace.Trace(ops=ops, spans=[], window_s=20e-3, sequences=2, floor_s=0.5e-3,
+                       K=3965, M=50, T=256, decoder=decoder, card=bounds.H100)
+
+
+def test_beam_readers():
+    busy = 2 * 7.3e-3
+    floor, _ = bounds.beam_floor_s(3965, 50, 256, 64, 8)
+    roof = run._load("metrics", "beam_roofline_pct").read(beam_trace())
+    assert roof == pytest.approx(100 * 2 * floor / busy) and 0 < roof < 1
+    # 255 phase-1 steps and the longest segment's 32 (lengths 31-33)
+    step = run._load("metrics", "beam_us_per_step").read(beam_trace())
+    assert step == pytest.approx(1e6 * busy / (2 * 287))
+
+
+@pytest.mark.parametrize("name", ["beam_roofline_pct", "beam_us_per_step"])
+def test_a_beam_reader_without_a_beam_returns_nothing(name):
+    assert run._load("metrics", name).read(made_up()) is None
+    assert run._load("metrics", name).read(beam_trace(decoder=None)) is None
 
 
 def test_lost_records():

@@ -44,6 +44,12 @@ class Trace:
     window_s: float      # the profiled sub-window's length by the host's clock
     sequences: int       # sequences completed in it
     floor_s: float       # the floor of their work (bounds.floor_s, summed)
+    K: int = 0           # the cell's logical states, symbols and positions,
+    M: int = 0           # sequences a request, and its decoder (run.Cell.decoder),
+    T: int = 0           # for readers that work out a floor of their own
+    Bs: int = 1
+    decoder: dict | None = None
+    card: object = None  # bounds.Card of the card traced
 
     @property
     def kernels(self) -> list:
