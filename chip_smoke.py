@@ -107,9 +107,10 @@ Phases, each fatal on failure:
    tie-equivalent, each one's positions off vanilla printed.
    ``decode(..., "auto")`` on the four requests, T=16 and T=16384 at the
    headline K, K=1024 at T=256, the headline under a budget one byte
-   below its choice's working set, and K=8192, T=1024 with 128 segments
-   under a budget of lean's working set, which must choose lean: each path
-   equals its chosen decoder's
+   below its choice's figure (``auto.device_peak_bytes``), and K=8192,
+   T=1024 with 128 segments under a budget of lean's JAX working set, which
+   must choose checkpoint (lean's card-held figure, its transposed table
+   counted, exceeds fused's there): each path equals its chosen decoder's
    own decode on the card, the C oracle under phase 4's rule where K^2 T
    <= 2e10, and ``memory:`` the chosen decoder's figure.  The harness's
    ``sweep`` at the headline over vanilla, flash, flash lean, checkpoint,
@@ -419,9 +420,10 @@ DESIGN_CHECK = dict(K=512, M=50, T=2048, prob=0.112, seed=1)
 # auto's shapes beside the four headline requests: (K, T) on the headline's
 # M, prob and seed (the headline tables where K is the headline's)
 AUTO_SHAPES = ((3965, 16), (3965, 16384), (1024, 256))
-# (K, T, overrides) where a budget of lean's working set chooses lean: lean
-# leads checkpoint there, and its many short segments keep its working set
-# under fused's (auto.py's LEAN_MIN_K .. LEAN_MAX_T)
+# (K, T, overrides) where lean leads checkpoint (auto.py's LEAN_MIN_K ..
+# LEAN_MAX_T) and its many short segments keep JAX's lean working set under
+# fused's; the card-held figures put lean above fused, so a budget of that
+# working set chooses checkpoint
 AUTO_LEAN = (8192, 1024, {"num_segments": 128})
 # the C oracle's trellis cells at most (as the harness's _ORACLE_MAX_CELLS)
 ORACLE_MAX_CELLS = 2e10
@@ -2995,14 +2997,16 @@ def design_phase(device) -> list[dict[str, int]]:
 
 def auto_phase(hmm, requests, oracles, device) -> list[dict[str, int]]:
     """``decode(..., "auto")`` on the four headline requests, AUTO_SHAPES,
-    the headline under a budget one byte below its choice's working set,
-    and AUTO_LEAN under a budget of lean's working set: each path equals
+    the headline under a budget one byte below its choice's figure, and
+    AUTO_LEAN under a budget of lean's JAX working set: each path equals
     its chosen decoder's own decode on the card bit for bit and the C
     oracle under phase 4's rule where K^2 T <= ORACLE_MAX_CELLS;
     ``memory:`` is the chosen decoder's figure at the logical K."""
     from flash_viterbi_tpu_torch import build, decode
-    from flash_viterbi_tpu_torch.algorithms.auto import choose, device_working_set
+    from flash_viterbi_tpu_torch.algorithms.auto import (choose, device_peak_bytes,
+                                                         device_working_set)
     from flash_viterbi_tpu_torch.models.generate import make_sparse_hmm, observations
+    from flash_viterbi_tpu_torch.ops.cuda.maxplus import sm_count
     from flash_viterbi_tpu_torch.oracle import native
 
     def problem(K, T):
@@ -3015,7 +3019,8 @@ def auto_phase(hmm, requests, oracles, device) -> list[dict[str, int]]:
     cases = [(f"headline request {i}", hmm, y, {}, oracle)
              for i, (y, oracle) in enumerate(zip(requests, oracles))]
     cases += [(f"K={K} T={Tc}", *problem(K, Tc), {}, None) for K, Tc in AUTO_SHAPES]
-    budget = device_working_set(*choose(Kp, T), Kp, T) - 1
+    M, sms = HEADLINE["M"], sm_count(device)
+    budget = device_peak_bytes(*choose(Kp, T), Kp, T, M, sms) - 1
     cases.append((f"headline request 0, budget {budget} bytes", hmm, requests[0],
                   {"memory_budget_bytes": budget}, oracles[0]))
     K, Tc, over = AUTO_LEAN
@@ -3028,7 +3033,8 @@ def auto_phase(hmm, requests, oracles, device) -> list[dict[str, int]]:
     for label, prob, y, static, oracle in cases:
         over = {k: v for k, v in static.items() if k != "memory_budget_bytes"}
         Kpc = -(-prob.K // 128) * 128
-        name, kw = choose(Kpc, len(y), static.get("memory_budget_bytes"), static=over)
+        name, kw = choose(Kpc, len(y), static.get("memory_budget_bytes"), static=over, M=M,
+                          sms=sms)
         r, launches = drive(f"auto {label}", (), lambda: decode(prob, y, "auto", device=device,
                                                                 **static))
         all_launches.append(launches)
@@ -3046,8 +3052,7 @@ def auto_phase(hmm, requests, oracles, device) -> list[dict[str, int]]:
         print(f"auto {label}: choose({Kpc}, {len(y)}) = {name} {kw}, {r.time_s * 1e3:.3f} ms, "
               f"equal to {name}'s own decode ({own.time_s * 1e3:.3f} ms), oracle {verdict}, "
               f"memory {r.memory_bytes}", flush=True)
-    require(name == "flash" and kw.get("mode") == "lean",
-            f"auto {label}: the budget chose {name} {kw}, not lean")
+    require(name == "checkpoint", f"auto {label}: the budget chose {name} {kw}, not checkpoint")
     return all_launches
 
 

@@ -2,10 +2,14 @@
 
 Counterpart of ``flash_viterbi_tpu/algorithms/auto.py``.  ``auto`` runs the
 fastest exact decoder for the problem's shape, and an optional
-``memory_budget_bytes`` keeps to the candidates whose device working set
-(:func:`device_working_set`) fits it, taking the leanest when none does.
-Selection sees the padded state count, the device tables' K, for which the
-working-set figures hold.
+``memory_budget_bytes`` keeps to the candidates whose peak device scratch
+(:func:`device_peak_bytes`, the port's own figure: what the decode
+allocates on the card above the tables) fits it, taking the leanest when
+none does.  Selection sees the padded state count, the device tables' K,
+for which the figures hold.  :func:`device_working_set` is the JAX
+package's formula, kept beside it; it counts less than the port's decodes
+hold (fused's emissions, flash's transposed table, lean's phase-1 chunk,
+checkpoint's ``logB.T`` and the scans' scratch).
 
 The order of :func:`rank` and its constants come from H100 rows of
 ``scripts/torch_auto_sweep.py`` (the port's ``bench.harness.sweep`` over
@@ -20,7 +24,12 @@ and is not ported: ``flash_long`` is reached only by name.
 
 from __future__ import annotations
 
+import functools
+
+from ..ops.cuda.common import H100_SMS
+from ..ops.cuda.maxplus import sm_count
 from ..utils.profiling import span
+from . import checkpoint, flash, fused
 from .base import Decoder, build, register
 from .checkpoint import snapshot_step
 from .flash import LEAN_LEAF, lean_working_set
@@ -115,24 +124,68 @@ def device_working_set(name: str, kw: dict, K: int, T: int) -> int:
     return T * K * 4
 
 
+#: bytes a figure of :func:`device_peak_bytes` adds for the small tensors
+#: a decode makes beside those it counts (index scalars, states, views'
+#: temporaries), each at least an allocator block
+SMALL_BYTES = 64 * 1024
+
+
+def device_peak_bytes(name: str, kw: dict, K: int, T: int, M: int = 0,
+                      sms: int = H100_SMS) -> int:
+    """Peak device bytes a single-sequence decode allocates above the
+    model tables on a card of ``sms`` SMs: what ``torch.cuda.
+    max_memory_allocated`` reads over a decode after a warm-up, less the
+    tables, with the (T,) observations and what the decoder keeps between
+    calls counted (``fused.peak_bytes``, ``checkpoint.peak_bytes``,
+    ``flash.pointer_peak_bytes``, ``flash.lean_peak_bytes``).  ``M``, the
+    symbols, sizes checkpoint's ``logB.T`` copy (0 leaves it out).  A
+    decoder ``rank`` never gives alone (``flash_bs``, ``beam``, ...) takes
+    :func:`device_working_set`."""
+    return _peak(name, tuple(sorted(kw.items())), K, T, M, sms)
+
+
+@functools.lru_cache(maxsize=1024)
+def _peak(name: str, kw: tuple, K: int, T: int, M: int, sms: int) -> int:
+    kw = dict(kw)
+    precision = kw.get("precision", "fp32")
+    if name == "fused":
+        got = fused.peak_bytes(K, T, precision, sms)
+    elif name == "checkpoint":
+        got = checkpoint.peak_bytes(K, T, M, int(kw.get("step", 0) or 0), sms)
+    elif name == "flash" and kw.get("mode") == "lean":
+        got = flash.lean_peak_bytes(K, T, kw.get("num_segments", 8),
+                                    kw.get("lean_leaf", LEAN_LEAF), precision, sms)
+    elif name == "flash":
+        got = flash.pointer_peak_bytes(K, T, kw.get("num_segments", 8), precision, sms)
+    else:
+        return device_working_set(name, kw, K, T)
+    return got + SMALL_BYTES
+
+
 def choose(K: int, T: int, memory_budget_bytes: int | None = None,
            beam_width: int | None = None,
-           static: dict | None = None) -> tuple[str, dict]:
+           static: dict | None = None, *, M: int = 0,
+           sms: int = H100_SMS) -> tuple[str, dict]:
     """The (algorithm, keywords) ``auto`` runs for this shape.
 
     ``static`` holds the caller's overrides (num_segments, mode, ...); they
-    are merged into every candidate before the working-set filter, so the
-    budget is held against the configuration that would run.
+    are merged into every candidate before the budget's filter, so the
+    budget is held against the configuration that would run, by
+    :func:`device_peak_bytes` (``M`` and ``sms`` as it takes them).
     """
     over = static or {}
     cands = [(name, {**kw, **over}) for name, kw in rank(K, T, beam_width)]
     if memory_budget_bytes is None:
         return cands[0]
-    for name, kw in cands:
-        if device_working_set(name, kw, K, T) <= memory_budget_bytes:
-            return name, kw
+
+    def peak(c):
+        return device_peak_bytes(c[0], c[1], K, T, M, sms)
+
+    for c in cands:
+        if peak(c) <= memory_budget_bytes:
+            return c
     # nothing fits: the leanest candidate (min is stable: ties keep the faster)
-    return min(cands, key=lambda c: device_working_set(c[0], c[1], K, T))
+    return min(cands, key=peak)
 
 
 @register("auto")
@@ -144,7 +197,9 @@ def _build(memory_budget_bytes: int | None = None,
         with span("fvt.decode.auto"):
             with span("fvt.auto.choose"):
                 K, T = int(logA.shape[0]), int(y.shape[-1])
-                name, kw = choose(K, T, memory_budget_bytes, beam_width, static)
+                sms = sm_count(logA.device) if logA.is_cuda else H100_SMS
+                name, kw = choose(K, T, memory_budget_bytes, beam_width, static,
+                                  M=int(logB.shape[1]), sms=sms)
                 key = (name, tuple(sorted(kw.items())))
                 if key not in cache:
                     cache[key] = build(name, **kw)

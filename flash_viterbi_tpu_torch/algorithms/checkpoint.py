@@ -29,9 +29,14 @@ import math
 import torch
 
 from ..ops import maxplus as mp
+from ..ops.cuda import backtrack as kb
 from ..ops.cuda import backtrack_batched, maxplus_scan_emitgather
-from ..ops.cuda.maxplus import error_word, raise_on_error
+from ..ops.cuda.common import H100_SMS
+from ..ops.cuda.common import allocated as a
+from ..ops.cuda.maxplus import error_word, plan_scratch_bytes, raise_on_error
+from ..utils.profiling import span
 from .base import Decoder, register
+from .fused import argmax_bytes
 
 
 #: the least snapshot step, from scripts/torch_route_sweep.py's rows on
@@ -73,21 +78,44 @@ def checkpoint_decode(logA, logB, logPi, y, step: int = 0):
 
     # no variable holds a chunk's pointers past its use, so one chunk's
     # table is alive at a time
-    snaps = [logPi + logBT.index_select(0, y[:1])[0]]
-    for lo, hi in chunks:
-        snaps.append(run_chunk(snaps[-1], lo, hi)[0])
+    with span("fvt.checkpoint.forward"):
+        snaps = [logPi + logBT.index_select(0, y[:1])[0]]
+        for lo, hi in chunks:
+            snaps.append(run_chunk(snaps[-1], lo, hi)[0])
 
-    state = mp.argmax_final(snaps[-1])
-    pieces = []
-    for (lo, hi), snap in zip(reversed(chunks), reversed(snaps[:-1])):
-        # states at times lo..hi
-        seg = backtrack_batched(run_chunk(snap, lo, hi)[1], state[None])[0]
-        pieces.append(seg[1:])
-        state = seg[0]
-    pieces.append(state[None])
-    path = torch.cat(pieces[::-1])
+    with span("fvt.checkpoint.backward"):
+        state = mp.argmax_final(snaps[-1])
+        pieces = []
+        for (lo, hi), snap in zip(reversed(chunks), reversed(snaps[:-1])):
+            # states at times lo..hi
+            seg = backtrack_batched(run_chunk(snap, lo, hi)[1], state[None])[0]
+            pieces.append(seg[1:])
+            state = seg[0]
+        pieces.append(state[None])
+        path = torch.cat(pieces[::-1])
     raise_on_error(err, "checkpoint")
     return path
+
+
+def peak_bytes(K: int, T: int, M: int, step: int = 0, sms: int = H100_SMS) -> int:
+    """Device bytes :func:`checkpoint_decode` allocates at its peak beside
+    the tables, on a card of ``sms`` SMs, the (T,) int64 observations
+    counted: the (M, K) ``logB.T`` copy, the int32 symbols, the C+1
+    snapshots and the paths walked so far, beside one chunk's pointers with
+    the larger of the scan's scratch and the walk's; or, at the end, the
+    joined path."""
+    if step <= 0:
+        step = snapshot_step(T)
+    edges = list(range(0, T - 1, step)) + [T - 1]
+    lens = [hi - lo for lo, hi in zip(edges[:-1], edges[1:])]
+    held = (a(T * 8) + a(M * K * 4) + a(T * 4) + a(4) + (len(lens) + 1) * a(K * 4)
+            + argmax_bytes(1, K) + sum(a((n + 1) * 4) for n in lens))
+    chunk = 0
+    for n in set(lens):
+        scan = a(K * 4) + plan_scratch_bytes(K, 1, sms, True)
+        walk = a((n + 1) * 4) + a(4 * kb.backtrack_plan(n, 1, K, sms).scratch_words(1, K))
+        chunk = max(chunk, a(n * K * 4) + max(scan, walk))
+    return held + max(chunk, a(T * 4))
 
 
 def _memory(K: int, T: int, step: int = 0, **_) -> int:

@@ -59,8 +59,14 @@ import torch
 from ..ops import maxplus as mp
 from ..ops.cuda import (argmax_walk, backtrack_batched, fold_planes, maxplus_scan,
                         maxplus_scan_deltas)
-from ..ops.cuda.maxplus import error_word, raise_on_error, scan_scratch_bytes
+from ..ops.cuda import backtrack as kb
+from ..ops.cuda import fold as kf
+from ..ops.cuda.common import H100_SMS
+from ..ops.cuda.common import allocated as a
+from ..ops.cuda.maxplus import (error_word, plan_scratch_bytes, raise_on_error,
+                                scan_scratch_bytes)
 from .base import Decoder, register
+from .fused import argmax_bytes
 
 # lean-mode shape knobs, shared with the working-set formula
 # (lean_working_set, which algorithms.auto uses): changing one changes both.
@@ -335,13 +341,13 @@ def phase1_anchors_chunked(logA, logPi, logB, y, mids: torch.Tensor, prop: torch
     return last, planes[:, last]
 
 
-def _lanes_a_call(S: int, steps: int, K: int, budget: int, dev, with_ptr: bool) -> int:
+def _lanes_a_call(S: int, steps: int, K: int, budget: int, scratch, with_ptr: bool) -> int:
     """The most of S lanes (at least 1) whose call keeps two (steps, lanes,
     K) tables (emissions and pointers or carries), four (lanes, K) rows
-    (carries, planes, their temporaries) and the scan's scratch within
-    ``budget`` bytes."""
+    (carries, planes, their temporaries) and the scan's scratch
+    (``scratch(K, lanes, with_ptr)`` bytes) within ``budget`` bytes."""
     for g in range(S, 1, -1):
-        if (2 * steps + 4) * g * K * 4 + scan_scratch_bytes(K, g, dev, with_ptr) <= budget:
+        if (2 * steps + 4) * g * K * 4 + scratch(K, g, with_ptr) <= budget:
             return g
     return 1
 
@@ -358,9 +364,10 @@ def _index_bytes(T: int, P: int, rounds, leaves) -> int:
 
 
 def _lean_program(T: int, mids_l, starts_l, lens_l, num_segments: int, lean_leaf: int,
-                  K: int, dev, ix: _Indices):
+                  K: int, scratch, ix: _Indices):
     """The lean decode's calls, their index arrays added to ``ix``: (round
-    calls, leaf calls), each a dict of the call's lanes and handles."""
+    calls, leaf calls), each a dict of the call's lanes and handles;
+    ``scratch`` as :func:`_lanes_a_call` takes it."""
     segments = [(s, s + ln - 1) for s, ln in zip(starts_l, lens_l)]
     rounds, leaves = split_tree_leaves(segments, min_leaf=max(0, lean_leaf))
     # what a call may use: the formula's figure less what the decode holds
@@ -371,7 +378,7 @@ def _lean_program(T: int, mids_l, starts_l, lens_l, num_segments: int, lean_leaf
     def lanes(group, steps, cap, with_ptr):
         """Calls of at most ``cap`` lanes, sized to the budget, for one
         exact-length group."""
-        g = _lanes_a_call(min(len(group), cap), steps, K, budget, dev, with_ptr)
+        g = _lanes_a_call(min(len(group), cap), steps, K, budget, scratch, with_ptr)
         for g0 in range(0, len(group), g):
             sub = group[g0:g0 + g]
             Ls = np.asarray([iv[0] for iv in sub])
@@ -464,8 +471,9 @@ def _lean_decode(logA, logB, logPi, y, N: int, num_segments: int, lean_leaf: int
     ix = _Indices()
     h_mids = ix.add(mids_l)
     h_prop = ix.add(prop_schedule(mids_l, T), np.bool_)
-    round_calls, leaf_calls = _lean_program(T, mids_l, starts_l, lens_l, num_segments,
-                                            lean_leaf, logA.shape[0], dev, ix)
+    round_calls, leaf_calls = _lean_program(
+        T, mids_l, starts_l, lens_l, num_segments, lean_leaf, logA.shape[0],
+        lambda k, g, with_ptr: scan_scratch_bytes(k, g, dev, with_ptr), ix)
     ix.upload(dev)
     logBT = logB.t()
     err = error_word(dev)
@@ -494,15 +502,104 @@ def flash_decode(logA, logB, logPi, y, num_segments: int = 8, mode: str = "point
     call)."""
     transposed = transposed or _Transposed()
     logA = transposed.cast(logA, precision)
-    N = int(num_segments)
     T = y.shape[0]
-    if N < 1 or T < 2 * N:
-        N = max(1, min(N, T // 2)) or 1
+    N = _segments(num_segments, T)
     if mode == "pointer":
         return _pointer_decode(logA, logB, logPi, y, N, transposed)
     if mode == "lean":
         return _lean_decode(logA, logB, logPi, y, N, num_segments, lean_leaf, transposed)
     raise ValueError(f"unknown flash mode {mode!r}")
+
+
+def _segments(num_segments: int, T: int) -> int:
+    """The segments a decode of T positions runs: at most T // 2, at least 1."""
+    N = int(num_segments)
+    if N < 1 or T < 2 * N:
+        N = max(1, min(N, T // 2)) or 1
+    return N
+
+
+def _kept_bytes(K: int, precision: str, walks: bool) -> int:
+    """What the decoder keeps across calls (``_Transposed``): the bf16
+    table, and the walk's transposed table where a walk reads it."""
+    elem = 2 if precision == "bf16" else 4
+    return (a(K * K * 2) if precision == "bf16" else 0) + (a(K * K * elem) if walks else 0)
+
+
+def pointer_peak_bytes(K: int, T: int, num_segments: int = 8, precision: str = "fp32",
+                       sms: int = H100_SMS) -> int:
+    """Device bytes a pointer-mode decode allocates at its peak beside the
+    tables, on a card of ``sms`` SMs, the (T,) int64 observations and what
+    the decoder keeps counted: the kept tables, the (T, K) emissions and
+    the index arrays, beside the larger of phase 1 (the (T-1, K) pointers,
+    the scan's scratch or the walk's) and phase 2 (the segments' emissions
+    twice, their carry history, the scan's scratch or the walk's path),
+    and the gathered path."""
+    N = _segments(num_segments, T)
+    elem = 2 if precision == "bf16" else 4
+    mids = flash_midpoints(0, T - 1, N) if N > 1 else []
+    _, _, Lmax = segment_layout(mids, T)
+    P, Tm, Ls = len(mids), T - 1, Lmax - 1
+    held = (_kept_bytes(K, precision, True) + 2 * a(T * 8) + a(P * 8) + 2 * a(N * 8)
+            + a(T * K * 4) + a(4) + 4 * a(N * 4))
+    walk1 = argmax_bytes(1, K) + (a(T * 4) + a(4 * kb.backtrack_plan(Tm, 1, K, sms)
+                                                .scratch_words(1, K)) if P and Tm else 0)
+    phase1 = (2 * a(K * 4) + a(Tm * K * 4)
+              + max(plan_scratch_bytes(K, 1, sms, True, elem) if Tm else 0, walk1))
+    rows = a(N * K * 4)
+    seg = 3 * a(N * Lmax * 8) + a(N * Lmax * K * 4)
+    scan2 = (plan_scratch_bytes(K, N, sms, False, elem) if Ls else 0)
+    phase2 = seg + max(3 * rows, rows + 2 * a(Ls * N * K * 4) + a(Ls * N) + rows
+                       + max(scan2, a(N * Lmax * 4)))
+    return held + max(phase1, phase2 + a(T * 4))
+
+
+def lean_peak_bytes(K: int, T: int, num_segments: int = 8, lean_leaf: int = LEAN_LEAF,
+                    precision: str = "fp32", sms: int = H100_SMS) -> int:
+    """Device bytes a lean decode allocates at its peak beside the tables,
+    on a card of ``sms`` SMs, the (T,) int64 observations and what the
+    decoder keeps counted: the kept tables, the index arrays and the
+    answer, beside the largest of phase 1's chunk (its emissions,
+    pointers, the scan's scratch and the anchor planes), a round's call
+    and a leaf call, each with the lanes the decode gives it there."""
+    N = _segments(num_segments, T)
+    elem = 2 if precision == "bf16" else 4
+    mids = flash_midpoints(0, T - 1, N) if N > 1 else []
+    starts, lens, _ = segment_layout(mids, T)
+    ix = _Indices()
+    ix.add(mids)
+    ix.add(prop_schedule(mids, T), np.bool_)
+    round_calls, leaf_calls = _lean_program(
+        T, mids, starts, lens, num_segments, lean_leaf, K,
+        lambda k, g, with_ptr: plan_scratch_bytes(k, g, sms, with_ptr), ix)
+    held = (_kept_bytes(K, precision, bool(leaf_calls)) + a(T * 8) + a(4)
+            + a(4 * ix._size[np.int32]) + a(ix._size[np.bool_]) + a(T * 4))
+    P = len(mids)
+
+    def fold(P, c, R):
+        plan = kf.fold_plan(P, c, R, K, sms)
+        return a(P * K * 4) + (0 if plan.maps_smem else a(P * plan.G * 2 * K * 4))
+
+    c = min(LEAN_CHUNK, T - 1)
+    peak = 2 * a(K * 4) + a(P * K * 4) + argmax_bytes(1, K)
+    if c > 0:
+        peak += a(c * K * 4) + max(a(c * K * 4) + a(K * 4)
+                                   + plan_scratch_bytes(K, 1, sms, True, elem),
+                                   fold(P, c, 1) if P else 0)
+    for call in (cl for calls in round_calls for cl in calls):
+        g, c = call["g"], min(LEAN_CHUNK, call["steps"])
+        rows = a(g * K * 4)
+        body = (2 * rows + a(c * g * K * 4)
+                + max(a(c * g * K * 4) + a(c * g * 8) + rows
+                      + plan_scratch_bytes(K, g, sms, True, elem), fold(g, c, g)))
+        peak = max(peak, 3 * rows, body)
+    for call in leaf_calls:
+        g, n = call["g"], call["steps"]
+        rows, hist = a(g * K * 4), a(n * g * K * 4)
+        peak = max(peak, 3 * rows, rows + hist + a(n * g * 8),
+                   2 * rows + 2 * hist + plan_scratch_bytes(K, g, sms, False, elem),
+                   2 * rows + hist + a(g * (n + 1) * 4) + a(g * (n + 1) * 8))
+    return held + peak
 
 
 def _threadpool_sizeof(N: int) -> int:

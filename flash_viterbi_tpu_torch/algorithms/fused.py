@@ -30,7 +30,10 @@ import torch
 from ..ops import maxplus as mp
 from ..ops.cuda import (argmax_walk, backtrack_batched, maxplus_scan,
                         maxplus_scan_deltas)
-from ..ops.cuda.maxplus import error_word, raise_on_error
+from ..ops.cuda import backtrack as kb
+from ..ops.cuda.common import H100_SMS
+from ..ops.cuda.common import allocated as a
+from ..ops.cuda.maxplus import error_word, plan_scratch_bytes, raise_on_error
 from ..utils.profiling import span, traced
 from .base import Decoder, register
 
@@ -130,6 +133,36 @@ def fused_decode_batch(logA, logB, logPi, ys, pointers: str = "auto",
     if pointers == "auto":
         pointers = pointer_route(logA.shape[0], Bs, precision)
     return _walk(logA, emits[1:], delta0, pointers)
+
+
+def argmax_bytes(N: int, K: int) -> int:
+    """Bytes ``ops.maxplus.first_argmax`` allocates over (N, K) scores:
+    the max, the index row, the compare, the candidates and the result."""
+    return a(N * 4) + a(K * 4) + a(N * K) + a(N * K * 4) + a(N * 4)
+
+
+def peak_bytes(K: int, T: int, precision: str = "fp32", sms: int = H100_SMS) -> int:
+    """Device bytes :func:`fused_decode` of one sequence allocates at its
+    peak beside the tables, on a card of ``sms`` SMs, the (T,) int64
+    observations counted: the bf16 table (made each call), the (T, K)
+    emissions, the scan's (T-1, K) pointers or carries and its final
+    scores, beside the larger of the scan's scratch and the walk's (the
+    argmax, the path and the backtrack's maps, or recompute's transposed
+    (K, K) logA, made each call)."""
+    Tm = max(T - 1, 0)
+    store = pointer_route(K, 1, precision) == "store"
+    elem = 2 if precision == "bf16" else 4
+    held = (a(T * 8) + a(T * K * 4) + a(K * 4) + a(4) + a(Tm * K * 4) + a(K * 4)
+            + (a(K * K * 2) if precision == "bf16" else 0))
+    if not Tm:
+        return held + argmax_bytes(1, K) + a(T * 4)
+    scan = plan_scratch_bytes(K, 1, sms, store, elem)
+    walk = argmax_bytes(1, K) + a(T * 4)
+    if store:
+        walk += a(4 * kb.backtrack_plan(Tm, 1, K, sms).scratch_words(1, K))
+    else:
+        walk += a(K * K * elem)
+    return held + max(scan, walk)
 
 
 def _memory(K: int, T: int, **_) -> int:

@@ -182,10 +182,14 @@ def _routed(cfg: RunConfig, dec, Kp: int) -> tuple[str, dict]:
     if cfg.algorithm != "auto":
         return cfg.algorithm, dec.static
     from ..algorithms.auto import choose
+    from ..ops.cuda.common import H100_SMS
+    from ..ops.cuda.maxplus import sm_count
 
+    dev = torch.device(cfg.device)
     st = {k: v for k, v in dec.static.items() if k not in ("memory_budget_bytes", "beam_width")}
     return choose(Kp, cfg.T, memory_budget_bytes=dec.static.get("memory_budget_bytes"),
-                  beam_width=cfg.beam_width, static=st)
+                  beam_width=cfg.beam_width, static=st, M=cfg.M,
+                  sms=sm_count(dev) if dev.type == "cuda" else H100_SMS)
 
 
 def _witness(cfg: RunConfig, hmm, y, path, routed: str, tables) -> str:

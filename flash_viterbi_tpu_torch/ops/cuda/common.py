@@ -15,6 +15,22 @@ from ...runtime import build
 
 # dynamic shared memory one H100 block can use (227 KB)
 SMEM_LIMIT = 232448
+# the SMs of an H100 SXM, the card the pure-Python plans are figured for
+# where no card is at hand
+H100_SMS = 132
+# PyTorch's caching allocator hands out blocks in multiples of ALLOC_BLOCK;
+# a block of its large pool (a tensor over LARGE_POOL bytes) is split only
+# where more than LARGE_POOL bytes would be left over, so it may hold a
+# remainder of up to LARGE_POOL bytes that the allocated count includes
+ALLOC_BLOCK = 512
+LARGE_POOL = 2**20
+
+
+def allocated(nbytes: int) -> int:
+    """The most bytes the caching allocator counts for a tensor of
+    ``nbytes``: whole blocks, and a large-pool block's unsplit remainder."""
+    n = -(-int(nbytes) // ALLOC_BLOCK) * ALLOC_BLOCK
+    return n + LARGE_POOL if n > LARGE_POOL else n
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

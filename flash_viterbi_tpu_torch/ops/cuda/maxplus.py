@@ -457,7 +457,13 @@ def scan_scratch_bytes(K: int, N: int, device, with_ptr: bool) -> int:
     dev = torch.device(device)
     if dev.type != "cuda":
         return 0
-    plan = _cached_plan(K, N, sm_count(dev), deltas=not with_ptr)
+    return plan_scratch_bytes(K, N, sm_count(dev), with_ptr)
+
+
+def plan_scratch_bytes(K: int, N: int, sms: int, with_ptr: bool, elem_bytes: int = 4) -> int:
+    """:func:`scan_scratch_bytes` on a card of ``sms`` SMs, for the plan of
+    a table of ``elem_bytes``-byte values (pure Python)."""
+    plan = _cached_plan(K, N, sms, elem_bytes=elem_bytes, deltas=not with_ptr)
     part = 2 * plan.R * plan.lanes * K * 4
     return (part * (2 if with_ptr else 1) + (plan.lanes * K * 4 if plan.two_phase else 0)
             + (SYNC_ERR + 1) * 4)

@@ -175,17 +175,38 @@ def device_trace(log_dir: str):
 
 
 def memory_report(decoder=None, K: int | None = None, T: int | None = None,
-                  device="cuda") -> dict:
+                  device="cuda", M: int = 0) -> dict:
     """Analytic and live device memory figures.
 
     On the card: the allocator's current and peak allocated bytes and the
     card's total memory, under the JAX package's keys, and
     ``live_array_bytes``, the bytes allocated to tensors now.  On the CPU
-    the analytic figure and a ``live_array_bytes`` of 0."""
+    the analytic figure and a ``live_array_bytes`` of 0.
+
+    For an ``auto`` decoder built with a ``memory_budget_bytes``: the
+    budget (``budget_bytes``), the candidate it chooses at (K, T)
+    (``chosen``: name and keywords; K as the decode sees it, padded) and
+    that candidate's figure held against the budget
+    (``budget_figure_bytes``, ``auto.device_peak_bytes`` with ``M``
+    symbols, on the card's SMs where there is one)."""
     dev = resolve_device(device)
     out: dict = {}
     if decoder is not None and K and T:
         out["analytic_bytes"] = decoder.analytic_memory(K=K, T=T)
+        budget = decoder.static.get("memory_budget_bytes") if decoder.name == "auto" else None
+        if budget is not None:
+            from ..algorithms import auto
+            from ..ops.cuda.common import H100_SMS
+            from ..ops.cuda.maxplus import sm_count
+
+            sms = sm_count(dev) if dev.type == "cuda" else H100_SMS
+            static = {k: v for k, v in decoder.static.items()
+                      if k not in ("memory_budget_bytes", "beam_width")}
+            name, kw = auto.choose(K, T, budget, decoder.static.get("beam_width"), static,
+                                   M=M, sms=sms)
+            out["budget_bytes"] = int(budget)
+            out["chosen"] = [name, kw]
+            out["budget_figure_bytes"] = auto.device_peak_bytes(name, kw, K, T, M, sms)
     if dev.type != "cuda":
         out["live_array_bytes"] = 0
         return out

@@ -34,6 +34,10 @@ device operation runs):
   (``fvt.kernel.maxplus_scan``: store, ``maxplus_scan_deltas``:
   recompute) and the transposed tables made; ``syncs_per_seq``: the
   ``fvt.sync`` spans (the host waiting on the device) a sequence;
+* ``ckpt_forward_ms_per_seq``, ``ckpt_backward_ms_per_seq``: the device
+  time a sequence launched inside ``checkpoint``'s ``fvt.checkpoint.
+  forward`` span (the snapshot pass) and ``fvt.checkpoint.backward`` (the
+  chunks' re-scans and walks); None where no checkpoint decode ran;
 * ``ring_share``: of the port's kernels launched inside a
   ``fvt.kernel.maxplus_scan_deltas`` span, the share launched inside a
   ``fvt.scan.ring`` span too (the deltas scan's ring route); None where no
@@ -209,6 +213,9 @@ def read(tr: dict, sequences: int, port_rx: re.Pattern) -> dict:
         "device_ms_per_seq": {k: 1e3 * v / seqs for k, v in by_value(device)},
         "spans_per_request": {k: v / n for k, v in sorted(counts.items())},
         "syncs_per_seq": counts.get("fvt.sync", 0) / seqs,
+        **{f"ckpt_{part}_ms_per_seq": (1e3 * device.get(f"fvt.checkpoint.{part}", 0.0) / seqs
+                                       if f"fvt.checkpoint.{part}" in counts else None)
+           for part in ("forward", "backward")},
         "ring_share": ring_launches / deltas_launches if deltas_launches else None,
         "ops": len(ops), "ops_without_launch": unmatched,
     }

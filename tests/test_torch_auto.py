@@ -41,6 +41,84 @@ def test_device_working_set_matches_jax(name, kw, monkeypatch):
                     == jauto.device_working_set(name, jkw, K, T)), (K, T)
 
 
+#: peak device bytes above the tables over one decode after a warm-up
+#: (``tests/test_torch_auto_card.py`` on NVIDIA H100 80GB HBM3, 700 W; M=50)
+H100_PEAKS = {
+    (3968, 256): [12336128, 88387584, 7083520, 69352448],
+    (3968, 1024): [37785600, 138484224, 7194112, 93745152],
+    (3968, 4096): [134279168, 332277248, 7636480, 126397440],
+    (16384, 256): [38865920, 1162752000, 1103636480, 17109504],
+    (16384, 1024): [138617856, 1365146112, 1201573888, 16600576],
+    (16384, 4096): [541312512, 2170529280, 18234880, 1343409664],
+    (3968, 16384): [524447744, 9405952, 205101568],
+}
+
+
+@pytest.mark.parametrize("K,T", sorted(H100_PEAKS))
+def test_device_peak_bytes_against_the_h100(K, T):
+    """Each candidate's figure holds the peak the card read for it (in
+    ``rank``'s order), within 1.25x of it + 2 MiB."""
+    for (name, kw), got in zip(tauto.rank(K, T), H100_PEAKS[K, T], strict=True):
+        fig = tauto.device_peak_bytes(name, kw, K, T, 50, 132)
+        assert got <= fig <= 1.25 * got + 2 * 2**20, (name, kw, got, fig)
+
+
+def test_a_32_mib_budget_takes_checkpoint_at_config5():
+    """config-5's shape under 32 MiB: fused (516 MiB on the card), flash at
+    16 segments (2070) and lean (1281) do not fit; checkpoint (17.4) does.
+    A budget between fused's JAX figure and what the card holds for it no
+    longer takes fused."""
+    assert tauto.choose(16384, 4096, 33_554_432) == ("checkpoint", {})
+    assert tauto.choose(16384, 4096, 33_554_432, M=50) == ("checkpoint", {})
+    jax_fused = tauto.device_working_set("fused", {}, 16384, 4096)
+    card = H100_PEAKS[16384, 4096][0]
+    assert jax_fused < card
+    for budget in (jax_fused + 2**20, (jax_fused + card) // 2, card - 1):
+        assert tauto.choose(16384, 4096, budget, M=50) == ("checkpoint", {})
+    assert tauto.choose(16384, 4096, 2 * card, M=50) == ("fused", {})
+    # lean is never the leanest candidate at this shape
+    peaks = {n + str(kw.get("mode", "")): tauto.device_peak_bytes(n, kw, 16384, 4096, 50)
+             for n, kw in tauto.rank(16384, 4096)}
+    assert min(peaks, key=peaks.get) == "checkpoint" and peaks["flashlean"] > peaks["fused"]
+
+
+def test_memory_report_says_what_the_budget_held():
+    """A budgeted ``auto``'s report gives the budget, the candidate it
+    chooses and the figure held against the budget; others give none."""
+    from flash_viterbi_tpu_torch.utils.profiling import memory_report
+
+    got = memory_report(tfv.build("auto", memory_budget_bytes=33_554_432), K=16384, T=4096,
+                        device="cpu", M=50)
+    assert got["budget_bytes"] == 33_554_432 and got["chosen"] == ["checkpoint", {}]
+    assert got["budget_figure_bytes"] == tauto.device_peak_bytes("checkpoint", {}, 16384, 4096,
+                                                                 50)
+    assert got["budget_figure_bytes"] <= got["budget_bytes"]
+    assert "budget_bytes" not in memory_report(tfv.build("auto"), K=16384, T=4096, device="cpu")
+
+
+@pytest.mark.parametrize("name,kw", KWS)
+def test_device_peak_bytes_counts_at_least_jax(name, kw):
+    """The card-held figure counts at least JAX's formula where the decode
+    holds what that formula counts, and what the formula leaves out.  Lean's
+    formula is the budget its calls are sized under (``lean_working_set``),
+    and a call takes fewer lanes than fill it (the card: 195.6 MiB at
+    K=3968, T=16384 against the formula's 252.2), so there the figure is
+    held to what the formula leaves out: the leaves' transposed (K, K)
+    table and phase 1's chunk.  A checkpoint step past T-1 makes no chunk."""
+    lean = name == "flash" and kw.get("mode") == "lean"
+    for K in (64, 1024, 3968, 16384):
+        for T in (1, 16, 255, 256, 2048, 16384, 65536):
+            got = tauto.device_peak_bytes(name, kw, K, T)
+            if lean:
+                chunk = 2 * min(tflash.LEAN_CHUNK, T - 1) * K * 4
+                leaves = kw.get("lean_leaf", tflash.LEAN_LEAF) > 0 and T > 1
+                assert got >= chunk + (K * K * 4 if leaves else 0), (K, T)
+            elif name != "checkpoint" or kw.get("step", 0) < T:
+                assert got >= tauto.device_working_set(name, kw, K, T), (K, T)
+    if name == "fused":
+        assert tauto.device_peak_bytes(name, kw, 16384, 4096, 50) >= H100_PEAKS[16384, 4096][0]
+
+
 def test_h100_order():
     """rank's order as measured on the H100 (scripts/torch_auto_sweep.py,
     results/torch_auto_sweep.jsonl, PERF.md's "Routing figures")."""
@@ -70,30 +148,38 @@ def test_h100_order():
 
 
 def test_a_budget_with_many_segments_reaches_lean():
-    """Lean's working set falls below fused's with many short segments, so
-    where lean leads checkpoint a budget between them chooses it."""
+    """Lean's JAX working set falls below fused's with many short segments,
+    but the decode keeps the (K, K) transposed table its leaves walk, and
+    the budget is held to what the card holds (``device_peak_bytes``):
+    there lean is no leaner than fused, so a budget of lean's JAX figure
+    takes checkpoint, which follows lean in the order, and a budget of
+    lean's own figure takes fused, which leads it."""
     K, T, over = 8192, 1024, {"num_segments": 128}
     lean = tauto.device_working_set("flash", {"mode": "lean", **over}, K, T)
     assert lean < tauto.device_working_set("fused", over, K, T)
-    assert tauto.choose(K, T, lean, static=over) == ("flash", {"mode": "lean", **over})
-    assert tauto.choose(K, T, lean - 1, static=over)[0] == "checkpoint"
+    peak = {"lean": tauto.device_peak_bytes("flash", {"mode": "lean", **over}, K, T),
+            "fused": tauto.device_peak_bytes("fused", over, K, T),
+            "checkpoint": tauto.device_peak_bytes("checkpoint", over, K, T)}
+    assert peak["lean"] > K * K * 4 > peak["fused"] > lean > peak["checkpoint"]
+    assert tauto.choose(K, T, lean, static=over) == ("checkpoint", over)
+    assert tauto.choose(K, T, peak["lean"], static=over) == ("fused", over)
 
 
 def test_budget_filter_sees_the_overrides():
     """Overrides are merged before the filter; nothing fitting takes the
     leanest candidate, never a crash."""
-    ws = {n: tauto.device_working_set(n, kw, 4096, 256) for n, kw in tauto.rank(4096, 256)}
+    ws = {n: tauto.device_peak_bytes(n, kw, 4096, 256) for n, kw in tauto.rank(4096, 256)}
     name, kw = tauto.choose(4096, 256, memory_budget_bytes=1)
-    assert tauto.device_working_set(name, kw, 4096, 256) == min(ws.values())
+    assert tauto.device_peak_bytes(name, kw, 4096, 256) == min(ws.values())
     name, kw = tauto.choose(4096, 256, memory_budget_bytes=1, static={"num_segments": 32})
     assert kw["num_segments"] == 32
-    # checkpoint fits its own working set; with a step override its
-    # snapshots no longer do, so nothing fits and the leanest is taken
-    budget = tauto.device_working_set("checkpoint", {}, 4096, 256)
+    # checkpoint fits its own figure; with a step override its snapshots
+    # no longer do, so nothing fits and the leanest is taken
+    budget = tauto.device_peak_bytes("checkpoint", {}, 4096, 256)
     assert tauto.choose(4096, 256, budget)[0] == "checkpoint"
     over = {"step": 1}
     cands = [(n, {**k, **over}) for n, k in tauto.rank(4096, 256)]
-    sizes = [tauto.device_working_set(n, k, 4096, 256) for n, k in cands]
+    sizes = [tauto.device_peak_bytes(n, k, 4096, 256) for n, k in cands]
     assert min(sizes) > budget
     assert tauto.choose(4096, 256, budget, static=over) == cands[sizes.index(min(sizes))]
     assert tauto.choose(4096, 256, static=over) == cands[0]
@@ -156,9 +242,9 @@ def test_auto_budgeted_always_exact(K, M, T, prob, seed):
                        memory_budget_bytes=budget)
         np.testing.assert_array_equal(r.path, want, err_msg=f"budget={budget}")
         if budget is not None:
-            name, kw = tauto.choose(K, T, memory_budget_bytes=budget)
-            ws = tauto.device_working_set(name, kw, K, T)
-            if any(tauto.device_working_set(n, k, K, T) <= budget
+            name, kw = tauto.choose(K, T, memory_budget_bytes=budget, M=M)
+            ws = tauto.device_peak_bytes(name, kw, K, T, M)
+            if any(tauto.device_peak_bytes(n, k, K, T, M) <= budget
                    for n, k in tauto.rank(K, T)):
                 assert ws <= budget, (name, kw, ws, budget)
 

@@ -171,6 +171,30 @@ def test_auto_counts_its_decision(K, budget, tmp_path):
         assert got.get("fvt.transpose", 0) == (2 if scan.endswith("deltas") else 0)
 
 
+def test_budgeted_auto_nests_checkpoint_passes(tmp_path):
+    """Under a budget that only checkpoint fits, ``auto`` sends the call on
+    to ``checkpoint``, whose snapshot pass and backward pass are spans of
+    their own inside ``fvt.auto.checkpoint``, inside ``fvt.decode.auto``,
+    the backward after the forward."""
+    lh, y = _tables(100, T=300)
+    T, M = int(y.shape[0]), int(lh.logB.shape[1])
+    budget = tauto.device_peak_bytes("checkpoint", {}, lh.Kp, T, M)
+    assert tauto.choose(lh.Kp, T, budget, M=M) == ("checkpoint", {})
+    dec = tfv.build("auto", memory_budget_bytes=budget)
+    _, spans = _spans(lambda: dec(lh.logA, lh.logB, lh.logPi, y), tmp_path)
+    rel = _parents(spans)
+    assert ("fvt.auto.checkpoint", "fvt.decode.auto") in rel
+    assert ("fvt.checkpoint.forward", "fvt.auto.checkpoint") in rel
+    assert ("fvt.checkpoint.backward", "fvt.auto.checkpoint") in rel
+    assert ("fvt.kernel.maxplus_scan_emitgather", "fvt.checkpoint.forward") in rel
+    assert ("fvt.kernel.backtrack_batched", "fvt.checkpoint.backward") in rel
+    fwd, bwd = (next(s for s in spans if s[0] == f"fvt.checkpoint.{p}")
+                for p in ("forward", "backward"))
+    assert fwd[2] <= bwd[1]
+    got = _names(spans)
+    assert got["fvt.checkpoint.forward"] == got["fvt.checkpoint.backward"] == 1
+
+
 @pytest.mark.parametrize("Bs, pointers", [(2, "auto"), (5, "auto"), (1, "auto"),
                                           (3, "store"), (3, "recompute")])
 def test_fused_counts_its_route_and_one_sync_a_call(Bs, pointers, tmp_path):
@@ -346,6 +370,33 @@ def test_trace_spans_reads_the_ring_share():
     got = tts.read(tts.load(events), sequences=16, port_rx=tts.port_pattern())
     assert got["ring_share"] == 0.5
     assert got["spans_per_request"]["fvt.scan.ring"] == 1.0
+
+
+def test_trace_spans_reads_checkpoint_passes():
+    """The device time launched inside ``checkpoint``'s two spans, a
+    sequence; None in a session where no checkpoint decode ran."""
+    from scripts import torch_trace_spans as tts
+
+    events = [
+        _x("fvbench.call", "user_annotation", 0, 300),
+        _x("fvt.decode.auto", "user_annotation", 5, 290),
+        _x("fvt.auto.checkpoint", "user_annotation", 10, 280),
+        _x("fvt.checkpoint.forward", "user_annotation", 12, 40),
+        _x("fvt.checkpoint.backward", "user_annotation", 60, 200),
+        _x("cudaLaunchCooperativeKernel", "cuda_runtime", 20, 2, corr=1),
+        _x("cudaLaunchCooperativeKernel", "cuda_runtime", 70, 2, corr=2),
+        _x("cudaLaunchKernel", "cuda_runtime", 80, 2, corr=3),
+        _x("void scan_persistent<1, true, (Emit)2, 15, float, false>(...)", "kernel", 25, 50,
+           corr=1),
+        _x("void scan_persistent<1, true, (Emit)2, 15, float, false>(...)", "kernel", 75, 50,
+           corr=2),
+        _x("void backtrack_kernel<2>(...)", "kernel", 125, 10, corr=3),
+    ]
+    got = tts.read(tts.load(events), sequences=1, port_rx=tts.port_pattern())
+    assert got["ckpt_forward_ms_per_seq"] == pytest.approx(0.050)
+    assert got["ckpt_backward_ms_per_seq"] == pytest.approx(0.060)
+    none = tts.read(tts.load(_made_up_session()), sequences=1, port_rx=tts.port_pattern())
+    assert none["ckpt_forward_ms_per_seq"] is None and none["ckpt_backward_ms_per_seq"] is None
 
 
 def test_trace_spans_reads_saved_traces_again(tmp_path, capsys):
